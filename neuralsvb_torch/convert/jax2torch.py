@@ -1,0 +1,183 @@
+"""JAX (flax) params -> the port's ``state_dict``: the exact inverse of
+``convert_svbvae_mle_sd`` and ``convert_hifigan`` in
+``neuralsvb_tpu/convert/torch2jax.py``.
+
+Both functions take nested dicts of numpy arrays (no JAX needed) and
+return ``{name: torch.Tensor}`` under the reference parameter names, ready
+for ``load_state_dict``. Layout rules:
+
+- conv ``[k, in, out]`` -> ``[out, in, k]``
+- ConvTranspose (``transpose_kernel=True``) ``[k, out, in]`` -> ``[in, out, k]``
+- dense ``[in, out]`` -> ``[out, in]``
+- BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> ``weight``/``bias`` +
+  ``running_mean``/``running_var`` (``num_batches_tracked`` = 0)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+Tree = Dict[str, Any]
+
+
+class _SD(dict):
+    def put(self, name: str, arr) -> None:
+        self[name] = torch.from_numpy(np.ascontiguousarray(np.asarray(arr)))
+
+    def conv(self, prefix: str, p: Tree) -> None:
+        """flax Conv kernel [k, in, out] -> torch [out, in, k]."""
+        self.put(f"{prefix}.weight", np.asarray(p["kernel"]).transpose(2, 1, 0))
+        if "bias" in p:
+            self.put(f"{prefix}.bias", p["bias"])
+
+    def convt(self, prefix: str, p: Tree) -> None:
+        """flax ConvTranspose kernel [k, out, in] -> torch [in, out, k]."""
+        self.conv(prefix, p)
+
+    def dense(self, prefix: str, p: Tree) -> None:
+        self.put(f"{prefix}.weight", np.asarray(p["kernel"]).T)
+        if "bias" in p:
+            self.put(f"{prefix}.bias", p["bias"])
+
+    def norm(self, prefix: str, p: Tree) -> None:
+        self.put(f"{prefix}.weight", p["scale"])
+        self.put(f"{prefix}.bias", p["bias"])
+
+    def bn(self, prefix: str, p: Tree, s: Tree) -> None:
+        """Our BatchNorm1d wrapper keeps its flax BatchNorm as BatchNorm_0."""
+        self.norm(prefix, p["BatchNorm_0"])
+        self.put(f"{prefix}.running_mean", s["BatchNorm_0"]["mean"])
+        self.put(f"{prefix}.running_var", s["BatchNorm_0"]["var"])
+        self[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _wn(sd: _SD, prefix: str, p: Tree) -> None:
+    if "cond_layer" in p:
+        sd.conv(f"{prefix}.cond_layer", p["cond_layer"])
+    n = sum(1 for k in p if k.startswith("in_layer_"))
+    for i in range(n):
+        sd.conv(f"{prefix}.in_layers.{i}", p[f"in_layer_{i}"])
+        sd.conv(f"{prefix}.res_skip_layers.{i}", p[f"res_skip_{i}"])
+
+
+def _conformer(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
+    n = sum(1 for k in p if k.startswith("layer_"))
+    for i in range(n):
+        lp, base = p[f"layer_{i}"], f"{prefix}.encoder_layers.{i}"
+        for jax_name, torch_name in (("ff_macaron", "feed_forward_macaron"),
+                                     ("ff", "feed_forward")):
+            sd.conv(f"{base}.{torch_name}.w_1", lp[jax_name]["Conv_0"])
+            sd.conv(f"{base}.{torch_name}.w_2", lp[jax_name]["Conv_1"])
+        a = lp["self_attn"]
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+            sd.dense(f"{base}.self_attn.{name}", a[name])
+        sd.put(f"{base}.self_attn.pos_bias_u", a["pos_bias_u"])
+        sd.put(f"{base}.self_attn.pos_bias_v", a["pos_bias_v"])
+        cp = lp["conv_module"]
+        sd.conv(f"{base}.conv_module.pointwise_conv1", cp["Conv_0"])
+        sd.conv(f"{base}.conv_module.depthwise_conv", cp["Conv_1"])
+        sd.conv(f"{base}.conv_module.pointwise_conv2", cp["Conv_2"])
+        sd.bn(f"{base}.conv_module.norm", cp["BatchNorm1d_0"],
+              s[f"layer_{i}"]["conv_module"]["BatchNorm1d_0"])
+        for name in ("norm_ff_macaron", "norm_mha", "norm_conv", "norm_ff",
+                     "norm_final"):
+            sd.norm(f"{base}.{name}", lp[name])
+    if "last_norm" in p:
+        sd.norm(f"{prefix}.layer_norm", p["last_norm"])
+    elif "last_proj" in p:
+        sd.dense(f"{prefix}.layer_norm", p["last_proj"])
+
+
+def _vcasr(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
+    pn, ps = p["mel_prenet"], s["mel_prenet"]
+    n = sum(1 for k in pn if k.startswith("Conv_"))
+    for i in range(n):
+        sd.conv(f"{prefix}.mel_prenet.layers.{i}.0", pn[f"Conv_{i}"])
+        sd.bn(f"{prefix}.mel_prenet.layers.{i}.2", pn[f"BatchNorm1d_{i}"],
+              ps[f"BatchNorm1d_{i}"])
+    sd.dense(f"{prefix}.mel_prenet.out_proj", pn["Dense_0"])
+    _conformer(sd, f"{prefix}.content_encoder", p["content_encoder"],
+               s["content_encoder"])
+
+
+def _conv_stacks(sd: _SD, prefix: str, p: Tree) -> None:
+    sd.dense(f"{prefix}.in_proj", p["Dense_0"])
+    n = sum(1 for k in p if k.startswith("ConvBlock_"))
+    for i in range(n):
+        blk = p[f"ConvBlock_{i}"]
+        sd.conv(f"{prefix}.conv.{i}.conv.conv", blk["ConvNorm_0"]["Conv_0"])
+        sd.norm(f"{prefix}.conv.{i}.norm", blk["GroupNorm_0"])
+    sd.dense(f"{prefix}.out_proj", p["Dense_1"])
+
+
+def _global_fvae(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
+    sd.conv(f"{prefix}.g_pre_net.0", p["g_pre_0"])
+    enc, dec = p["encoder"], p["decoder"]
+    sd.conv(f"{prefix}.encoder.pre_net.0", enc["pre_0"])
+    _wn(sd, f"{prefix}.encoder.wn", enc["wn"])
+    sd.conv(f"{prefix}.encoder.out_proj", enc["out_proj"])
+    for i, ci in enumerate((0, 3, 6)):
+        sd.conv(f"{prefix}.encoder.poolings.{ci}", enc[f"pool_{i}"])
+    for i, bi in enumerate((2, 5)):
+        sd.bn(f"{prefix}.encoder.poolings.{bi}", enc[f"pool_bn_{i}"],
+              s["encoder"][f"pool_bn_{i}"])
+    sd.convt(f"{prefix}.decoder.pre_net.0", dec["pre_0"])
+    _wn(sd, f"{prefix}.decoder.wn", dec["wn"])
+    sd.conv(f"{prefix}.decoder.out_proj", dec["out_proj"])
+
+
+def _global_latent_map(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
+    for i, ci in enumerate((0, 3, 6)):
+        sd.conv(f"{prefix}.convs.{ci}", p[f"conv_{i}"])
+    for i, bi in enumerate((1, 4)):
+        sd.bn(f"{prefix}.convs.{bi}", p[f"bn_{i}"], s[f"bn_{i}"])
+    sd.conv(f"{prefix}.spk_proj.0", p["spk_proj_0"])
+    sd.conv(f"{prefix}.spk_proj.2", p["spk_proj_1"])
+
+
+def svbvae_mle_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+    """``SVBVAE(variant="mle")`` params + batch_stats -> port state_dict."""
+    sd = _SD()
+    sd.put("pitch_embed.weight", params["pitch_embed"]["Embed_0"]["embedding"])
+    _conv_stacks(sd, "pitch_encoder", params["pitch_encoder"])
+    _vcasr(sd, "vc_asr", params["vc_asr"], batch_stats["vc_asr"])
+    up, us = params["upsample_layer"], batch_stats["upsample_layer"]
+    sd.conv("upsample_layer.0.1", up["conv_0"])
+    sd.bn("upsample_layer.0.3", up["bn_0"], us["bn_0"])
+    sd.conv("upsample_layer.1", up["conv_out"])
+    sd.dense("spk_embed_proj", params["spk_embed_proj"])
+    sd.dense("encoded_embed_proj", params["encoded_embed_proj"])
+    _global_fvae(sd, "vae_model", params["vae_model"], batch_stats["vae_model"])
+    _global_latent_map(sd, "z_mapping_function", params["z_mapping_function"],
+                       batch_stats["z_mapping_function"])
+    return dict(sd)
+
+
+def hifigan_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """``HifiGanGenerator`` params -> port state_dict."""
+    sd = _SD()
+    sd.conv("conv_pre", params["conv_pre"])
+    sd.conv("conv_post", params["conv_post"])
+    if "m_source" in params:
+        sd.dense("m_source.l_linear", params["m_source"]["l_linear"])
+    n_up = sum(1 for k in params if k.startswith("up_"))
+    n_k = sum(1 for k in params if k.startswith("resblock_0_"))
+    for i in range(n_up):
+        sd.convt(f"ups.{i}", params[f"up_{i}"])
+        if f"noise_conv_{i}" in params:
+            sd.conv(f"noise_convs.{i}", params[f"noise_conv_{i}"])
+        for j in range(n_k):
+            blk, r = params[f"resblock_{i}_{j}"], i * n_k + j
+            if "conv1_0" in blk:
+                n = sum(1 for k in blk if k.startswith("conv1_"))
+                for c in range(n):
+                    sd.conv(f"resblocks.{r}.convs1.{c}", blk[f"conv1_{c}"])
+                    sd.conv(f"resblocks.{r}.convs2.{c}", blk[f"conv2_{c}"])
+            else:
+                n = sum(1 for k in blk if k.startswith("conv_"))
+                for c in range(n):
+                    sd.conv(f"resblocks.{r}.convs.{c}", blk[f"conv_{c}"])
+    return dict(sd)

@@ -1,0 +1,199 @@
+"""Datasets over packed IndexedDatasets, producing numpy batches; port of the
+test-split path of ``neuralsvb_tpu/data/datasets.py`` (reference:
+tasks/tts/dataset_utils.py:15-236, tasks/singing/neural_svb_task.py:10-86,
+tasks/singing/svb_vae_task.py:20-45).
+
+Samples are numpy dicts and stay on the host; the task moves a collated
+batch to its device in one step. Mels crop to ``max_frames`` then floor to a
+multiple of ``frames_multiple``; the collater pads time axes up to a
+multiple of ``collate_bucket_quant`` (default ``8 * frames_multiple``).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..hparams import hparams as global_hparams
+from ..ops.pitch_utils import f0_to_coarse, norm_interp_f0
+from .batching import collate_1d, collate_2d, ordered_indices
+from .indexed_dataset import IndexedDataset
+
+
+class BaseDataset:
+    def __init__(self, shuffle: bool = False, hp: Optional[dict] = None):
+        self.hparams = hp if hp is not None else global_hparams
+        self.shuffle = shuffle
+        self.sort_by_len = self.hparams.get("sort_by_len", True)
+        self.sizes = None
+        self._rng = np.random.RandomState(self.hparams.get("seed", 1234))
+
+    def __getitem__(self, index):
+        raise NotImplementedError
+
+    def collater(self, samples):
+        raise NotImplementedError
+
+    def __len__(self):
+        return len(self.sizes)
+
+    def ordered_indices(self):
+        return ordered_indices(self.sizes, self.shuffle, self.sort_by_len, self._rng)
+
+    @property
+    def bucket_quant(self):
+        return int(self.hparams.get("collate_bucket_quant",
+                                    8 * self.hparams.get("frames_multiple", 1)))
+
+
+class BaseTTSDataset(BaseDataset):
+    def __init__(self, prefix: str, shuffle: bool = False, data_dir=None, hp=None):
+        super().__init__(shuffle, hp)
+        hp = self.hparams
+        self.data_dir = hp["binary_data_dir"] if data_dir is None else data_dir
+        self.prefix = prefix
+        self.indexed_ds = None
+        self.sizes = np.load(f"{self.data_dir}/{prefix}_lengths.npy").tolist()
+        if (prefix == "test" or hp.get("infer")) and hp.get("num_test_samples", 0) > 0:
+            self.avail_idxs = [x for x in range(hp["num_test_samples"])
+                               if x < len(self.sizes)]
+            self.avail_idxs = list(hp.get("test_ids", [])) + self.avail_idxs
+        else:
+            self.avail_idxs = list(range(len(self.sizes)))
+        if hp.get("min_frames", 0) > 0:
+            self.avail_idxs = [x for x in self.avail_idxs
+                               if self.sizes[x] >= hp["min_frames"]]
+        self.sizes = [self.sizes[i] for i in self.avail_idxs]
+
+    def _get_item(self, index):
+        index = self.avail_idxs[index]
+        if self.indexed_ds is None:
+            self.indexed_ds = IndexedDataset(f"{self.data_dir}/{self.prefix}")
+        return self.indexed_ds[index]
+
+    def _crop(self, arr):
+        hp = self.hparams
+        arr = np.asarray(arr)[: hp["max_frames"]]
+        fm = hp.get("frames_multiple", 1)
+        return arr[: len(arr) // fm * fm]
+
+    def __getitem__(self, index):
+        item = self._get_item(index)
+        return {"item_name": item["item_name"],
+                "mel": self._crop(item["mel"]).astype(np.float32)}
+
+    def collater(self, samples: List[dict]) -> Dict:
+        if not samples:
+            return {}
+        bq = self.bucket_quant
+        return {
+            "item_name": [s["item_name"] for s in samples],
+            "nsamples": len(samples),
+            "mels": collate_2d([s["mel"] for s in samples], 0.0, bucket_quant=bq),
+            "mel_lengths": np.asarray([len(s["mel"]) for s in samples], np.int64),
+        }
+
+
+class FastSpeechDataset(BaseTTSDataset):
+    def __init__(self, prefix, shuffle=False, data_dir=None, hp=None):
+        super().__init__(prefix, shuffle, data_dir, hp)
+        stats_fn = f"{self.data_dir}/train_f0s_mean_std.npy"
+        if os.path.exists(stats_fn):
+            mean, std = np.load(stats_fn)
+            self.hparams["f0_mean"] = float(mean)
+            self.hparams["f0_std"] = float(std)
+
+    def _pitch_sample(self, item, max_frames, prefix=""):
+        hp = self.hparams
+        f0_raw = np.asarray(item[f"{prefix}f0"], np.float64)
+        if hp.get("normalize_pitch", False):
+            f0 = f0_raw.copy()
+            v = f0 > 0
+            if v.any() and f0[v].std() > 0:
+                f0[v] = ((f0[v] - f0[v].mean()) / f0[v].std() * hp["f0_std"]
+                         + hp["f0_mean"])
+                hi = 900 if prefix else 500
+                f0[v] = f0[v].clip(60, hi)
+            pitch = f0_to_coarse(f0)[:max_frames].astype(np.int64)
+        else:
+            pitch = (np.asarray(item[f"{prefix}pitch"], np.int64)[:max_frames]
+                     if f"{prefix}pitch" in item else None)
+        f0, uv = norm_interp_f0(f0_raw[:max_frames], hp)
+        return f0.astype(np.float32), uv.astype(np.float32), pitch
+
+    def __getitem__(self, index):
+        sample = super().__getitem__(index)
+        item = self._get_item(index)
+        f0, uv, pitch = self._pitch_sample(item, len(sample["mel"]))
+        sample["f0"], sample["uv"], sample["pitch"] = f0, uv, pitch
+        return sample
+
+    def collater(self, samples):
+        if not samples:
+            return {}
+        batch = super().collater(samples)
+        bq = self.bucket_quant
+        batch["f0"] = collate_1d([s["f0"] for s in samples], 0.0, bucket_quant=bq)
+        batch["pitch"] = collate_1d([s["pitch"] for s in samples], 0, bucket_quant=bq)
+        batch["uv"] = collate_1d([s["uv"] for s in samples], 0.0, bucket_quant=bq)
+        return batch
+
+
+class FastSingingDataset(FastSpeechDataset):
+    """Adds the prof_* (professional) side
+    (reference: tasks/singing/neural_svb_task.py:10-62)."""
+
+    def __getitem__(self, index):
+        sample = super().__getitem__(index)
+        item = self._get_item(index)
+        prof_spec = self._crop(item["prof_mel"]).astype(np.float32)
+        sample["prof_mel"] = prof_spec
+        f0, uv, pitch = self._pitch_sample(item, len(prof_spec), prefix="prof_")
+        sample["prof_f0"], sample["prof_uv"], sample["prof_pitch"] = f0, uv, pitch
+        return sample
+
+    def collater(self, samples):
+        if not samples:
+            return {}
+        batch = super().collater(samples)
+        bq = self.bucket_quant
+        batch["prof_f0"] = collate_1d([s["prof_f0"] for s in samples], 0.0,
+                                      bucket_quant=bq)
+        batch["prof_pitch"] = collate_1d([s["prof_pitch"] for s in samples], 0,
+                                         bucket_quant=bq)
+        batch["prof_uv"] = collate_1d([s["prof_uv"] for s in samples], 0.0,
+                                      bucket_quant=bq)
+        batch["prof_mels"] = collate_2d([s["prof_mel"] for s in samples], 0.0,
+                                        bucket_quant=bq)
+        batch["prof_mel_lengths"] = np.asarray(
+            [len(s["prof_mel"]) for s in samples], np.int64)
+        return batch
+
+
+class MultiSpkEmbDataset(FastSingingDataset):
+    """Adds a2p_f0_alignment + multi_spk_emb
+    (reference: tasks/singing/svb_vae_task.py:20-45)."""
+
+    def __getitem__(self, index):
+        sample = super().__getitem__(index)
+        item = self._get_item(index)
+        T_p = len(sample["prof_pitch"])
+        T_a = len(sample["pitch"])
+        align = np.asarray(item["a2p_f0_alignment"], np.int64)[:T_p].clip(max=T_a - 1)
+        if align.shape != sample["prof_pitch"].shape:
+            raise ValueError(f"a2p alignment shape {align.shape} != prof pitch "
+                             f"shape {sample['prof_pitch'].shape}")
+        sample["a2p_f0_alignment"] = align
+        sample["multi_spk_emb"] = np.asarray(item["multi_spk_emb"], np.float32)
+        return sample
+
+    def collater(self, samples):
+        if not samples:
+            return {}
+        batch = super().collater(samples)
+        batch["a2p_f0_alignment"] = collate_1d(
+            [s["a2p_f0_alignment"] for s in samples], 0, bucket_quant=self.bucket_quant)
+        batch["multi_spk_emb"] = np.stack([s["multi_spk_emb"] for s in samples])
+        return batch

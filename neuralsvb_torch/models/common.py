@@ -1,0 +1,139 @@
+"""Common building blocks; port of the parts of
+``neuralsvb_tpu/models/common.py`` on the inference path (reference:
+modules/commons/common_layers.py:63-772, modules/fastspeech/pe.py:7-41).
+
+Layout is torch's ``[B, C, T]`` with masks ``[B, 1, T]``. Parameter names
+are the reference PyTorch names, so ``neuralsvb_tpu/convert/torch2jax.py``
+maps a ``state_dict`` of these modules onto the JAX package. Normalization
+epsilons follow the JAX package (flax defaults), which is what the parity
+tests hold the port to.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+LN_EPS = 1e-6  # flax LayerNorm / GroupNorm default
+BN_EPS = 1e-5
+
+
+def draw_normal(shape, like: torch.Tensor, generator: Optional[torch.Generator],
+                zero_noise: bool) -> torch.Tensor:
+    """Standard normal noise on ``like``'s device, drawn from ``generator``;
+    exact zeros when ``zero_noise`` (deterministic mean decoding)."""
+    if zero_noise:
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+    if generator is None:
+        raise ValueError("pass a torch.Generator, or zero_noise=True")
+    return torch.randn(shape, generator=generator, dtype=like.dtype,
+                       device=like.device)
+
+
+def linear_ct(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """Apply a Linear over the channel dim of [B, C, T]."""
+    return F.conv1d(x, layer.weight[:, :, None], layer.bias)
+
+
+class Embedding(nn.Embedding):
+    """Embedding whose padding row reads as zero (reference:
+    common_layers.py:63-69)."""
+
+    def __init__(self, num_embeddings: int, features: int, padding_idx: int = 0):
+        super().__init__(num_embeddings, features, padding_idx=padding_idx)
+        nn.init.normal_(self.weight, 0.0, features ** -0.5)
+        with torch.no_grad():
+            self.weight[padding_idx].zero_()
+
+    def forward(self, ids):
+        emb = super().forward(ids)
+        return emb * (ids != self.padding_idx)[..., None].to(emb.dtype)
+
+
+def masked_group_norm(x, mask, norm: nn.GroupNorm):
+    """GroupNorm over [B, C, T] whose statistics cover valid frames only
+    (flax ``GroupNorm(mask=...)``), so padded batches match unpadded runs."""
+    B, C, T = x.shape
+    G = norm.num_groups
+    xg = x.reshape(B, G, C // G, T)
+    m = mask[:, None].to(x.dtype)  # [B, 1, 1, T]
+    n = (m.sum((2, 3), keepdim=True) * (C // G)).clamp_min(1.0)
+    mean = (xg * m).sum((2, 3), keepdim=True) / n
+    var = (((xg - mean) ** 2) * m).sum((2, 3), keepdim=True) / n
+    y = ((xg - mean) * torch.rsqrt(var + norm.eps)).reshape(B, C, T)
+    return y * norm.weight[None, :, None] + norm.bias[None, :, None]
+
+
+class ConvNorm(nn.Module):
+    """Conv1d with symmetric 'same' padding (reference ConvNorm)."""
+
+    def __init__(self, c_in, c_out, kernel_size=1, stride=1, dilation=1):
+        super().__init__()
+        pad = (dilation * (kernel_size - 1)) // 2
+        self.conv = nn.Conv1d(c_in, c_out, kernel_size, stride=stride,
+                              padding=pad, dilation=dilation)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class ConvBlock(nn.Module):
+    """conv -> GroupNorm (masked statistics) -> ReLU (reference:
+    common_layers.py:736-772; dropout is inactive at inference)."""
+
+    def __init__(self, c_in, c_out, kernel_size=3, stride=1):
+        super().__init__()
+        self.conv = ConvNorm(c_in, c_out, kernel_size, stride)
+        self.norm = nn.GroupNorm(c_out // 16, c_out, eps=LN_EPS)
+
+    def forward(self, x, x_mask):
+        return F.relu(masked_group_norm(self.conv(x), x_mask, self.norm))
+
+
+class ConvStacks(nn.Module):
+    """Residual conv stack (reference: common_layers.py:672-707).
+    x [B, idim, T] -> [B, odim, T]; ``x_mask`` [B, 1, T] re-zeroes padded
+    frames after every layer."""
+
+    def __init__(self, idim, n_layers=5, n_chans=256, odim=32, kernel_size=5):
+        super().__init__()
+        self.in_proj = nn.Linear(idim, n_chans)
+        self.conv = nn.ModuleList(
+            [ConvBlock(n_chans, n_chans, kernel_size) for _ in range(n_layers)])
+        self.out_proj = nn.Linear(n_chans, odim)
+
+    def forward(self, x, x_mask):
+        x = linear_ct(self.in_proj, x) * x_mask
+        for blk in self.conv:
+            x = x + blk(x, x_mask) * x_mask
+        return linear_ct(self.out_proj, x) * x_mask
+
+
+class Prenet(nn.Module):
+    """Strided conv prenet with padding-mask propagation
+    (reference: modules/fastspeech/pe.py:7-41). x [B, in_dim, T] ->
+    (hidden, out), both [B, out_dim, T / prod(strides)]."""
+
+    def __init__(self, in_dim=80, out_dim=256, kernel=5,
+                 strides: Sequence[int] = (2, 1, 1)):
+        super().__init__()
+        self.strides = list(strides)
+        self.layers = nn.ModuleList()
+        for i, s in enumerate(self.strides):
+            self.layers.append(nn.Sequential(
+                nn.Conv1d(in_dim if i == 0 else out_dim, out_dim, kernel,
+                          stride=s, padding=kernel // 2),
+                nn.ReLU(),
+                nn.BatchNorm1d(out_dim, eps=BN_EPS)))
+        self.out_proj = nn.Linear(out_dim, out_dim)
+
+    def forward(self, x):
+        nonpadding = (x.abs().sum(1, keepdim=True) > 0).to(x.dtype)  # [B, 1, T]
+        h = x
+        for s, layer in zip(self.strides, self.layers):
+            nonpadding = nonpadding[:, :, ::s]
+            h = layer(h) * nonpadding
+        return h, linear_ct(self.out_proj, h) * nonpadding

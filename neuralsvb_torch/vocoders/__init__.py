@@ -1,0 +1,4 @@
+"""Vocoder API: registry + mel->wav inference wrappers."""
+
+from .base import BaseVocoder, get_vocoder_cls, register_vocoder  # noqa: F401
+from . import hifigan as _hifigan  # noqa: F401  (registers HifiGAN)

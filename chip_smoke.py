@@ -6,12 +6,17 @@ card and the CUDA toolkit (nvcc); without them it raises and exits non-zero.
 Every phase prints one JSON line; any failure raises.
 
 1. environment: torch / CUDA versions, the card, its power limit;
-2. build: nvcc builds ``neuralsvb_torch/csrc/fused_resblock.cu`` for sm_90a;
+2. build, all at once: nvcc builds ``neuralsvb_torch/csrc/fused_resblock.cu``
+   and ``csrc/chi2_dist.cu`` for sm_90a, g++ the host DTW/Viterbi library
+   (``neuralsvb_tpu/native/dtw.cpp``); ptxas's lines are printed;
 3. kernel vs plain: the ResBlock-cluster kernel against its plain PyTorch
    version (``F.conv1d``, TF32 off) at the flagship vocoder's stage shapes
    for 1024 mel frames, a ragged length and B=2, max|d| <= 1e-4 * max(1,
    max|ref|); median times over 20 runs from CUDA events; the autograd path's
-   gradients;
+   gradients. Then the chi-square DTW cost kernel against its plain version
+   at (S, T) = (2400, 2400), (1037, 1301), (130, 70), (1, 1), M = 48, on
+   EHSADTW histograms of vibrato f0 and on random rows with all-zero rows,
+   max|d| <= 1e-5;
 4. main path: ``python -m neuralsvb_torch.tasks.run --infer`` on a synthetic
    4-utterance packed test split (6-10 s each) at the flagship widths
    (SVBVAE hidden 256 / latent 128 / FVAE 192 k5 8+4, 2-layer conformer
@@ -20,7 +25,20 @@ Every phase prints one JSON line; any failure raises.
    silent, and launch the kernel 18 x 3 stages x 20 vocoder calls times;
 5. card vs CPU: one utterance at zero noise through the port's slice on the
    card (kernel) and on the CPU (plain versions, which the CPU tests hold to
-   the JAX package): mel_out and wav within 1e-3, TF32 off.
+   the JAX package): mel_out and wav within 1e-3, TF32 off;
+6. binarize path: 8 synthetic amateur/professional pairs of sung vibrato
+   (2 singers x 2 songs x 2 pieces, amateur 6-14 s, professional 5-15%
+   longer or shorter, one singer the test split) through both passes of the
+   flagship's binarize recipe, ``python -m neuralsvb_torch.data.binarize``
+   with ``save_emb_torch.yaml`` then ``para_bin_torch.yaml`` on the card
+   (seeded GE2E weights). Every item must carry the packed keys, with an
+   in-range monotone ``a2p_f0_alignment``; the chi-square kernel must launch
+   once per paired item; the port's ``MultiSpkEmbDataset`` must collate the
+   test split;
+7. binarize, card vs CPU: the test split again on the CPU: mel within 1e-4,
+   f0 within 1 Hz and the alignment equal on >= 99% of frames, the DTW's
+   total path cost over the card's and the CPU's cost within 1e-4 relative,
+   the item's own speaker embedding within 1e-4.
 
 The line before the last is the kernel table; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +54,7 @@ import subprocess
 import sys
 import time
 import wave
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
@@ -43,6 +62,16 @@ UTT_FRAMES = (1040, 1300, 1560, 1780)  # 6.0 - 10.3 s at hop 128, 22050 Hz
 STAGE_SHAPES = ((1, 256, 8192), (1, 128, 65536), (1, 64, 131072))  # T_mel 1024
 EXTRA_SHAPES = ((1, 256, 8000), (2, 128, 16384))  # ragged T, B = 2
 TPU_KERNEL = "neuralsvb_tpu/ops/fused_resblock.py:82"
+CHI2_SHAPES = ((2400, 2400), (1037, 1301), (130, 70), (1, 1))  # (S, T), M = 48
+CHI2_TPU_KERNEL = "neuralsvb_tpu/ops/pallas_kernels.py:33"
+# binarize: (singer, song, base Hz); 2 pieces per song; Male6 is the test split
+SONGS = (("Female1", "SongA", 220.0), ("Female1", "SongB", 262.0),
+         ("Male6", "SongC", 147.0), ("Male6", "SongD", 165.0))
+AMATEUR_SECONDS = (6.0, 14.0, 7.2, 12.6, 8.4, 11.4, 9.6, 13.2)
+PROF_FACTOR = (1.05, 0.95, 1.15, 0.85, 1.10, 0.90, 1.08, 0.92)
+PAIR_KEYS = ("mel", "prof_mel", "f0", "prof_f0", "pitch", "prof_pitch",
+             "a2p_f0_alignment", "multi_spk_emb")
+SR = 22050
 
 
 def emit(phase, **kw):
@@ -253,6 +282,249 @@ def phase_card_vs_cpu(voc):
         raise AssertionError(f"card vs CPU: mel {mel_err}, wav {wav_err}")
 
 
+def vibrato_f0(n, period, seed):
+    """A sung f0 contour in Hz: vibrato, jitter and one unvoiced stretch."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    f0 = 220 + 40 * np.sin(2 * np.pi * np.arange(n) / period) + rng.randn(n)
+    f0[n // 3: n // 3 + n // 12] = 0.0
+    return f0
+
+
+def chi2_inputs(S, T, seed):
+    """Two (a, b) pairs of [S, 48] / [T, 48] f32: the EHSADTW histograms of
+    two vibrato contours, and random nonnegative rows with all-zero rows."""
+    import numpy as np
+    from neuralsvb_torch.ops.dtw import f0_shape_histogram
+    sh = f0_shape_histogram(vibrato_f0(S, 50, seed), enhanced=True)
+    th = f0_shape_histogram(vibrato_f0(T, 55, seed + 1), enhanced=True,
+                            scale_factor=T / S)
+    rng = np.random.RandomState(seed)
+    a, b = rng.rand(S, 48), rng.rand(T, 48)
+    a /= a.sum(1, keepdims=True)
+    b /= b.sum(1, keepdims=True)
+    a[::7] = 0.0
+    b[::5] = 0.0
+    return [(sh, th), (a, b)]
+
+
+def phase_chi2(chi2):
+    import torch
+    rows, worst = [], 0.0
+    for i, (S, T) in enumerate(CHI2_SHAPES):
+        errs = []
+        for a, b in chi2_inputs(S, T, seed=i):
+            a = torch.as_tensor(a, dtype=torch.float32, device="cuda")
+            b = torch.as_tensor(b, dtype=torch.float32, device="cuda")
+            out = chi2.chi2_dist(a, b)
+            ref = chi2.chi2_dist_plain(a, b)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out).all()) or out.shape != (S, T):
+                raise AssertionError(f"chi2_dist: {tuple(out.shape)} at {(S, T)}")
+            errs.append(float((out - ref).abs().max()))
+        # timed on the histograms (the binarizer's inputs)
+        a, b = (torch.as_tensor(x, dtype=torch.float32, device="cuda")
+                for x in chi2_inputs(S, T, seed=i)[0])
+        kernel_ms = median_ms(lambda: chi2.chi2_dist(a, b))
+        plain_ms = median_ms(lambda: chi2.chi2_dist_plain(a, b))
+        err = max(errs)
+        row = dict(S=S, T=T, M=48, max_abs_err=err, hist_err=errs[0],
+                   random_rows_err=errs[1], tol=1e-5, ok=err <= 1e-5,
+                   kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   kernel_gdiv_per_s=S * T * 48 / kernel_ms / 1e6)
+        emit("chi2_kernel_vs_plain", **row)
+        if err > 1e-5:
+            raise AssertionError(f"chi2 kernel disagrees with plain: {row}")
+        rows.append(row)
+        worst = max(worst, err)
+    return rows, worst
+
+
+def write_sung_pairs(root):
+    """2 singers x 2 songs x 2 pieces of sung vibrato at 22050 Hz under
+    ``root/processed/data/p1``; returns the processed dir."""
+    import numpy as np
+    from neuralsvb_torch.ops.audio import save_wav
+
+    def sing(freq, dur, seed):
+        rng = np.random.RandomState(seed)
+        t = np.arange(int(SR * dur)) / SR
+        vib = freq * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))
+        return 0.3 * np.sin(2 * np.pi * np.cumsum(vib) / SR) + 0.01 * rng.randn(len(t))
+
+    out = os.path.join(root, "processed", "data", "p1")
+    os.makedirs(out)
+    for k, (spk, song, freq) in enumerate(SONGS):
+        for idx in range(2):
+            j = 2 * k + idx
+            base = f"{out}/{spk}#singing#{song}"
+            save_wav(sing(freq * 1.02, AMATEUR_SECONDS[j], j), f"{base}_Amateur_{idx}.wav", SR)
+            save_wav(sing(freq, AMATEUR_SECONDS[j] * PROF_FACTOR[j], 100 + j),
+                     f"{base}_Professional_{idx}.wav", SR)
+    return os.path.dirname(os.path.dirname(out))
+
+
+def binarize_configs(root, processed):
+    """The two passes' configs: the port's PopBuTFy yamls, pointed at
+    ``root``; ``ge2e_ckpt: ''`` gives seeded GE2E weights."""
+    import yaml
+    cfgs = {}
+    for name in ("save_emb_torch", "para_bin_torch"):
+        cfgs[name] = os.path.join(root, f"{name}.yaml")
+        with open(cfgs[name], "w") as f:
+            yaml.safe_dump({
+                "base_config": [os.path.join(
+                    REPO, f"egs/datasets/audio/PopBuTFy/{name}.yaml")],
+                "processed_data_dir": processed,
+                "binary_data_dir": os.path.join(root, "binary"),
+                "spk_emb_data_dir": os.path.join(root, "spk_emb"),
+                "test_prefixes": ["Male6#singing#"], "ge2e_ckpt": "",
+                "ds_workers": 1}, f)
+    return cfgs
+
+
+def run_binarize(cfg, device):
+    cmd = [sys.executable, "-m", "neuralsvb_torch.data.binarize", "--config", cfg,
+           "--hparams", f"device={device}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"binarize {cfg} failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    m = re.search(r"^\| binarize summary: (\{.*\})$", proc.stdout, re.M)
+    if m is None:
+        raise RuntimeError(f"no binarize summary in the output:\n{proc.stdout[-4000:]}")
+    return wall, json.loads(m.group(1))
+
+
+def read_split(binary_dir, prefix):
+    from neuralsvb_torch.data.indexed_dataset import IndexedDataset
+    ds = IndexedDataset(os.path.join(binary_dir, prefix))
+    return [ds[i] for i in range(len(ds))]
+
+
+def phase_binarize(device="cuda"):
+    """Both CLI passes on ``device``; returns (configs, chi2 launches)."""
+    import numpy as np
+    from neuralsvb_torch.data.datasets import MultiSpkEmbDataset
+    from neuralsvb_torch.hparams import set_hparams
+    root = os.path.join(WORK, "binarize")
+    cfgs = binarize_configs(root, write_sung_pairs(root))
+    wall_emb, emb = run_binarize(cfgs["save_emb_torch"], device)
+    wall_para, para = run_binarize(cfgs["para_bin_torch"], device)
+    n_items, frames = 0, []
+    for prefix in ("train", "test"):
+        for it in read_split(os.path.join(root, "binary"), prefix):
+            missing = [k for k in PAIR_KEYS if k not in it]
+            al, T_a, T_p = it["a2p_f0_alignment"], len(it["f0"]), len(it["prof_f0"])
+            if (missing or it["mel"].shape != (T_a, 80)
+                    or it["multi_spk_emb"].shape != (5, 256) or al.shape != (T_p,)
+                    or al.min() < 0 or al.max() >= T_a or (np.diff(al[1:]) < 0).any()):
+                raise AssertionError(f"{it['item_name']}: missing {missing}, mel "
+                                     f"{it['mel'].shape}, multi_spk_emb "
+                                     f"{it['multi_spk_emb'].shape}, alignment "
+                                     f"{al.shape} in [{al.min()}, {al.max()}]")
+            n_items += 1
+            frames.append((T_a, T_p))
+    binarized = sum(para["items"].values())  # valid repeats test, as in JAX
+    launches = para["chi2_dist_launches"]
+    hp = set_hparams(config=cfgs["para_bin_torch"], print_hparams=False,
+                     global_hparams=False)
+    ds = MultiSpkEmbDataset("test", hp=hp)
+    batch = ds.collater([ds[i] for i in range(len(ds))])
+    emit("binarize", device=device, pairs=n_items, items_binarized=binarized,
+         frames_amateur_prof=frames, save_emb_wall_s=wall_emb,
+         para_wall_s=wall_para, save_emb_summary=emb, para_summary=para,
+         chi2_dist_launches=launches, collated_mels=list(batch["mels"].shape))
+    if n_items != len(AMATEUR_SECONDS) or para["items"]["test"] != 4:
+        raise AssertionError(f"{n_items} pairs packed, {para['items']}")
+    if device == "cuda" and launches != binarized:
+        raise AssertionError(f"chi2 launches {launches} != items {binarized}")
+    if batch["multi_spk_emb"].shape != (4, 5, 256):
+        raise AssertionError(f"collated multi_spk_emb {batch['multi_spk_emb'].shape}")
+    return cfgs, launches
+
+
+def phase_binarize_card_vs_cpu(cfgs, device="cuda"):
+    """The test split again on the CPU, in this process, against the
+    ``device`` run's items."""
+    import numpy as np
+    import torch
+    from neuralsvb_torch.data import binarizer as B
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.native import dtw_align_native
+    from neuralsvb_torch.ops.chi2 import chi2_dist, chi2_dist_plain
+    from neuralsvb_torch.ops.dtw import f0_shape_histogram
+    root = os.path.join(WORK, "binarize")
+    over = dict(device="cpu", binary_data_dir=os.path.join(root, "binary_cpu"),
+                spk_emb_data_dir=os.path.join(root, "spk_emb_cpu"))
+    os.makedirs(over["binary_data_dir"])
+    for name, cls in (("save_emb_torch", B.SaveSpkEmb),
+                      ("para_bin_torch", B.PopBuTFyENSpkEMBinarizer)):
+        hp = set_hparams(config=cfgs[name], print_hparams=False, global_hparams=False)
+        with hparams_scope(hp, **over):
+            b = cls()
+            b.load_meta_data()
+            b.spk_map = b.build_spk_map()
+            b.process_data("test")
+    card = read_split(os.path.join(root, "binary"), "test")
+    cpu = read_split(over["binary_data_dir"], "test")
+    rows = []
+    for c, h in zip(card, cpu):
+        if c["item_name"] != h["item_name"]:
+            raise AssertionError(f"{c['item_name']} != {h['item_name']}")
+        sh = f0_shape_histogram(c["f0"], enhanced=True)
+        th = f0_shape_histogram(c["prof_f0"], enhanced=True,
+                                scale_factor=len(c["prof_f0"]) / len(c["f0"]))
+        a = torch.as_tensor(sh, dtype=torch.float32)
+        b = torch.as_tensor(th, dtype=torch.float32)
+        cost_card = chi2_dist(a.to(device), b.to(device)).T.contiguous().cpu().numpy()
+        cost_cpu = chi2_dist_plain(a, b).T.contiguous().numpy()
+        total_card = dtw_align_native(cost_card)[1]
+        total_cpu = dtw_align_native(cost_cpu)[1]
+        f0_ok = np.abs(np.concatenate([c["f0"] - h["f0"], c["prof_f0"] - h["prof_f0"]])) <= 1.0
+        rows.append(dict(
+            item=c["item_name"], frames=len(c["f0"]), prof_frames=len(c["prof_f0"]),
+            mel_max_abs_err=float(max(np.abs(c["mel"] - h["mel"]).max(),
+                                      np.abs(c["prof_mel"] - h["prof_mel"]).max())),
+            f0_frames_within_1hz=int(f0_ok.sum()), f0_frames=int(f0_ok.size),
+            align_frames_equal=int((c["a2p_f0_alignment"] == h["a2p_f0_alignment"]).sum()),
+            align_frames=len(c["a2p_f0_alignment"]),
+            dtw_total_card=total_card, dtw_total_cpu=total_cpu,
+            dtw_total_rel_err=abs(total_card - total_cpu) / abs(total_cpu),
+            spk_emb_max_abs_err=float(np.abs(c["multi_spk_emb"][0]
+                                             - h["multi_spk_emb"][0]).max())))
+    ok = len(rows) == 4 and all(
+        r["mel_max_abs_err"] <= 1e-4 and r["f0_frames_within_1hz"] >= 0.99 * r["f0_frames"]
+        and r["align_frames_equal"] >= 0.99 * r["align_frames"]
+        and r["dtw_total_rel_err"] <= 1e-4 and r["spk_emb_max_abs_err"] <= 1e-4
+        for r in rows)
+    emit("binarize_card_vs_cpu", items=rows, ok=ok)
+    if not ok:
+        raise AssertionError(f"binarize card vs CPU: {rows}")
+
+
+def build_all():
+    """nvcc for each CUDA source and g++ for the host library, all started
+    together."""
+    from neuralsvb_torch import native
+    from neuralsvb_torch.ops import chi2, fused_resblock as fr
+    libs = {"fused_resblock": fr.LIBRARY, "chi2_dist": chi2.LIBRARY,
+            "native_dtw": native.LIBRARY}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(lib.get) for lib in libs.values()]:
+            fut.result()
+    emit("build", seconds=time.perf_counter() - t0, libraries={
+        name: dict(source=os.path.relpath(str(lib.source), REPO),
+                   library=os.path.relpath(str(lib.path), REPO),
+                   seconds=lib.build_seconds, flags=lib.flags,
+                   ptxas=[ln.strip() for ln in lib.build_log.splitlines()
+                          if "registers" in ln or "spill" in ln])
+        for name, lib in libs.items()})
+
+
 def main():
     if not os.path.isdir(os.path.join(REPO, "neuralsvb_torch")):
         raise SystemExit("chip_smoke.py runs from a checkout of the repository "
@@ -274,24 +546,23 @@ def main():
          nvidia_smi=smi)
     tf32(False)
 
-    from neuralsvb_torch.ops import fused_resblock as fr
+    from neuralsvb_torch.ops import chi2, fused_resblock as fr
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    t0 = time.perf_counter()
-    fr.build_kernel()
-    ptxas = [ln.strip() for ln in fr.LIBRARY.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=fr.LIBRARY.build_seconds,
-         flags=fr.NVCC_FLAGS, library=os.path.relpath(str(fr.LIBRARY.path), REPO),
-         ptxas=ptxas)
+    build_all()
 
     spec = fr.make_spec((3, 7, 11), ((1, 3, 5),) * 3)
     rows, worst = phase_kernel(fr, spec)
+    chi2_rows, chi2_worst = phase_chi2(chi2)
     voc = vocoder_keys()
     # the --infer process zeroes its count at test_start and reports it at
     # test_end: the count covers the main path's test loop only
     launches = phase_main_path(voc)
     phase_card_vs_cpu(voc)
+    # each binarize process starts its count at 0 and reports it in its
+    # summary: the count covers the binarize main path only
+    cfgs, chi2_launches = phase_binarize()
+    phase_binarize_card_vs_cpu(cfgs)
 
     stage = rows[:len(STAGE_SHAPES)]
     print(json.dumps({"kernels": [{
@@ -299,7 +570,12 @@ def main():
         "source": "neuralsvb_torch/csrc/fused_resblock.cu",
         "replaces": TPU_KERNEL, "launches": launches, "max_abs_err": worst,
         "ms": sum(r["kernel_ms"] for r in stage),
-        "plain_ms": sum(r["plain_ms"] for r in stage)}]}), flush=True)
+        "plain_ms": sum(r["plain_ms"] for r in stage)}, {
+        "name": "chi2_dist", "route": "cuda",
+        "source": "neuralsvb_torch/csrc/chi2_dist.cu",
+        "replaces": CHI2_TPU_KERNEL, "launches": chi2_launches,
+        "max_abs_err": chi2_worst, "ms": chi2_rows[0]["kernel_ms"],
+        "plain_ms": chi2_rows[0]["plain_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -1,8 +1,8 @@
 """JAX (flax) params -> the port's ``state_dict``: the exact inverse of
-``convert_svbvae_mle_sd`` and ``convert_hifigan`` in
+``convert_svbvae_mle_sd``, ``convert_hifigan`` and ``convert_ge2e`` in
 ``neuralsvb_tpu/convert/torch2jax.py``.
 
-Both functions take nested dicts of numpy arrays (no JAX needed) and
+The functions take nested dicts of numpy arrays (no JAX needed) and
 return ``{name: torch.Tensor}`` under the reference parameter names, ready
 for ``load_state_dict``. Layout rules:
 
@@ -153,6 +153,28 @@ def svbvae_mle_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tens
     _global_fvae(sd, "vae_model", params["vae_model"], batch_stats["vae_model"])
     _global_latent_map(sd, "z_mapping_function", params["z_mapping_function"],
                        batch_stats["z_mapping_function"])
+    return dict(sd)
+
+
+def ge2e_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """Flax ``VoiceEncoder`` params (layers ``OptimizedLSTMCell_{i}``, the
+    tree the flax model has) -> Resemblyzer-named state_dict; per layer the
+    inverse of ``lstm_layer_to_flax``. Flax keeps one Dense per gate (i, f,
+    g, o, torch's order), with the bias only on the hidden projection, so it
+    all goes to ``bias_ih`` and ``bias_hh`` is zero."""
+    sd = _SD()
+    gates = ("i", "f", "g", "o")
+    n = sum(1 for k in params if k.startswith("OptimizedLSTMCell_"))
+    for layer in range(n):
+        cell = params[f"OptimizedLSTMCell_{layer}"]
+        sd.put(f"lstm.weight_ih_l{layer}", np.concatenate(
+            [np.asarray(cell[f"i{g}"]["kernel"]).T for g in gates]))
+        sd.put(f"lstm.weight_hh_l{layer}", np.concatenate(
+            [np.asarray(cell[f"h{g}"]["kernel"]).T for g in gates]))
+        bias = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
+        sd.put(f"lstm.bias_ih_l{layer}", bias)
+        sd.put(f"lstm.bias_hh_l{layer}", np.zeros_like(bias))
+    sd.dense("linear", params["linear"])
     return dict(sd)
 
 

@@ -26,6 +26,7 @@ import os
 import shutil
 from typing import Any, Dict, Optional
 
+import torch
 import yaml
 
 # Module-global hparams dict, read ambiently by tasks/models (reference pattern).
@@ -125,6 +126,19 @@ def load_config_recursive(config_fn: str, _visited=None, _chains=None) -> dict:
     override_config(merged, this_cfg)
     _chains.append(config_fn)
     return merged
+
+
+def resolve_device(name) -> torch.device:
+    """The ``device`` hparam -> torch.device. It must be set: a missing
+    device, or CUDA without a GPU, raises rather than running elsewhere."""
+    if not name:
+        raise ValueError("the device is not set: give the 'device' hparam "
+                         "(cuda or cpu), e.g. --hparams device=cpu")
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={name!r} but torch.cuda.is_available() is "
+                           "False; pass --hparams device=cpu to run on the CPU")
+    return dev
 
 
 class Args:

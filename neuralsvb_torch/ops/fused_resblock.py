@@ -18,8 +18,8 @@ modules/hifigan/hifigan.py:144-169).
   kernel ``csrc/fused_resblock.cu`` 18 times per stage (once per conv) or
   raises. There is no fallback from the kernel to the plain version.
 - The kernel library is built with ``nvcc`` from the package's source at
-  first use, into ``build/kernels/`` of the checkout (``BUILD_DIR``), and
-  loaded with ``ctypes``.
+  first use, into ``build/kernels/`` of the checkout, and loaded with
+  ``ctypes`` (``shared_lib.SharedLibrary``).
 
 Weights are packed once per generator to ``[C_out, k, C_in]`` per conv
 (``pack_tower``), the layout the kernel walks.
@@ -28,16 +28,13 @@ Weights are packed once per generator to ``[C_out, k, C_in]`` per conv
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .shared_lib import NVCC, NVCC_FLAGS, SharedLibrary
 
 LRELU_SLOPE = 0.1
 
@@ -45,21 +42,6 @@ LRELU_SLOPE = 0.1
 ClusterSpec = Tuple[Tuple[int, Tuple[int, ...]], ...]
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_resblock.cu"
-
-
-def _build_dir() -> Path:
-    """``build/kernels/`` of the checkout that holds the package; for an
-    installed package, which has no checkout around it, a cache under the
-    user's ``$HOME``."""
-    root = SOURCE.parents[2]
-    if (root / "pyproject.toml").is_file() and (root / "neuralsvb_torch").is_dir():
-        return root / "build" / "kernels"
-    return Path.home() / ".cache" / "neuralsvb_torch" / "kernels"
-
-
-BUILD_DIR = _build_dir()
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
 
 
 def make_spec(kernel_sizes: Sequence[int],
@@ -109,60 +91,15 @@ def resblock_cluster_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-class _Library:
-    """The nvcc-built shared library, built and loaded once per process."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._lib = None
-        self.path: Optional[Path] = None
-        self.build_log = ""
-        self.build_seconds = 0.0
-
-    def get(self):
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._build_and_load()
-            return self._lib
-
-    def _build_and_load(self):
-        import time
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError(
-                "nvcc not found: the fused ResBlock kernel is built from "
-                f"{SOURCE} with the CUDA toolkit on a machine with an H100")
-        src = SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        self.path = BUILD_DIR / f"libnsvb_fused_resblock_{digest[:12]}.so"
-        if not self.path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-                 str(SOURCE)], capture_output=True, text=True)
-            self.build_seconds = time.perf_counter() - t0
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{self.build_log}")
-            os.replace(tmp, self.path)
-        lib = ctypes.CDLL(str(self.path))
-        fn = lib.nsvb_resblock_conv1d
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ctypes.c_float,
-                       ci, ci, ci, ci, ci, vp]
-        fn.restype = ci
-        return lib
+def _bind(lib) -> None:
+    fn = lib.nsvb_resblock_conv1d
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ctypes.c_float,
+                   ci, ci, ci, ci, ci, vp]
+    fn.restype = ci
 
 
-LIBRARY = _Library()
-
-
-def build_kernel():
-    """Build (if needed) and load the kernel library; returns it."""
-    return LIBRARY.get()
+LIBRARY = SharedLibrary("nsvb_fused_resblock", SOURCE, NVCC, NVCC_FLAGS, _bind)
 
 
 def _ptr(t: Optional[torch.Tensor]):

@@ -1,0 +1,55 @@
+"""STFT + log-mel frontend of the binarizer; port of
+``neuralsvb_tpu/ops/stft.py`` (reference: data_gen/tts/data_gen_utils.py:93-147
+``process_utterance`` and vocoders/pwg.py:105-122 ``wav2spec``).
+
+Centered STFT with constant (zero) padding, periodic hann window, magnitude,
+Slaney mel basis and ``log10(max(eps, .))``. ``log_mel`` runs on the
+binarizer's device in float64, the precision of the JAX binarizer's numpy
+path (``log_mel_np``); the H100 runs FP64 at full rate. No Pallas kernel is
+involved: the FFT and the mel matmul are library calls.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .mel_filters import mel_filterbank
+
+
+def hann_window(win_size: int, dtype=np.float64) -> np.ndarray:
+    """Periodic (fftbins=True) hann window, matching scipy/librosa."""
+    n = np.arange(win_size, dtype=np.float64)
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_size)
+    return w.astype(dtype)
+
+
+def n_frames_for(n_samples: int, hop_size: int) -> int:
+    """Number of centered-STFT frames for a signal of ``n_samples``."""
+    return 1 + n_samples // hop_size
+
+
+def pad_wav_to_frames(wav: np.ndarray, fft_size: int, hop_size: int) -> np.ndarray:
+    """Right-pad the wav to a whole number of hops then truncate to
+    ``n_frames * hop`` samples (reference: utils/audio.py:67-76 +
+    data_gen_utils.py:137-139)."""
+    n_frames = n_frames_for(len(wav), hop_size)
+    pad = (len(wav) // hop_size + 1) * hop_size - len(wav)
+    wav = np.pad(wav, (0, pad), mode="constant")
+    return wav[: n_frames * hop_size]
+
+
+def log_mel(wav: np.ndarray, hp: dict, device: torch.device) -> torch.Tensor:
+    """log10-mel spectrogram ``[1 + N // hop, num_mels]`` float32 on
+    ``device`` (the layout of ``log_mel_np``), computed in float64."""
+    fft, hop, win = hp["fft_size"], hp["hop_size"], hp["win_size"]
+    y = torch.as_tensor(np.asarray(wav, np.float64), device=device)
+    spec = torch.stft(y, n_fft=fft, hop_length=hop, win_length=win,
+                      window=torch.as_tensor(hann_window(win), device=device),
+                      center=True, pad_mode="constant", return_complex=True)
+    basis = torch.as_tensor(mel_filterbank(
+        hp["audio_sample_rate"], fft, hp["audio_num_mel_bins"], hp["fmin"],
+        hp["fmax"], dtype=np.float64), device=device)
+    mel = basis @ spec.abs()                          # [num_mels, T]
+    eps = float(hp.get("wav2spec_eps", 1e-10))
+    return torch.log10(mel.clamp_min(eps)).T.float()

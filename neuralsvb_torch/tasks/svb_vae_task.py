@@ -20,11 +20,10 @@ import torch
 
 from ..convert.checkpoint import load_into, load_state_dict, newest_checkpoint
 from ..data.datasets import MultiSpkEmbDataset
-from ..hparams import hparams
+from ..hparams import hparams, resolve_device
 from ..models.svb_vae import SVBVAE, WAYS
 from ..ops.fused_resblock import resblock_conv1d
 from ..ops.pitch_utils import denorm_f0
-from ..vocoders.hifigan import resolve_device
 from .base_task import BaseTask
 
 

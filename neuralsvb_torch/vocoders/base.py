@@ -1,9 +1,18 @@
 """Vocoder registry and base API (reference: vocoders/base_vocoder.py:5-39);
-port of ``neuralsvb_tpu/vocoders/base.py``."""
+port of ``neuralsvb_tpu/vocoders/base.py``, with the ``wav2spec`` frontend
+(``neuralsvb_tpu/vocoders/hifigan.py:139-152``, ``pwg.py:131-143``) on
+``BaseVocoder`` for every vocoder."""
 
 from __future__ import annotations
 
 import importlib
+
+import numpy as np
+
+from ..hparams import hparams as global_hparams
+from ..hparams import resolve_device
+from ..ops.audio import load_wav
+from ..ops.stft import log_mel, pad_wav_to_frames
 
 VOCODERS = {}
 
@@ -26,3 +35,17 @@ class BaseVocoder:
     def spec2wav(self, mel, **kwargs):
         """mel: [T, 80] -> wav [T * hop]."""
         raise NotImplementedError
+
+    @staticmethod
+    def wav2spec(wav_fn):
+        """wav file (or samples) -> (wav [T * hop] float32, log-mel [T, 80]
+        float32), the mel computed on the ``device`` the hparams name."""
+        hp = global_hparams
+        if isinstance(wav_fn, str):
+            wav, _ = load_wav(wav_fn, sr=hp["audio_sample_rate"])
+        else:
+            wav = np.asarray(wav_fn, np.float32)
+        mel = log_mel(wav, hp, resolve_device(hp.get("device"))).cpu().numpy()
+        wav = pad_wav_to_frames(np.asarray(wav, np.float32), hp["fft_size"],
+                                hp["hop_size"])
+        return wav[: mel.shape[0] * hp["hop_size"]], mel

@@ -23,6 +23,7 @@ import yaml
 
 from ..convert.checkpoint import load_into, load_state_dict, newest_checkpoint
 from ..hparams import hparams as global_hparams
+from ..hparams import resolve_device
 from ..models.hifigan import HifiGanGenerator
 from .base import BaseVocoder, register_vocoder
 
@@ -34,19 +35,6 @@ def pick_bucket(t: int) -> int:
         if t <= b:
             return b
     return ((t + 1023) // 1024) * 1024
-
-
-def resolve_device(name) -> torch.device:
-    """The ``device`` hparam -> torch.device. It must be set: a missing
-    device, or CUDA without a GPU, raises rather than running elsewhere."""
-    if not name:
-        raise ValueError("the device is not set: give the 'device' hparam "
-                         "(cuda or cpu), e.g. --hparams device=cpu")
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={name!r} but torch.cuda.is_available() is "
-                           "False; pass --hparams device=cpu to run on the CPU")
-    return dev
 
 
 def load_hifigan(base_dir: str, hp: dict, device: torch.device):

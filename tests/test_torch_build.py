@@ -15,7 +15,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from neuralsvb_torch.ops import chi2  # noqa: E402
 from neuralsvb_torch.ops import fused_resblock as fr  # noqa: E402
+from neuralsvb_torch.ops import shared_lib  # noqa: E402
 
 
 def test_import_needs_no_toolkit():
@@ -32,10 +34,10 @@ def test_import_needs_no_toolkit():
 def test_build_without_nvcc_raises():
     if shutil.which("nvcc"):
         pytest.skip("a CUDA toolkit is present here")
-    lib = fr._Library()
-    for _ in range(2):  # raises every time: no cached fallback
-        with pytest.raises(RuntimeError, match="nvcc"):
-            lib.get()
+    for lib in (fr.LIBRARY, chi2.LIBRARY):
+        for _ in range(2):  # raises every time: no cached fallback
+            with pytest.raises(RuntimeError, match="nvcc"):
+                lib.get()
 
 
 def test_launch_refuses_cpu_tensors():
@@ -56,9 +58,8 @@ def test_no_fallback_for_non_cpu_tensors():
 def test_build_dir_of_checkout_and_of_installed_package(tmp_path, monkeypatch):
     """From a checkout the library goes to its ``build/kernels/``; an
     installed package, with no checkout around it, builds under ``$HOME``."""
-    assert fr.BUILD_DIR == fr.SOURCE.parents[2] / "build" / "kernels"
+    assert shared_lib.BUILD_DIR == fr.SOURCE.parents[2] / "build" / "kernels"
     site = tmp_path / "lib" / "python3" / "site-packages"
-    monkeypatch.setattr(fr, "SOURCE",
-                        site / "neuralsvb_torch" / "csrc" / "fused_resblock.cu")
     monkeypatch.setenv("HOME", str(tmp_path / "home"))
-    assert fr._build_dir() == tmp_path / "home" / ".cache" / "neuralsvb_torch" / "kernels"
+    assert shared_lib.build_dir(site / "neuralsvb_torch") == \
+        tmp_path / "home" / ".cache" / "neuralsvb_torch" / "kernels"

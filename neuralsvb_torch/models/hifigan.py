@@ -5,20 +5,23 @@ conv_pre -> N x (leaky_relu -> ConvTranspose up -> + NSF source through a
 strided noise_conv -> mean of the multi-kernel ResBlocks) -> leaky_relu ->
 conv_post -> tanh. With ``resblock == "1"`` each stage's ResBlock cluster
 runs through ``ops.fused_resblock.fused_resblock_cluster``: the CUDA kernel
-on the card, its plain PyTorch twin on the CPU. Weight norm is folded into
-plain convs (the reference removes it at inference).
+on the card, its plain PyTorch twin on the CPU. ``mm_dtype`` is that op's
+matmul operand dtype; ``None`` picks by device (bf16 on the card, f32 on
+the CPU), as the JAX generator picks bf16 on the TPU. Weight norm is folded
+into plain convs (the reference removes it at inference).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.fused_resblock import fused_resblock_cluster, make_spec, pack_tower
+from ..ops.fused_resblock import (fused_resblock_cluster, make_spec, pack_tower,
+                                  resolve_mm_dtype)
 from .nsf import SourceModuleHnNSF
 
 LRELU_SLOPE = 0.1
@@ -61,7 +64,12 @@ class ResBlock2(nn.Module):
 
 
 class HifiGanGenerator(nn.Module):
-    """Config keys follow the reference yaml (upsample_rates, ...)."""
+    """Config keys follow the reference yaml (upsample_rates, ...).
+
+    ``mm_dtype`` (attribute): the ResBlock cluster's matmul operand dtype,
+    f32, bf16 or ``None`` (by device)."""
+
+    mm_dtype: Optional[torch.dtype] = None
 
     def __init__(self, upsample_rates: Sequence[int] = (8, 8, 2, 2),
                  upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4),
@@ -100,40 +108,46 @@ class HifiGanGenerator(nn.Module):
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
                 self.resblocks.append(res_cls(c_cur, rk, tuple(rd)))
         self.conv_post = nn.Conv1d(c_cur, c_out, 7, padding=3)
-        self._packed: Optional[List[List[torch.Tensor]]] = None
+        self._packed: Dict[torch.dtype, List[List[torch.Tensor]]] = {}
 
     # -- packed cluster weights --------------------------------------------
-    def _pack(self) -> List[List[torch.Tensor]]:
+    def _mm_dtype(self) -> torch.dtype:
+        return resolve_mm_dtype(self.mm_dtype, self.conv_pre.weight.device)
+
+    def _pack(self, mm_dtype: torch.dtype) -> List[List[torch.Tensor]]:
         """Per stage: flat [wa, ba, wb, bb] per tower in the kernel layout."""
         out = []
         for i in range(len(self.ups)):
             ws: List[torch.Tensor] = []
             for j in range(self.num_kernels):
                 rb = self.resblocks[i * self.num_kernels + j]
-                ws += pack_tower(rb.convs1, rb.convs2)
+                ws += pack_tower(rb.convs1, rb.convs2, mm_dtype)
             out.append(ws)
         return out
 
     def pack_resblocks(self) -> None:
-        """Pack the ResBlock weights once for the cluster kernel (after the
-        weights are loaded and on their device)."""
+        """Pack the ResBlock weights once for the cluster kernel in the
+        current mm dtype (after the weights are loaded and on their
+        device)."""
         with torch.no_grad():
-            self._packed = self._pack()
+            dtype = self._mm_dtype()
+            self._packed[dtype] = self._pack(dtype)
 
     def _apply(self, fn, *args, **kwargs):
-        self._packed = None  # .to()/.cuda() moved the weights
+        self._packed = {}  # .to()/.cuda() moved the weights
         return super()._apply(fn, *args, **kwargs)
 
     def _load_from_state_dict(self, *args, **kwargs):
-        self._packed = None
+        self._packed = {}
         return super()._load_from_state_dict(*args, **kwargs)
 
-    def _stage_weights(self) -> List[List[torch.Tensor]]:
+    def _stage_weights(self, mm_dtype: torch.dtype) -> List[List[torch.Tensor]]:
         if torch.is_grad_enabled() and any(p.requires_grad for p in self.resblocks.parameters()):
-            return self._pack()  # differentiable packing for training
-        if self._packed is None:
+            # differentiable f32 packing for training; the op rounds operands
+            return self._pack(torch.float32)
+        if mm_dtype not in self._packed:
             self.pack_resblocks()
-        return self._packed
+        return self._packed[mm_dtype]
 
     # ----------------------------------------------------------------------
     def forward(self, mel, f0=None, generator: Optional[torch.Generator] = None,
@@ -149,13 +163,14 @@ class HifiGanGenerator(nn.Module):
                                              rand_ini, noise)
             har_source = har_source.to(mel.dtype)  # [B, 1, L]
         x = self.conv_pre(mel.transpose(1, 2))
-        packed = self._stage_weights() if self.resblock == "1" else None
+        mm_dtype = self._mm_dtype()
+        packed = self._stage_weights(mm_dtype) if self.resblock == "1" else None
         for i, up in enumerate(self.ups):
             x = up(F.leaky_relu(x, LRELU_SLOPE))
             if har_source is not None:
                 x = x + self.noise_convs[i](har_source)[:, :, : x.shape[-1]]
             if packed is not None:
-                x = fused_resblock_cluster(x, packed[i], self.spec)
+                x = fused_resblock_cluster(x, packed[i], self.spec, mm_dtype)
             else:
                 blocks = self.resblocks[i * self.num_kernels:(i + 1) * self.num_kernels]
                 x = sum(rb(x) for rb in blocks) / self.num_kernels

@@ -1,4 +1,4 @@
-"""HiFiGAN ResBlock1 cluster: the CUDA kernel's wrapper and its plain twin.
+"""HiFiGAN ResBlock1 cluster: the CUDA kernels' wrappers and their plain twin.
 
 Counterpart of ``neuralsvb_tpu/ops/fused_resblock.py`` (a Pallas TPU
 kernel). Per upsample stage the vocoder averages three ResBlock1 towers
@@ -10,19 +10,27 @@ kernel). Per upsample stage the vocoder averages three ResBlock1 towers
 with exact zero padding at the sequence edges (reference:
 modules/hifigan/hifigan.py:144-169).
 
+- ``mm_dtype`` is the JAX op's argument: the dtype of every conv's matmul
+  operands (its input after leaky-ReLU, and its weights). With bf16 each
+  operand is rounded to bf16 while sums, biases, the residual chain and the
+  tower mean stay f32, which is the TPU kernel's arithmetic. ``None`` picks
+  by device (``resolve_mm_dtype``): bf16 on CUDA, as the JAX generator
+  picks bf16 on the accelerator; f32 on the CPU, as JAX does off the TPU.
 - ``resblock_cluster_plain`` is the same function in plain PyTorch
-  (``F.conv1d``). The CPU tests hold it against JAX; ``chip_smoke.py`` holds
-  the kernel against it on the card.
+  (``F.conv1d``) in either ``mm_dtype``. The CPU tests hold it against JAX;
+  ``chip_smoke.py`` holds the kernels against it on the card.
 - ``fused_resblock_cluster`` is the entry point the generator calls. A CPU
-  tensor takes the plain version; a CUDA tensor launches the hand-written
-  kernel ``csrc/fused_resblock.cu`` 18 times per stage (once per conv) or
-  raises. There is no fallback from the kernel to the plain version.
-- The kernel library is built with ``nvcc`` from the package's source at
-  first use, into ``build/kernels/`` of the checkout, and loaded with
+  tensor takes the plain version. A CUDA tensor launches the hand-written
+  kernel of its ``mm_dtype`` or raises: bf16 runs ``csrc/resblock_bf16.cu``
+  (tensor cores; one operand pre-pass plus 18 convs per stage), f32 runs
+  ``csrc/fused_resblock.cu`` (f32 FFMA; 18 convs per stage). There is no
+  fallback from a kernel to the plain version.
+- The kernel libraries are built with ``nvcc`` from the package's sources
+  at first use, into ``build/kernels/`` of the checkout, and loaded with
   ``ctypes`` (``shared_lib.SharedLibrary``).
 
-Weights are packed once per generator to ``[C_out, k, C_in]`` per conv
-(``pack_tower``), the layout the kernel walks.
+Weights are packed once per generator and mm dtype to ``[C_out, k, C_in]``
+per conv (``pack_tower``), the layout both kernels walk.
 """
 
 from __future__ import annotations
@@ -41,7 +49,10 @@ LRELU_SLOPE = 0.1
 # (kernel_size, dilations) per tower, mirroring ResBlock1.
 ClusterSpec = Tuple[Tuple[int, Tuple[int, ...]], ...]
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "fused_resblock.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCE = CSRC / "fused_resblock.cu"
+SOURCE_BF16 = CSRC / "resblock_bf16.cu"
+MM_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def make_spec(kernel_sizes: Sequence[int],
@@ -55,14 +66,26 @@ def pack_conv(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(0, 2, 1).contiguous()
 
 
-def pack_tower(convs1, convs2) -> List[torch.Tensor]:
-    """One ResBlock1's convs -> [wa [n, C, k, C], ba [n, C], wb, bb]
-    (cf. ``_pack_tower`` in the JAX module). Differentiable: gradients of
-    the packed tensors flow back to the conv parameters."""
-    return [torch.stack([pack_conv(c.weight) for c in convs1]),
+def pack_tower(convs1, convs2,
+               mm_dtype: torch.dtype = torch.float32) -> List[torch.Tensor]:
+    """One ResBlock1's convs -> [wa [n, C, k, C], ba [n, C], wb, bb], the
+    weights in ``mm_dtype`` and the biases f32 (cf. ``_pack_tower`` in the
+    JAX module). Differentiable: gradients of the packed tensors flow back
+    to the conv parameters."""
+    return [torch.stack([pack_conv(c.weight) for c in convs1]).to(mm_dtype),
             torch.stack([c.bias for c in convs1]),
-            torch.stack([pack_conv(c.weight) for c in convs2]),
+            torch.stack([pack_conv(c.weight) for c in convs2]).to(mm_dtype),
             torch.stack([c.bias for c in convs2])]
+
+
+def resolve_mm_dtype(mm_dtype: Optional[torch.dtype],
+                     device: torch.device) -> torch.dtype:
+    """``None`` -> bf16 on CUDA, f32 elsewhere; f32 and bf16 as given."""
+    if mm_dtype is None:
+        return torch.bfloat16 if device.type == "cuda" else torch.float32
+    if mm_dtype not in MM_DTYPES:
+        raise ValueError(f"mm_dtype must be float32 or bfloat16, got {mm_dtype}")
+    return mm_dtype
 
 
 def _lrelu(x):
@@ -70,25 +93,36 @@ def _lrelu(x):
 
 
 def resblock_cluster_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                           spec: ClusterSpec) -> torch.Tensor:
-    """x [B, C, T] -> mean of the ResBlock1 towers, [B, C, T], in F.conv1d.
+                           spec: ClusterSpec,
+                           mm_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x [B, C, T] -> mean of the ResBlock1 towers, [B, C, T], in F.conv1d
+    in ``x.dtype``. With ``mm_dtype`` bf16 each conv's operand (after
+    leaky-ReLU) and weight is rounded to bf16 first: the products of bf16
+    values are exact in f32, so only the order of the sums differs from the
+    TPU kernel.
 
     ``weights``: flat [wa, ba, wb, bb] per tower (see ``pack_tower``)."""
+    if resolve_mm_dtype(mm_dtype, x.device) == torch.bfloat16:
+        def q(t):
+            return t.to(torch.bfloat16).to(x.dtype)
+    else:
+        def q(t):
+            return t.to(x.dtype)
     outs = []
     for r, (k, dils) in enumerate(spec):
         wa, ba, wb, bb = weights[4 * r: 4 * r + 4]
         cur = x
         for j, d in enumerate(dils):
-            y = F.conv1d(_lrelu(cur), wa[j].permute(0, 2, 1), ba[j],
-                         padding=(k - 1) // 2 * d, dilation=d)
-            cur = cur + F.conv1d(_lrelu(y), wb[j].permute(0, 2, 1), bb[j],
-                                 padding=(k - 1) // 2)
+            y = F.conv1d(q(_lrelu(cur)), q(wa[j]).permute(0, 2, 1),
+                         ba[j].to(x.dtype), padding=(k - 1) // 2 * d, dilation=d)
+            cur = cur + F.conv1d(q(_lrelu(y)), q(wb[j]).permute(0, 2, 1),
+                                 bb[j].to(x.dtype), padding=(k - 1) // 2)
         outs.append(cur)
     return sum(outs) / len(outs)
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel
+# the CUDA kernels
 # ---------------------------------------------------------------------------
 
 def _bind(lib) -> None:
@@ -99,20 +133,41 @@ def _bind(lib) -> None:
     fn.restype = ci
 
 
+def _bind_bf16(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = lib.nsvb_resblock_conv1d_bf16
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ctypes.c_float,
+                   ci, ci, ci, ci, ci, vp]
+    fn.restype = ci
+    lib.nsvb_lrelu_bf16.argtypes = [vp, vp, ci, ci, ci, vp]
+    lib.nsvb_lrelu_bf16.restype = ci
+
+
 LIBRARY = SharedLibrary("nsvb_fused_resblock", SOURCE, NVCC, NVCC_FLAGS, _bind)
+LIBRARY_BF16 = SharedLibrary("nsvb_resblock_bf16", SOURCE_BF16, NVCC, NVCC_FLAGS,
+                             _bind_bf16)
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _check(t: torch.Tensor, name: str, shape, device):
-    if t.device != device or t.dtype != torch.float32 \
+def _check(t: torch.Tensor, name: str, shape, device, dtype=torch.float32):
+    if t.device != device or t.dtype != dtype \
             or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
         raise ValueError(
-            f"{name}: need contiguous float32 {tuple(shape)} on {device}, got "
+            f"{name}: need contiguous {dtype} {tuple(shape)} on {device}, got "
             f"{t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _need_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} launches a CUDA kernel; got a tensor on {t.device}")
 
 
 def resblock_conv1d(inp: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -121,15 +176,13 @@ def resblock_conv1d(inp: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                     acc: Optional[torch.Tensor] = None,
                     acc_accumulate: bool = False,
                     acc_scale: float = 1.0) -> None:
-    """One launch of the CUDA kernel on PyTorch's current stream:
+    """One launch of the f32 kernel on PyTorch's current stream:
     ``v = bias + conv_{k,d}(lrelu(inp)) (+ res)``, then ``out = v`` and/or
     ``acc = ((acc if acc_accumulate else 0) + v) * acc_scale``.
 
     All tensors are contiguous f32 on one CUDA device; ``w`` is packed
     ``[C, k, C]``. ``out`` may alias ``res`` (an in-place residual add)."""
-    if inp.device.type != "cuda":
-        raise ValueError(f"resblock_conv1d launches a CUDA kernel; got a "
-                         f"tensor on {inp.device}")
+    _need_cuda("resblock_conv1d", inp)
     B, C, T = inp.shape
     dev = inp.device
     _check(inp, "inp", (B, C, T), dev)
@@ -142,11 +195,10 @@ def resblock_conv1d(inp: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError("resblock_conv1d needs out or acc")
     lib = LIBRARY.get()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.nsvb_resblock_conv1d(
             _ptr(inp), _ptr(w), _ptr(bias), _ptr(res), _ptr(out), _ptr(acc),
             int(acc_accumulate), float(acc_scale), B, C, T, int(k), int(d),
-            ctypes.c_void_p(stream))
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"resblock_conv1d launch failed: CUDA error {err} "
                            f"(B={B} C={C} T={T} k={k} d={d})")
@@ -156,18 +208,89 @@ def resblock_conv1d(inp: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 resblock_conv1d.launches = 0
 
 
+def lrelu_bf16(x: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch of the operand pre-pass: ``out [B, T, C] =
+    bf16(leaky_relu(x))`` of ``x [B, C, T]`` f32 (contiguous, on a CUDA
+    device, C even): the tensor-core kernel's channels-last operand."""
+    _need_cuda("lrelu_bf16", x)
+    B, C, T = x.shape
+    _check(x, "x", (B, C, T), x.device)
+    _check(out, "out", (B, T, C), x.device, torch.bfloat16)
+    if C % 2:
+        raise ValueError(f"lrelu_bf16 needs an even C, got {C}")
+    lib = LIBRARY_BF16.get()
+    with torch.cuda.device(x.device):
+        err = lib.nsvb_lrelu_bf16(_ptr(x), _ptr(out), B, C, T, _stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"lrelu_bf16 launch failed: CUDA error {err} "
+                           f"(shape {tuple(x.shape)})")
+    lrelu_bf16.launches += 1
+
+
+lrelu_bf16.launches = 0
+
+
+def resblock_conv1d_bf16(op: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                         k: int, d: int, *, res: Optional[torch.Tensor] = None,
+                         cur_out: Optional[torch.Tensor] = None,
+                         op_out: Optional[torch.Tensor] = None,
+                         mean: Optional[torch.Tensor] = None,
+                         mean_accumulate: bool = False,
+                         mean_scale: float = 1.0) -> None:
+    """One launch of the tensor-core kernel on PyTorch's current stream:
+    ``v = bias + conv_{k,d}(op) (+ res)`` with bf16 ``op`` (already
+    ``bf16(lrelu(.))``, channels-last [B, T, C]) and bf16 ``w`` [C, k, C],
+    f32 sums; then ``cur_out = v`` (f32 [B, C, T]), ``op_out =
+    bf16(lrelu(v))`` (bf16 [B, T, C]) and/or ``mean = ((mean if
+    mean_accumulate else 0) + v) * mean_scale`` (f32 [B, C, T]).
+
+    ``cur_out`` may alias ``res``. C and T must be multiples of 8 (TMA's
+    16-byte strides)."""
+    _need_cuda("resblock_conv1d_bf16", op)
+    B, T, C = op.shape
+    dev = op.device
+    _check(op, "op", (B, T, C), dev, torch.bfloat16)
+    _check(w, "w", (C, k, C), dev, torch.bfloat16)
+    _check(bias, "bias", (C,), dev)
+    for name, t, shape, dt in (("res", res, (B, C, T), torch.float32),
+                               ("cur_out", cur_out, (B, C, T), torch.float32),
+                               ("op_out", op_out, (B, T, C), torch.bfloat16),
+                               ("mean", mean, (B, C, T), torch.float32)):
+        if t is not None:
+            _check(t, name, shape, dev, dt)
+    if cur_out is None and op_out is None and mean is None:
+        raise ValueError("resblock_conv1d_bf16 needs cur_out, op_out or mean")
+    if C % 8 or T % 8:
+        raise ValueError(f"resblock_conv1d_bf16 needs C and T multiples of 8, "
+                         f"got C={C} T={T}")
+    lib = LIBRARY_BF16.get()
+    with torch.cuda.device(dev):
+        err = lib.nsvb_resblock_conv1d_bf16(
+            _ptr(op), _ptr(w), _ptr(bias), _ptr(res), _ptr(cur_out), _ptr(op_out),
+            _ptr(mean), int(mean_accumulate), float(mean_scale), B, C, T, int(k),
+            int(d), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"resblock_conv1d_bf16 launch failed: CUDA error {err} "
+                           f"(B={B} C={C} T={T} k={k} d={d})")
+    resblock_conv1d_bf16.launches += 1
+
+
+resblock_conv1d_bf16.launches = 0
+
+
 def resblock_cluster_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
                           spec: ClusterSpec) -> torch.Tensor:
-    """The cluster as 18 kernel launches (one per conv); returns a new
-    [B, C, T] tensor. ``y`` and ``cur`` are scratch buffers that round-trip
-    device memory between launches."""
+    """The cluster in f32 as 18 launches of the f32 kernel (one per conv);
+    returns a new [B, C, T] tensor. ``y`` and ``cur`` are scratch buffers
+    that round-trip device memory between launches."""
     x = x.contiguous()
     y = torch.empty_like(x)
     cur = torch.empty_like(x)
     mean = torch.empty_like(x)
     n = len(spec)
     for r, (k, dils) in enumerate(spec):
-        wa, ba, wb, bb = (t.contiguous() for t in weights[4 * r: 4 * r + 4])
+        wa, ba, wb, bb = (t.to(torch.float32).contiguous()
+                          for t in weights[4 * r: 4 * r + 4])
         src = x
         for j, d in enumerate(dils):
             resblock_conv1d(src, wa[j], ba[j], k, d, out=y)
@@ -181,19 +304,54 @@ def resblock_cluster_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return mean
 
 
+def resblock_cluster_bf16_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                               spec: ClusterSpec) -> torch.Tensor:
+    """The cluster with bf16 operands: one pre-pass launch (the stage
+    input's operand, shared by the towers) and one tensor-core launch per
+    conv. Only the bf16 operands (channels-last) and the f32 ``cur`` and
+    mean cross device memory between launches."""
+    x = x.contiguous()
+    B, C, T = x.shape
+    x_op = torch.empty(B, T, C, dtype=torch.bfloat16, device=x.device)
+    y_op = torch.empty_like(x_op)
+    cur_op = torch.empty_like(x_op)
+    cur = torch.empty_like(x)
+    mean = torch.empty_like(x)
+    lrelu_bf16(x, x_op)
+    n = len(spec)
+    for r, (k, dils) in enumerate(spec):
+        wa, wb = (t.to(torch.bfloat16).contiguous() for t in weights[4 * r: 4 * r + 4: 2])
+        ba, bb = (t.to(torch.float32).contiguous() for t in weights[4 * r + 1: 4 * r + 4: 2])
+        op, res = x_op, x
+        for j, d in enumerate(dils):
+            resblock_conv1d_bf16(op, wa[j], ba[j], k, d, op_out=y_op)
+            if j + 1 < len(dils):
+                resblock_conv1d_bf16(y_op, wb[j], bb[j], k, 1, res=res, cur_out=cur,
+                                     op_out=cur_op)
+                op, res = cur_op, cur
+            else:  # tower done: fold into the running mean
+                resblock_conv1d_bf16(y_op, wb[j], bb[j], k, 1, res=res, mean=mean,
+                                     mean_accumulate=r > 0,
+                                     mean_scale=1.0 / n if r == n - 1 else 1.0)
+    return mean
+
+
 class _Cluster(torch.autograd.Function):
-    """Forward through the kernel (CUDA) or the plain version (CPU);
-    backward recomputes through the plain version, as the JAX ``custom_vjp``
-    does (the TPU kernel has no backward kernel either)."""
+    """Forward through the kernel of ``mm_dtype`` (CUDA) or the plain
+    version (CPU); backward recomputes through the plain version in f32, as
+    the JAX ``custom_vjp`` does (the TPU kernel has no backward kernel
+    either)."""
 
     @staticmethod
-    def forward(ctx, x, spec, *weights):
+    def forward(ctx, x, spec, mm_dtype, *weights):
         ctx.spec = spec
         ctx.save_for_backward(x, *weights)
         if x.device.type == "cuda":
+            if mm_dtype == torch.bfloat16:
+                return resblock_cluster_bf16_cuda(x, weights, spec)
             return resblock_cluster_cuda(x, weights, spec)
         if x.device.type == "cpu":
-            return resblock_cluster_plain(x, weights, spec)
+            return resblock_cluster_plain(x, weights, spec, mm_dtype)
         raise ValueError(f"fused_resblock_cluster: no kernel for {x.device}")
 
     @staticmethod
@@ -201,22 +359,25 @@ class _Cluster(torch.autograd.Function):
         x, *weights = ctx.saved_tensors
         with torch.enable_grad():
             xs = x.detach().requires_grad_(ctx.needs_input_grad[0])
-            ws = [w.detach().requires_grad_(ctx.needs_input_grad[2 + i])
+            ws = [w.detach().requires_grad_(ctx.needs_input_grad[3 + i])
                   for i, w in enumerate(weights)]
-            y = resblock_cluster_plain(xs, ws, ctx.spec)
+            y = resblock_cluster_plain(xs, ws, ctx.spec, torch.float32)
             wanted = [t for t in (xs, *ws) if t.requires_grad]
             grads = iter(torch.autograd.grad(y, wanted, g))
         gx = next(grads) if xs.requires_grad else None
         gw = [next(grads) if w.requires_grad else None for w in ws]
-        return (gx, None, *gw)
+        return (gx, None, None, *gw)
 
 
 def fused_resblock_cluster(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                           spec: ClusterSpec) -> torch.Tensor:
+                           spec: ClusterSpec,
+                           mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x [B, C, T] f32 -> mean of the ResBlock1 towers [B, C, T] f32.
 
-    CPU tensors run ``resblock_cluster_plain``; CUDA tensors run the kernel
+    ``mm_dtype`` (f32, bf16 or ``None`` = by device, see
+    ``resolve_mm_dtype``) is the matmul operands' dtype. CPU tensors run
+    ``resblock_cluster_plain``; CUDA tensors run the kernel of ``mm_dtype``
     or raise. Differentiable in ``x`` and ``weights``."""
     if x.dtype != torch.float32:
         raise ValueError(f"fused_resblock_cluster is f32 only, got {x.dtype}")
-    return _Cluster.apply(x, spec, *weights)
+    return _Cluster.apply(x, spec, resolve_mm_dtype(mm_dtype, x.device), *weights)

@@ -2,9 +2,12 @@
 first use and loaded with ``ctypes``.
 
 Each library is compiled from one source file into ``BUILD_DIR`` under a
-name keyed by the hash of the source and the flags: a changed source is
-rebuilt, an unchanged one is loaded as it is. A missing compiler or a failed
-compile raises; nothing falls back to another implementation.
+name keyed by the hash of the source, the headers beside it (``*.cuh``,
+``*.h``) and the flags: a change to any of them rebuilds, an unchanged
+library is loaded as it is. The compiler's output is kept beside the
+library, so a cached load still reports it (nvcc's registers and spills).
+A missing compiler or a failed compile raises; nothing falls back to
+another implementation.
 """
 
 from __future__ import annotations
@@ -66,6 +69,15 @@ class SharedLibrary:
                 self._lib = self._build_and_load()
             return self._lib
 
+    def library_path(self) -> Path:
+        """Where the library of the current source, headers and flags lives."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(p for pat in ("*.cuh", "*.h")
+                             for p in self.source.parent.glob(pat)):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
+        h.update(" ".join(self.flags).encode())
+        return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:12]}.so"
+
     def _build_and_load(self) -> ctypes.CDLL:
         exe = next((p for p in map(shutil.which, self.compiler) if p), None)
         if exe is None:
@@ -73,10 +85,11 @@ class SharedLibrary:
                 f"{self.compiler[0]} not found: {self.name} is built from "
                 f"{self.source} with it (nvcc: the CUDA toolkit of a machine "
                 "with an H100)")
-        src = self.source.read_bytes()
-        digest = hashlib.sha256(src + " ".join(self.flags).encode()).hexdigest()
-        self.path = BUILD_DIR / f"lib{self.name}_{digest[:12]}.so"
-        if not self.path.exists():
+        self.path = self.library_path()
+        log = self.path.with_suffix(".log")
+        if self.path.exists():
+            self.build_log = log.read_text() if log.exists() else ""
+        else:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
             t0 = time.perf_counter()
@@ -87,6 +100,7 @@ class SharedLibrary:
             if proc.returncode != 0:
                 raise RuntimeError(f"{self.compiler[0]} failed on {self.source} "
                                    f"({proc.returncode}):\n{self.build_log}")
+            log.write_text(self.build_log)
             os.replace(tmp, self.path)
         lib = ctypes.CDLL(str(self.path))
         self.bind(lib)

@@ -22,7 +22,7 @@ from ..convert.checkpoint import load_into, load_state_dict, newest_checkpoint
 from ..data.datasets import MultiSpkEmbDataset
 from ..hparams import hparams, resolve_device
 from ..models.svb_vae import SVBVAE, WAYS
-from ..ops.fused_resblock import resblock_conv1d
+from ..ops.fused_resblock import lrelu_bf16, resblock_conv1d, resblock_conv1d_bf16
 from ..ops.pitch_utils import denorm_f0
 from .base_task import BaseTask
 
@@ -109,7 +109,8 @@ class SVBVAEMleTask(BaseTask):
         self._n_infer_utts = 0
         self._audio_sec = 0.0
         self._compute_sec = 0.0
-        resblock_conv1d.launches = 0  # test_end reports the test loop's launches
+        # test_end reports the test loop's launches
+        resblock_conv1d.launches = resblock_conv1d_bf16.launches = lrelu_bf16.launches = 0
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
 
@@ -188,6 +189,8 @@ class SVBVAEMleTask(BaseTask):
             "compute_sec": self._compute_sec,
             "rtf": self._compute_sec / max(self._audio_sec, 1e-9),
             "resblock_conv1d_launches": resblock_conv1d.launches,
+            "resblock_conv1d_bf16_launches": resblock_conv1d_bf16.launches,
+            "lrelu_bf16_launches": lrelu_bf16.launches,
         }
         if self.device.type == "cuda":
             summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)

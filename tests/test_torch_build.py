@@ -34,7 +34,7 @@ def test_import_needs_no_toolkit():
 def test_build_without_nvcc_raises():
     if shutil.which("nvcc"):
         pytest.skip("a CUDA toolkit is present here")
-    for lib in (fr.LIBRARY, chi2.LIBRARY):
+    for lib in (fr.LIBRARY, fr.LIBRARY_BF16, chi2.LIBRARY):
         for _ in range(2):  # raises every time: no cached fallback
             with pytest.raises(RuntimeError, match="nvcc"):
                 lib.get()
@@ -42,8 +42,15 @@ def test_build_without_nvcc_raises():
 
 def test_launch_refuses_cpu_tensors():
     x = torch.zeros(1, 64, 128)
+    xb = x.to(torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         fr.resblock_conv1d(x, torch.zeros(64, 3, 64), torch.zeros(64), 3, 1, out=x)
+    with pytest.raises(ValueError, match="CUDA"):
+        fr.resblock_conv1d_bf16(xb.transpose(1, 2).contiguous(),
+                                torch.zeros(64, 3, 64, dtype=torch.bfloat16),
+                                torch.zeros(64), 3, 1, cur_out=x)
+    with pytest.raises(ValueError, match="CUDA"):
+        fr.lrelu_bf16(x, xb.transpose(1, 2).contiguous())
 
 
 def test_no_fallback_for_non_cpu_tensors():
@@ -63,3 +70,39 @@ def test_build_dir_of_checkout_and_of_installed_package(tmp_path, monkeypatch):
     monkeypatch.setenv("HOME", str(tmp_path / "home"))
     assert shared_lib.build_dir(site / "neuralsvb_torch") == \
         tmp_path / "home" / ".cache" / "neuralsvb_torch" / "kernels"
+
+
+def _fake_lib(tmp_path, monkeypatch, flags=("-O1", "-shared", "-fPIC", "-Wall")):
+    """A one-function C library built by g++ through ``SharedLibrary`` into
+    ``tmp_path``; ``unused`` makes g++ print a warning (a build log)."""
+    monkeypatch.setattr(shared_lib, "BUILD_DIR", tmp_path / "build")
+    src = tmp_path / "k.cc"
+    src.write_text('#include "k.h"\nextern "C" int f() { int unused = K; return 0; }\n')
+    (tmp_path / "k.h").write_text("#define K 1\n")
+    return shared_lib.SharedLibrary("fake", src, ("g++",), list(flags),
+                                    lambda lib: None)
+
+
+def test_library_path_follows_headers(tmp_path, monkeypatch):
+    """A changed or added header beside the source gives a new library
+    path, so the cache never loads a library built from the old header."""
+    lib = _fake_lib(tmp_path, monkeypatch)
+    p0 = lib.library_path()
+    assert p0 == lib.library_path() and p0.parent == tmp_path / "build"
+    (tmp_path / "k.h").write_text("#define K 2\n")
+    p1 = lib.library_path()
+    (tmp_path / "other.cuh").write_text("// another header\n")
+    p2 = lib.library_path()
+    assert len({p0, p1, p2}) == 3
+
+
+def test_cached_load_reports_the_build_log(tmp_path, monkeypatch):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ here")
+    first = _fake_lib(tmp_path, monkeypatch)
+    first.get()
+    assert "unused" in first.build_log and first.build_seconds > 0
+    again = _fake_lib(tmp_path, monkeypatch)  # a new process would start here
+    again.get()
+    assert again.path == first.path
+    assert again.build_log == first.build_log and again.build_seconds == 0.0

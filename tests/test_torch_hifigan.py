@@ -160,3 +160,20 @@ def test_vocoder_needs_device_and_reference_checkpoint(tmp_path):
         THifiGAN(dict(hp))
     with pytest.raises(KeyError, match="model_gen"):
         THifiGAN(dict(hp, device="cpu"))
+
+
+def test_smoke_times_the_main_paths_cluster_shapes(monkeypatch):
+    """``chip_smoke.py`` times the cluster kernels at the shapes its main
+    path runs: every smoke utterance pads to one vocoder bucket, and stage i
+    of the flagship vocoder sees C = 512 / 2^(i+1) channels at that bucket
+    times the rates so far."""
+    import chip_smoke
+    from neuralsvb_torch.vocoders.hifigan import pick_bucket
+    monkeypatch.chdir(chip_smoke.REPO)
+    voc = chip_smoke.vocoder_keys()
+    (bucket,) = {pick_bucket(t) for t in chip_smoke.UTT_FRAMES}
+    T, shapes = bucket, []
+    for i, r in enumerate(voc["upsample_rates"]):
+        T *= r
+        shapes.append((1, voc["upsample_initial_channel"] // 2 ** (i + 1), T))
+    assert bucket == 2048 and tuple(shapes) == chip_smoke.BUCKET_SHAPES

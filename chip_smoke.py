@@ -8,8 +8,8 @@ Every phase prints one JSON line; any failure raises.
 1. environment: torch / CUDA versions, the card, its power limit;
 2. build, all at once: nvcc builds ``neuralsvb_torch/csrc/resblock_bf16.cu``,
    ``csrc/fused_resblock.cu`` and ``csrc/chi2_dist.cu`` for sm_90a, g++ the
-   host DTW/Viterbi library (``neuralsvb_tpu/native/dtw.cpp``); ptxas's
-   lines are printed;
+   port's host DTW/Viterbi library (``neuralsvb_torch/csrc/dtw.cpp``);
+   ptxas's lines are printed;
 3. kernel vs plain, TF32 off for every plain reference. The bf16
    ResBlock-cluster kernel (tensor cores; the main path's) against the plain
    version with bf16 operands at the flagship vocoder's stage shapes for
@@ -24,7 +24,18 @@ Every phase prints one JSON line; any failure raises.
    gradients. Then the chi-square DTW cost kernel against its plain version
    at (S, T) = (2400, 2400), (1037, 1301), (130, 70), (1, 1), M = 48, on
    EHSADTW histograms of vibrato f0 and on random rows with all-zero rows,
-   max|d| <= 1e-5;
+   max|d| <= 1e-5; on those rows with values outside the kernel's
+   branch-free division range (1e-30, 1e8, negative) in bins 16-31 of some
+   rows, so that a tile mixes both divisions, max|d| / max(1, |ref|) <=
+   1e-5; on every kind ``chi2_dist(b, a)`` equal to ``chi2_dist(a, b).T``
+   bit for bit; per shape the per-call time (``kernel_ms``, median of 20
+   event-timed calls, host issue included), the device time (``device_ms``,
+   100 calls between two events, over 100), the roofline bound
+   (``bound_us``: 7 operations per term at 67 TFLOP/s f32 or the bytes at
+   3.35 TB/s, the larger) and the issue bound (``issue_bound_us``: the
+   SASS instructions per term of the kernel's division loop, counted from
+   ``cuobjdump -sass``, over 4 warp-instructions per clock on each SM at
+   the card's top SM clock), with the device time's share of each;
 4. main path: ``python -m neuralsvb_torch.tasks.run --infer`` on a synthetic
    4-utterance packed test split (6-10 s each) at the flagship widths
    (SVBVAE hidden 256 / latent 128 / FVAE 192 k5 8+4, 2-layer conformer
@@ -54,8 +65,10 @@ Every phase prints one JSON line; any failure raises.
    total path cost over the card's and the CPU's cost within 1e-4 relative,
    the item's own speaker embedding within 1e-4.
 
-The line before the last is the kernel table; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernel table: per kernel its launches on
+the main path, worst error, time per call (``ms``; for the χ² kernel also
+``device_ms``), plain time and bound (``bound_ms``, ``bound_by``) at the
+main path's shapes; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import glob
@@ -82,6 +95,9 @@ WAV_MEAN_RATIO = 0.8   # phase 5: mean|card - cpu_bf16| / mean|cpu_bf16 - cpu_f3
 TPU_KERNEL = "neuralsvb_tpu/ops/fused_resblock.py:82"
 CHI2_SHAPES = ((2400, 2400), (1037, 1301), (130, 70), (1, 1))  # (S, T), M = 48
 CHI2_TPU_KERNEL = "neuralsvb_tpu/ops/pallas_kernels.py:33"
+# H100 SXM dense peaks at 700 W (NVIDIA's data sheet)
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+CHI2_OPS_PER_TERM = 7  # sub, mul, mul, add, add, div, accumulate
 # binarize: (singer, song, base Hz); 2 pieces per song; Male6 is the test split
 SONGS = (("Female1", "SongA", 220.0), ("Female1", "SongB", 262.0),
          ("Male6", "SongC", 147.0), ("Male6", "SongD", 165.0))
@@ -118,6 +134,34 @@ def median_ms(fn, n=20, warmup=3):
     return statistics.median(times)
 
 
+def device_ms(fn, n=100):
+    """Device time per call: n calls enqueued between two events, over n."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def bound_ms(flops, peak_flops, nbytes):
+    """(the least time for the work, "operations" or "bytes")."""
+    ops, mem = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def cluster_work(B, C, T, spec, weight_bytes):
+    """(FLOP, bytes) of one stage's cluster: f32 x read, f32 mean written,
+    the 18 convs' weights and biases read once."""
+    taps = sum(2 * k * len(d) for k, d in spec)
+    convs = sum(2 * len(d) for _, d in spec)
+    return 2 * B * T * C * C * taps, 8 * B * C * T + weight_bytes * C * C * taps + 4 * C * convs
+
+
 def random_cluster(C, spec, gen, device):
     """Packed cluster weights at default-conv scale, from ``gen``."""
     import torch
@@ -142,7 +186,7 @@ def phase_kernel(fr, spec):
         x = torch.randn(B, C, T, generator=gen).cuda()
         w = random_cluster(C, spec, gen, "cuda")
         w16 = [t.to(bf16) if t.dim() == 4 else t for t in w]  # as the generator packs
-        gflop = 2 * B * T * C * C * sum(2 * k * len(d) for k, d in spec) / 1e9
+        flop, nbytes = cluster_work(B, C, T, spec, 2)
         with torch.no_grad():
             tf32(False)
             ref32 = fr.resblock_cluster_plain(x, w, spec)
@@ -162,11 +206,13 @@ def phase_kernel(fr, spec):
             tf32(True)
             plain_tf32_ms = median_ms(lambda: fr.resblock_cluster_plain(x, w, spec))
             tf32(False)
+        bound, bound_by = bound_ms(flop, PEAK_BF16_FLOPS, nbytes)
         row = dict(B=B, C=C, T=T, max_abs_err=err, tol=1e-3 * scale, mean_abs_err=mean_err,
                    mean_bf16_f32_gap=gap, mean_ratio=mean_err / gap,
                    mean_ratio_tol=BF16_MEAN_RATIO, ok=ok, kernel_ms=kernel_ms,
                    plain_ms=plain_ms, plain_tf32_ms=plain_tf32_ms,
-                   cudnn_bf16_ms=cudnn_bf16_ms, kernel_tflops=gflop / kernel_ms)
+                   cudnn_bf16_ms=cudnn_bf16_ms, kernel_tflops=flop / kernel_ms / 1e9,
+                   bound_ms=bound, bound_by=bound_by, bytes=nbytes)
         emit("bf16_kernel_vs_plain", **row)
         if not ok:
             raise AssertionError(f"bf16 kernel disagrees with plain: {row}")
@@ -180,9 +226,12 @@ def phase_kernel(fr, spec):
                 scale = max(1.0, float(ref32.abs().max()))
                 ok = err <= 1e-4 * scale and bool(torch.isfinite(out).all())
                 f32_ms = median_ms(lambda: fr.fused_resblock_cluster(x, w, spec, torch.float32))
+            _, nbytes = cluster_work(B, C, T, spec, 4)
+            bound, bound_by = bound_ms(flop, PEAK_F32_FLOPS, nbytes)
             row = dict(B=B, C=C, T=T, max_abs_err=err, tol=1e-4 * scale, ok=ok,
                        kernel_ms=f32_ms, plain_ms=plain_ms, plain_tf32_ms=plain_tf32_ms,
-                       kernel_tflops=gflop / f32_ms)
+                       kernel_tflops=flop / f32_ms / 1e9, bound_ms=bound, bound_by=bound_by,
+                       bytes=nbytes)
             emit("kernel_vs_plain", **row)
             if not ok:
                 raise AssertionError(f"f32 kernel disagrees with plain: {row}")
@@ -372,8 +421,13 @@ def vibrato_f0(n, period, seed):
 
 
 def chi2_inputs(S, T, seed):
-    """Two (a, b) pairs of [S, 48] / [T, 48] f32: the EHSADTW histograms of
-    two vibrato contours, and random nonnegative rows with all-zero rows."""
+    """Three (a, b) pairs of [S, 48] / [T, 48] f32: the EHSADTW histograms
+    of two vibrato contours; random nonnegative rows with all-zero rows;
+    and those rows with values outside {0} U [2^-24, 2^24] (1e-30, 1e8 and
+    negative, a + b below -0.8) in bins 16-31 of some rows only. A tile of
+    the kernel that holds such a row runs its middle 16-bin chunk with `/`
+    and its first and last with the branch-free division; a tile that holds
+    none runs all three branch-free."""
     import numpy as np
     from neuralsvb_torch.ops.dtw import f0_shape_histogram
     sh = f0_shape_histogram(vibrato_f0(S, 50, seed), enhanced=True)
@@ -385,35 +439,91 @@ def chi2_inputs(S, T, seed):
     b /= b.sum(1, keepdims=True)
     a[::7] = 0.0
     b[::5] = 0.0
-    return [(sh, th), (a, b)]
+    oa, ob = a.copy(), b.copy()
+    oa[1::97, 16:20] = 1e-30
+    ob[2::89, 20:24] = 1e8
+    oa[3::151, 24:28] = -1.0 - oa[3::151, 24:28]
+    ob[4::113, 28:32] = 1e-30
+    return [(sh, th), (a, b), (oa, ob)]
+
+
+def sass(lib_path):
+    """``cuobjdump -sass`` of a library."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+
+
+def fast_loop_per_term(text):
+    """SASS instructions per term of the first loop that divides with MUFU.RCP
+    and no FCHK (the χ² kernel's branch-free bin loop), or None."""
+    code = [(int(a, 16), ins) for a, ins in
+            re.findall(r"/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?[A-Z][^;]*);", text)]
+    for addr, ins in code:
+        m = re.match(r"(?:@!?U?P\w+\s+)?BRA\s+(?:!?U?P\w+,\s*)?`?\(?(0x[0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) < addr:
+            body = [i for a, i in code if int(m.group(1), 16) <= a <= addr]
+            ops = [re.sub(r"^@!?U?P\w+\s+", "", i).split()[0].split(".")[0] for i in body]
+            if ops.count("MUFU") and not ops.count("FCHK"):
+                return len(body) / ops.count("MUFU")
+    return None
+
+
+def issue_rate():
+    """Warp-instructions the card issues per second: 4 schedulers on each SM
+    at the top SM clock (``nvidia-smi clocks.max.sm``)."""
+    import torch
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.split()[0]
+    return 4 * torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
 
 
 def phase_chi2(chi2):
     import torch
+    per_term = fast_loop_per_term(sass(chi2.LIBRARY.path))
+    if per_term is None:
+        raise AssertionError(f"no branch-free division loop in {chi2.LIBRARY.path}")
+    rate = issue_rate()
     rows, worst = [], 0.0
     for i, (S, T) in enumerate(CHI2_SHAPES):
-        errs = []
+        errs, swap_equal = [], True
         for a, b in chi2_inputs(S, T, seed=i):
             a = torch.as_tensor(a, dtype=torch.float32, device="cuda")
             b = torch.as_tensor(b, dtype=torch.float32, device="cuda")
             out = chi2.chi2_dist(a, b)
             ref = chi2.chi2_dist_plain(a, b)
+            swapped = chi2.chi2_dist(b, a)
             torch.cuda.synchronize()
             if not bool(torch.isfinite(out).all()) or out.shape != (S, T):
                 raise AssertionError(f"chi2_dist: {tuple(out.shape)} at {(S, T)}")
-            errs.append(float((out - ref).abs().max()))
+            d = (out - ref).abs()
+            errs.append((float(d.max()), float((d / ref.abs().clamp_min(1.0)).max())))
+            swap_equal = swap_equal and bool(torch.equal(swapped, out.T))
         # timed on the histograms (the binarizer's inputs)
         a, b = (torch.as_tensor(x, dtype=torch.float32, device="cuda")
                 for x in chi2_inputs(S, T, seed=i)[0])
         kernel_ms = median_ms(lambda: chi2.chi2_dist(a, b))
+        dev_ms = device_ms(lambda: chi2.chi2_dist(a, b))
         plain_ms = median_ms(lambda: chi2.chi2_dist_plain(a, b))
-        err = max(errs)
-        row = dict(S=S, T=T, M=48, max_abs_err=err, hist_err=errs[0],
-                   random_rows_err=errs[1], tol=1e-5, ok=err <= 1e-5,
-                   kernel_ms=kernel_ms, plain_ms=plain_ms,
-                   kernel_gdiv_per_s=S * T * 48 / kernel_ms / 1e6)
+        terms = S * T * 48
+        bound, bound_by = bound_ms(terms * CHI2_OPS_PER_TERM, PEAK_F32_FLOPS,
+                                   4 * (S + T) * 48 + 4 * S * T)
+        issue_ms = terms * per_term / 32 / rate * 1e3
+        # the binarizer's two kinds: max|d| <= 1e-5; values outside the
+        # branch-free division's range: max|d| / max(1, |ref|) <= 1e-5
+        err = max(errs[0][0], errs[1][0])
+        ok = err <= 1e-5 and errs[2][1] <= 1e-5 and swap_equal
+        row = dict(S=S, T=T, M=48, max_abs_err=err, hist_err=errs[0][0],
+                   random_rows_err=errs[1][0], out_of_range_max_abs_err=errs[2][0],
+                   out_of_range_rel_err=errs[2][1], tol=1e-5, swap_equal=swap_equal, ok=ok,
+                   kernel_ms=kernel_ms, device_ms=dev_ms, plain_ms=plain_ms,
+                   bound_us=bound * 1e3, bound_by=bound_by,
+                   bound_share=bound / dev_ms, sass_per_term=per_term,
+                   issue_bound_us=issue_ms * 1e3, issue_share=issue_ms / dev_ms,
+                   kernel_gterms_per_s=terms / dev_ms / 1e6)
         emit("chi2_kernel_vs_plain", **row)
-        if err > 1e-5:
+        if not ok:
             raise AssertionError(f"chi2 kernel disagrees with plain: {row}")
         rows.append(row)
         worst = max(worst, err)
@@ -559,8 +669,9 @@ def phase_binarize_card_vs_cpu(cfgs, device="cuda"):
                                 scale_factor=len(c["prof_f0"]) / len(c["f0"]))
         a = torch.as_tensor(sh, dtype=torch.float32)
         b = torch.as_tensor(th, dtype=torch.float32)
-        cost_card = chi2_dist(a.to(device), b.to(device)).T.contiguous().cpu().numpy()
-        cost_cpu = chi2_dist_plain(a, b).T.contiguous().numpy()
+        # the DP's [T, S] cost, as the aligners compute it
+        cost_card = chi2_dist(b.to(device), a.to(device)).cpu().numpy()
+        cost_cpu = chi2_dist_plain(b, a).numpy()
         total_card = dtw_align_native(cost_card)[1]
         total_cpu = dtw_align_native(cost_cpu)[1]
         f0_ok = np.abs(np.concatenate([c["f0"] - h["f0"], c["prof_f0"] - h["prof_f0"]])) <= 1.0
@@ -647,25 +758,35 @@ def main():
 
     n = len(STAGE_SHAPES)
     bucket, stage32 = rows16[n:2 * n], rows32[:n]  # the main path's shapes; T_mel 1024
+
+    def total(rows, key):
+        return sum(r[key] for r in rows)
+
+    chi2_row = chi2_rows[0]  # 2400 x 2400
     print(json.dumps({"kernels": [{
         "name": "resblock_conv1d_bf16", "route": "cuda",
         "source": "neuralsvb_torch/csrc/resblock_bf16.cu", "replaces": TPU_KERNEL,
         "launches": launches["resblock_conv1d_bf16"],
         "prepass_launches": launches["lrelu_bf16"], "max_abs_err": worst16,
-        "ms": sum(r["kernel_ms"] for r in bucket),
-        "plain_ms": sum(r["plain_ms"] for r in bucket),
-        "plain_tf32_ms": sum(r["plain_tf32_ms"] for r in bucket),
-        "cudnn_bf16_ms": sum(r["cudnn_bf16_ms"] for r in bucket)}, {
+        "ms": total(bucket, "kernel_ms"), "plain_ms": total(bucket, "plain_ms"),
+        "bound_ms": total(bucket, "bound_ms"), "bound_by": bucket[0]["bound_by"],
+        "library_ms": None, "plain_tf32_ms": total(bucket, "plain_tf32_ms"),
+        "cudnn_bf16_ms": total(bucket, "cudnn_bf16_ms")}, {
         "name": "resblock_conv1d", "route": "cuda",
         "source": "neuralsvb_torch/csrc/fused_resblock.cu",
         "replaces": TPU_KERNEL, "launches": f32_launches, "max_abs_err": worst32,
-        "ms": sum(r["kernel_ms"] for r in stage32),
-        "plain_ms": sum(r["plain_ms"] for r in stage32)}, {
+        "ms": total(stage32, "kernel_ms"), "plain_ms": total(stage32, "plain_ms"),
+        "bound_ms": total(stage32, "bound_ms"), "bound_by": stage32[0]["bound_by"],
+        "library_ms": None}, {
         "name": "chi2_dist", "route": "cuda",
         "source": "neuralsvb_torch/csrc/chi2_dist.cu",
         "replaces": CHI2_TPU_KERNEL, "launches": chi2_launches,
-        "max_abs_err": chi2_worst, "ms": chi2_rows[0]["kernel_ms"],
-        "plain_ms": chi2_rows[0]["plain_ms"]}]}), flush=True)
+        "max_abs_err": chi2_worst, "ms": chi2_row["kernel_ms"],
+        "device_ms": chi2_row["device_ms"], "plain_ms": chi2_row["plain_ms"],
+        "bound_ms": chi2_row["bound_us"] / 1e3, "bound_by": chi2_row["bound_by"],
+        "bound_share": chi2_row["bound_share"],
+        "issue_bound_ms": chi2_row["issue_bound_us"] / 1e3,
+        "issue_share": chi2_row["issue_share"], "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -1,12 +1,11 @@
 """The host C++ DTW and pitch-Viterbi kernels; port of the loader in
 ``neuralsvb_tpu/native/__init__.py``.
 
-Both packages build the repository's one source of these kernels,
-``neuralsvb_tpu/native/dtw.cpp`` (read here as a file, not imported: the
-JAX package's import pulls in jax), with g++ and the same flags. The
-dynamic programs are sequential, so they stay on the host; the cost matrix
-that feeds the DTW comes from the device (``ops/chi2.py``). Unlike the JAX
-loader, a failed build raises: there is no numpy fallback.
+The port builds its own source, ``neuralsvb_torch/csrc/dtw.cpp`` (the same
+code as the JAX package's ``native/dtw.cpp``), with g++ and the same flags.
+The dynamic programs are sequential, so they stay on the host; the cost
+matrix that feeds the DTW comes from the device (``ops/chi2.py``). Unlike
+the JAX loader, a failed build raises: there is no numpy fallback.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ import numpy as np
 
 from .ops.shared_lib import GXX, GXX_FLAGS, PACKAGE, SharedLibrary
 
-SOURCE = PACKAGE.parent / "neuralsvb_tpu" / "native" / "dtw.cpp"
+SOURCE = PACKAGE / "csrc" / "dtw.cpp"
 
 
 def _bind(lib) -> None:

@@ -6,9 +6,13 @@ enhance_sadtw.py:18-114, align.py:8-37).
 - ``f0_shape_histogram``: per-frame histogram of local f0 slopes (numpy,
   host; vectorized over time as in the JAX package).
 - the chi-square cost between two histogram sequences runs on the
-  aligner's ``device`` through ``ops/chi2.py`` (the CUDA kernel on the card);
+  aligner's ``device`` through ``ops/chi2.py`` (the CUDA kernel on the card),
+  computed as ``chi2_dist(target, source)``: directly the ``[T, S]`` matrix
+  the DP reads. The function is symmetric term by term, so this is the
+  ``[S, T]`` cost transposed bit for bit, with no transpose on the device;
 - ``align_from_distances``: the DTW DP and backtrace in the host C++ kernel
-  (``native.py``).
+  (``native.py``). A cost on the card reaches the host through pinned
+  memory.
 
 The Naive/ZMNaive/NNaive/LoN aligners and ``NInterpo`` are not on the
 binarizer's path and are not ported yet (ROADMAP.md).
@@ -48,8 +52,21 @@ def align_from_distances(distance_matrix) -> np.ndarray:
     """For each row of ``distance_matrix`` (array or tensor) return the
     matched column index under the monotonic DTW path
     (reference: dtw/align.py:19-37)."""
-    d = torch.as_tensor(distance_matrix, dtype=torch.float32).cpu().numpy()
-    return dtw_align_native(d)[0].astype(np.int64)
+    return dtw_align_native(_to_host(distance_matrix))[0].astype(np.int64)
+
+
+def _to_host(x) -> np.ndarray:
+    """``x`` as a float32 numpy array for the host DP. A CUDA tensor is
+    copied into pinned memory (PyTorch's caching host allocator reuses the
+    buffer across pairs) without blocking, then its stream is synchronized
+    before the DP reads it; anything else takes the plain path."""
+    t = torch.as_tensor(x, dtype=torch.float32)
+    if t.device.type != "cuda":
+        return t.cpu().numpy()
+    host = torch.empty(t.shape, dtype=torch.float32, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()
 
 
 def f0_shape_histogram(f0: np.ndarray, max_window: int = 64, scale_factor: float = 1.0,
@@ -86,17 +103,19 @@ def f0_shape_histogram(f0: np.ndarray, max_window: int = 64, scale_factor: float
     return hist
 
 
-def _dtw_from_cost(cost_st: torch.Tensor, inputs):
-    """cost_st: [S, T]. Returns (inputs gathered to the T timeline, alignment)."""
-    alignment = align_from_distances(cost_st.T.contiguous())
+def _dtw_from_cost(cost_ts: torch.Tensor, inputs):
+    """cost_ts: [T, S]. Returns (inputs gathered to the T timeline, alignment)."""
+    alignment = align_from_distances(cost_ts)
     return np.asarray(inputs)[alignment], alignment
 
 
 def _chi2_cost(sh: np.ndarray, th: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Histograms go to ``device`` as float32 (the precision of the JAX
-    package's cost); the [S, T] cost stays there."""
-    return chi2_dist(torch.as_tensor(sh, dtype=torch.float32, device=device),
-                     torch.as_tensor(th, dtype=torch.float32, device=device))
+    """The [T, S] cost of source histograms ``sh`` [S, M] and target
+    histograms ``th`` [T, M]: ``chi2_dist(sh, th).T`` bit for bit, with no
+    transpose. Histograms go to ``device`` as float32 (the precision of the
+    JAX package's cost); the cost stays there."""
+    return chi2_dist(torch.as_tensor(th, dtype=torch.float32, device=device),
+                     torch.as_tensor(sh, dtype=torch.float32, device=device))
 
 
 def SADTW(src, tgt, inputs, device: torch.device):

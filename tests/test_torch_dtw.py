@@ -1,8 +1,8 @@
 """The port's shape-aware DTW (``neuralsvb_torch/ops/dtw.py``) and host C++
 kernels (``neuralsvb_torch/native.py``) against the JAX package.
 
-Both packages build the same ``dtw.cpp`` with the same flags, so the DP
-paths must be identical. The histograms are the same float64 numpy code
+The port builds its own copy of the JAX package's ``dtw.cpp`` with the same
+flags, so the DP paths must be identical. The histograms are the same float64 numpy code
 (1e-12, the JAX package's own tolerance for them). The aligners differ only
 in the chi-square cost's summation order (torch vs numpy), so the
 alignments are held equal on >= 99% of frames and the DP's total path cost
@@ -10,6 +10,8 @@ to 1e-5 relative.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,6 +24,7 @@ from neuralsvb_tpu.ops import dtw as JD  # noqa: E402
 
 from neuralsvb_torch import native  # noqa: E402
 from neuralsvb_torch.ops import dtw as TD  # noqa: E402
+from neuralsvb_torch.ops.chi2 import chi2_dist  # noqa: E402
 from neuralsvb_torch.ops.shared_lib import GXX_FLAGS, SharedLibrary  # noqa: E402
 
 CPU = torch.device("cpu")
@@ -80,9 +83,61 @@ def test_aligners_match_jax(name, n_src, n_tgt, stretch):
     sh = JD.f0_shape_histogram(src, enhanced=name == "EHSADTW")
     th = JD.f0_shape_histogram(tgt, enhanced=name == "EHSADTW",
                                scale_factor=n_tgt / n_src)
-    _, total_t = native.dtw_align_native(TD._chi2_cost(sh, th, CPU).T.contiguous().numpy())
+    _, total_t = native.dtw_align_native(TD._chi2_cost(sh, th, CPU).numpy())
     _, total_j = native.dtw_align_native(np.ascontiguousarray(JD.chi2_dist(sh, th).T))
     assert abs(total_t - total_j) <= 1e-5 * abs(total_j)
+
+
+def _code(path):
+    """A C++ source without its leading comment block."""
+    text = path.read_text()
+    return text[text.index("#include"):]
+
+
+def test_dtw_source_is_the_ports_own_copy():
+    """The port builds a source under its own package, with the same code
+    as the JAX package's."""
+    port = Path(TD.__file__).resolve().parents[1]
+    assert native.SOURCE.resolve().is_relative_to(port)
+    assert native.LIBRARY.source == native.SOURCE
+    jax_src = Path(JD.__file__).resolve().parents[1] / "native" / "dtw.cpp"
+    assert _code(native.SOURCE) == _code(jax_src)
+
+
+@pytest.mark.parametrize("name", ["SADTW", "EHSADTW"])
+@pytest.mark.parametrize("n_src,n_tgt,stretch", [(300, 300, 1.0), (200, 300, 1.5),
+                                                 (260, 231, 0.89)])
+def test_aligners_match_the_transposed_cost(name, n_src, n_tgt, stretch):
+    """The aligners read ``chi2_dist(target, source)`` as the DP's [T, S]
+    cost; the alignment and gathered inputs are those of the transposed
+    ``chi2_dist(source, target)``, exactly, and the JAX aligner's on >= 99%
+    of frames."""
+    src = _vibrato_f0(n_src, 50, 4)
+    tgt = _vibrato_f0(n_tgt, 50 * stretch, 5)
+    inputs = np.arange(n_src) * 0.5
+    out, al = TD.ALIGN_FUNCS[name](src, tgt, inputs, CPU)
+    enhanced = name == "EHSADTW"
+    sh = torch.as_tensor(TD.f0_shape_histogram(src, enhanced=enhanced), dtype=torch.float32)
+    th = torch.as_tensor(TD.f0_shape_histogram(tgt, enhanced=enhanced,
+                                               scale_factor=n_tgt / n_src),
+                         dtype=torch.float32)
+    cost_st = chi2_dist(sh, th)
+    assert torch.equal(TD._chi2_cost(sh.numpy(), th.numpy(), CPU), cost_st.T)
+    al_st = TD.align_from_distances(cost_st.T.contiguous())
+    np.testing.assert_array_equal(al, al_st)
+    np.testing.assert_array_equal(out, inputs[al_st])
+    _, al_j = JD.ALIGN_FUNCS[name](src, tgt, inputs)
+    assert np.mean(al == al_j) >= 0.99
+
+
+def test_align_from_distances_takes_arrays_tensors_and_views():
+    cost = np.random.RandomState(9).rand(60, 45)
+    want = TD.align_from_distances(cost.astype(np.float32))
+    t = torch.from_numpy(cost.astype(np.float32))
+    view = torch.from_numpy(np.ascontiguousarray(cost.T, dtype=np.float32)).T
+    assert not view.is_contiguous()
+    for x in (t, view, torch.from_numpy(cost), cost, cost.T.copy().T):
+        np.testing.assert_array_equal(TD.align_from_distances(x), want)
 
 
 def test_failed_build_raises(tmp_path):

@@ -1,9 +1,14 @@
 """The PyTorch port imports neither jax nor flax, directly or through
-neuralsvb_tpu (whose package import pulls in jax)."""
+neuralsvb_tpu (whose package import pulls in jax), and builds or reads no
+file of neuralsvb_tpu."""
 
 from __future__ import annotations
 
+import ast
+import importlib
 import json
+import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -32,3 +37,43 @@ def test_port_imports_no_jax():
              for p in ROOT.rglob("*.py") if p.name != "__init__.py"}
     assert files <= set(res["names"]), files - set(res["names"])
     assert res["bad"] == [], res["bad"]
+
+
+def _docstrings(tree):
+    return {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+
+
+def test_port_builds_and_names_only_its_own_files():
+    """Every library the port builds has its source under neuralsvb_torch/,
+    and no string of a port module outside a docstring names a path under
+    neuralsvb_tpu/ (a module that reads the JAX package's files as files
+    slips past the import check above)."""
+    import neuralsvb_torch
+    from neuralsvb_torch.ops.shared_lib import SharedLibrary
+    libs = {}
+    for info in pkgutil.walk_packages(neuralsvb_torch.__path__, "neuralsvb_torch."):
+        module = importlib.import_module(info.name)
+        for name, value in vars(module).items():
+            if isinstance(value, SharedLibrary):
+                libs[f"{info.name}.{name}"] = value
+    assert {"neuralsvb_torch.native.LIBRARY", "neuralsvb_torch.ops.chi2.LIBRARY",
+            "neuralsvb_torch.ops.fused_resblock.LIBRARY",
+            "neuralsvb_torch.ops.fused_resblock.LIBRARY_BF16"} <= set(libs)
+    outside = {k: str(lib.source) for k, lib in libs.items()
+               if not lib.source.resolve().is_relative_to(ROOT)}
+    assert outside == {}, outside
+
+    path = re.compile(r"(^|[/\\])neuralsvb_tpu($|[/\\])")
+    named = []
+    for py in sorted(ROOT.rglob("*.py")):
+        tree = ast.parse(py.read_text())
+        docs = _docstrings(tree)
+        named += [f"{py.relative_to(ROOT.parent)}:{node.lineno}: {node.value!r}"
+                  for node in ast.walk(tree)
+                  if isinstance(node, ast.Constant) and isinstance(node.value, str)
+                  and id(node) not in docs and path.search(node.value)]
+    assert named == [], named

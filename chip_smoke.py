@@ -63,12 +63,40 @@ Every phase prints one JSON line; any failure raises.
 7. binarize, card vs CPU: the test split again on the CPU: mel within 1e-4,
    f0 within 1 Hz and the alignment equal on >= 99% of frames, the DTW's
    total path cost over the card's and the CPU's cost within 1e-4 relative,
-   the item's own speaker embedding within 1e-4.
+   the item's own speaker embedding within 1e-4;
+8. train: ``python -m neuralsvb_torch.tasks.run`` trains the flagship at full
+   width on phase 6's packed splits (the Female1 pairs train, the Male6
+   pairs validate and test), seeded weights, ``phase_2_steps`` 4 and
+   ``max_updates`` 8, validating (and vocoding the first validation batch)
+   at steps 0, 4 and 8; then resumes to step 10; then ``--infer`` renders
+   the test split from the trained checkpoint. Every logged loss is finite
+   and each phase logs its keys; the frozen ASR never changes, the latent
+   map does not change in phase 2 and is the only part of the model that
+   changes in phase 3; validation wavs are written; the bf16 ResBlock
+   kernel launches 18 x 3 stages per vocoder call of validation; the resumed
+   run starts at step 8; the wav tree has 5 wavs per test utterance. It
+   prints ``| train summary:`` (steps, device-synchronized seconds per step
+   by phase, peak memory, launches);
+9. train, card vs CPU: one generator + discriminator step and one latent-map
+   step of the same seeded full-width model on the same batch (the four
+   train items cropped to 640 frames), at zero noise, pinned discriminator
+   windows and the same dropout masks (drawn on the CPU), TF32 off; on the
+   card and on the CPU, in float32 (the training path) and in float64 (the
+   same weights). Losses within 1e-4 relative in both. Gradients, per
+   tensor, card against CPU in float64 within 1e-3 of the tensor's scale
+   (max(max|g|, 1e-3 of the optimizer group's largest)). In float32 the
+   same differences are printed, beside each side's error against float64:
+   the latent map's float32 gradient is ill-conditioned in itself (its few
+   parameters take a whole batch's decoder Jacobian through a
+   training-mode BatchNorm over the batch alone), and two correct float32
+   runs differ there by percents of its scale.
 
 The line before the last is the kernel table: per kernel its launches on
-the main path, worst error, time per call (``ms``; for the χ² kernel also
-``device_ms``), plain time and bound (``bound_ms``, ``bound_by``) at the
-main path's shapes; the last line is ``{"ok": true, "device": {...}}``.
+the main path (the bf16 ResBlock kernel's also on the training path's
+validation: ``train_launches``), worst error, time per call (``ms``; for the
+χ² kernel also ``device_ms``), plain time and bound (``bound_ms``,
+``bound_by``) at the main path's shapes; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import glob
@@ -696,6 +724,207 @@ def phase_binarize_card_vs_cpu(cfgs, device="cuda"):
         raise AssertionError(f"binarize card vs CPU: {rows}")
 
 
+TRAIN_STEPS, TRAIN_PHASE2, TRAIN_RESUME = 8, 4, 10
+PHASE_KEYS = {"2": {"a2a_kl", "ssima2a", "l1a2a", "p2p_kl", "ssimp2p", "l1p2p", "a2a_a",
+                    "p2p_a", "a2a_r", "a2a_f", "p2p_r", "p2p_f", "lr_0", "lr_1"},
+              "3": {"a2a_kl", "ssima2p", "l1a2p", "a2p_mle", "a2p_a", "lr_2"}}
+
+
+def train_config(voc_dir, device="cuda", **over):
+    """The flagship at full width on phase 6's packed splits."""
+    import yaml
+    cfg = os.path.join(WORK, "train.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(dict({
+            "base_config": [os.path.join(
+                REPO, "egs/datasets/audio/PopBuTFy/vae_global_mle_eng_torch.yaml")],
+            "binary_data_dir": os.path.join(WORK, "binarize", "binary"),
+            "vocoder_ckpt": voc_dir, "device": device, "pretrain_asr_ckpt": "",
+            "hidden_size": 256, "latent_size": 128, "fvae_enc_dec_hidden": 192,
+            "fvae_kernel_size": 5, "fvae_enc_n_layers": 8, "fvae_dec_n_layers": 4,
+            "asr_enc_layers": 2, "disc_win_num": 3, "mel_disc_hidden_size": 128,
+            "phase_2_steps": TRAIN_PHASE2, "max_updates": TRAIN_STEPS,
+            "val_check_interval": 4, "valid_infer_interval": 4,
+            "num_sanity_val_steps": 1, "num_valid_plots": 1, "tb_log_interval": 1},
+            **over), f)
+    return cfg
+
+
+def run_train_cli(cfg, work, *args, hp=""):
+    cmd = [sys.executable, "-m", "neuralsvb_torch.tasks.run", "--config", cfg, *args,
+           "--hparams", f"work_dir={work}{hp}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{' '.join(args) or 'train'} failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout, wall
+
+
+def summary_of(stdout, what):
+    m = re.search(rf"^\| {what} summary: (\{{.*\}})$", stdout, re.M)
+    if m is None:
+        raise RuntimeError(f"no {what} summary in the output:\n{stdout[-4000:]}")
+    return json.loads(m.group(1))
+
+
+def changed(a, b):
+    import torch
+    return {k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())}
+
+
+def phase_train(voc, device="cuda"):
+    """Train 8 steps across phases 2 and 3, resume to 10, render; returns
+    the train run's kernel launches."""
+    import math
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
+    cfg = train_config(os.path.join(WORK, "voc"), device=device)
+    work = os.path.join(WORK, "train_work")
+    out, wall = run_train_cli(cfg, work)
+    s = summary_of(out, "train")
+    steps = {int(m.group(1)): json.loads(m.group(2))
+             for m in re.finditer(r"^\| step (\d+): (\{.*\})$", out, re.M)}
+    bad = []
+    for step, logs in steps.items():
+        phase = "2" if step - 1 <= TRAIN_PHASE2 else "3"
+        if not all(math.isfinite(v) for v in logs.values()):
+            bad.append(f"step {step}: non-finite {logs}")
+        missing = PHASE_KEYS[phase] - set(logs)
+        if step > 1 and missing:  # the discriminator starts after step 0
+            bad.append(f"step {step} (phase {phase}) lacks {sorted(missing)}")
+    if sorted(steps) != list(range(1, TRAIN_STEPS + 1)):
+        bad.append(f"logged steps {sorted(steps)}")
+
+    def load(step):
+        return torch.load(os.path.join(work, f"model_ckpt_steps_{step}.ckpt"),
+                          map_location="cpu", weights_only=True)["state_dict"]
+    # steps 0-3 (phase 2) end in the step-4 checkpoint, steps 8-9 (phase 3)
+    # run between the step-8 and step-10 ones
+    c4, c8 = load(TRAIN_PHASE2), load(TRAIN_STEPS)
+    hp = set_hparams(config=cfg, hparams_str="device=cpu", print_hparams=False,
+                     global_hparams=False)
+    with hparams_scope(hp):
+        init = SVBVAEMleTask()
+        init.build_model()
+        init.build_train()
+    phase2 = changed(init.model.state_dict(), c4["model"])
+    audio = sorted(os.path.basename(p) for p in glob.glob(
+        os.path.join(work, "lightning_logs", "version_0", "audio", "*.wav")))
+    calls = s["vocoder_calls"]
+    stages = len(voc["upsample_rates"])
+    on_card = device == "cuda"  # CPU tensors take the plain cluster
+    want = {"resblock_conv1d_bf16_launches": 18 * stages * calls * on_card,
+            "lrelu_bf16_launches": stages * calls * on_card, "resblock_conv1d_launches": 0}
+    launches = {k: s[k] for k in want}
+
+    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={TRAIN_RESUME}")
+    rs = summary_of(resumed, "train")
+    c10 = load(TRAIN_RESUME)
+    phase3 = changed(c8["model"], c10["model"])
+    invariants = {
+        "phase2_changes_generator": bool(phase2),
+        "phase2_keeps_asr_and_map": not any(
+            k.startswith(("vc_asr.", "z_mapping_function.")) for k in phase2),
+        "phase2_changes_disc": bool(changed(init.mel_disc.state_dict(), c4["mel_disc"])),
+        "phase3_changes_only_map": bool(phase3) and all(
+            k.startswith("z_mapping_function.") for k in phase3),
+        "phase3_keeps_disc": not changed(c8["mel_disc"], c10["mel_disc"]),
+        "asr_never_changes": not any(k.startswith("vc_asr.") for k in changed(
+            init.model.state_dict(), c10["model"]))}
+    infer, wall_infer = run_train_cli(cfg, work, "--infer")
+    isum = summary_of(infer, "infer")
+    gen_dir = os.path.join(work, f"generated_{TRAIN_RESUME}_", "wavs")
+    wavs = {k: len(glob.glob(os.path.join(gen_dir, f"{k}_wavout", "*.wav")))
+            for k in ("gt_a", "gt_p", "a2a", "p2p", "a2p")}
+    n_test = 4
+    ok = (not bad and all(invariants.values()) and calls == 3 + 3 + 4
+          and len(audio) == calls and launches == want
+          and (rs["start_step"], rs["end_step"]) == (TRAIN_STEPS, TRAIN_RESUME)
+          and f"model_ckpt_steps_{TRAIN_STEPS}.ckpt" in resumed
+          and all(n == n_test for n in wavs.values()))
+    emit("train", ok=ok, wall_s=wall, resume_wall_s=wall_resume, infer_wall_s=wall_infer,
+         summary=s, resume_summary=rs, infer_rtf=isum["rtf"], invariants=invariants,
+         problems=bad, validation_wavs=audio, launches=launches, expected_launches=want,
+         wav_tree=wavs, last_step_losses=steps.get(TRAIN_STEPS))
+    print(f"| train summary: {json.dumps(s)}", flush=True)
+    if not ok:
+        raise AssertionError(f"train phase failed: {bad} {invariants} {launches} "
+                             f"{want} {audio} {wavs} {rs}")
+    return launches
+
+
+def phase_train_card_vs_cpu(devices=("cpu", "cuda")):
+    """One gen+disc step and one map step on the card and on the CPU, in
+    float32 and in float64 from the same float32 weights; returns the row."""
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
+    t0 = time.perf_counter()
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        for side, dev in zip(("cpu", "card"), devices):
+            cfg = train_config(os.path.join(WORK, "voc"), device=dev, max_frames=640,
+                               zero_noise=True, ds_workers=0)
+            hp = set_hparams(config=cfg, print_hparams=False, global_hparams=False)
+            with hparams_scope(hp):
+                task = SVBVAEMleTask()
+                task.build_model()
+                task.build_train()
+                task.model.to(dtype)
+                task.mel_disc.to(dtype)
+                task.rand_device = torch.device("cpu")  # the same dropout masks on all
+                task.disc_start_frames_wins = [100, 200, 300]
+                grads = {}
+                task.grad_hook = lambda group, params: grads.__setitem__(
+                    group, [p.grad.detach().cpu().double().clone() for p in params])
+                task.train_dataloader()
+                ds = task._train_ds
+                batch = ds.collater([ds[i] for i in range(len(ds))])
+                logs = {}
+                torch.set_default_dtype(dtype)
+                try:
+                    for step, idx in ((1, 0), (1, 1), (TRAIN_PHASE2 + 1, 2)):
+                        logs.update({f"{idx}/{k}": float(torch.as_tensor(v).detach())
+                                     for k, v in task.training_step(batch, step, idx)[1].items()})
+                finally:
+                    torch.set_default_dtype(torch.float32)
+                runs[side, dtype] = logs, grads
+    f32, f64 = torch.float32, torch.float64
+
+    def loss_rel(a, b):
+        return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b}
+    rel32 = loss_rel(runs["card", f32][0], runs["cpu", f32][0])
+    rel64 = loss_rel(runs["card", f64][0], runs["cpu", f64][0])
+    ok = (runs["card", f32][0].keys() == runs["cpu", f32][0].keys()
+          and max(rel32.values()) <= 1e-4 and max(rel64.values()) <= 1e-4)
+    groups = {}
+    for group in ("gen", "disc", "map"):
+        ref = runs["cpu", f64][1][group]
+        big = max(float(t.abs().max()) for t in ref)
+        scales = [max(float(t.abs().max()), 1e-3 * big) for t in ref]
+
+        def worst(a, b):
+            return max(float((x - y).abs().max()) / s for x, y, s in zip(a, b, scales))
+        g = {(side, dt): runs[side, dt][1][group] for side in ("cpu", "card") for dt in (f32, f64)}
+        groups[group] = dict(
+            card_vs_cpu_f64=worst(g["card", f64], g["cpu", f64]),
+            card_vs_cpu_f32=worst(g["card", f32], g["cpu", f32]),
+            card_f32_vs_f64=worst(g["card", f32], g["cpu", f64]),
+            cpu_f32_vs_f64=worst(g["cpu", f32], g["cpu", f64]))
+        ok = ok and groups[group]["card_vs_cpu_f64"] <= 1e-3
+    row = dict(ok=ok, frames=640, batch=len(batch["id"]), max_loss_rel_err_f32=max(rel32.values()),
+               max_loss_rel_err_f64=max(rel64.values()), tol_loss=1e-4, tol_grad_f64=1e-3,
+               grads_over_scale=groups, seconds=time.perf_counter() - t0,
+               loss_rel_err_f32=rel32, losses_cpu_f32=runs["cpu", f32][0])
+    emit("train_card_vs_cpu", **row)
+    if not ok:
+        raise AssertionError(f"train card vs CPU: {rel32} {rel64} {groups}")
+    return row
+
+
 def build_all():
     """nvcc for each CUDA source and g++ for the host library, all started
     together."""
@@ -755,6 +984,10 @@ def main():
     # summary: the count covers the binarize main path only
     cfgs, chi2_launches = phase_binarize()
     phase_binarize_card_vs_cpu(cfgs)
+    # the training process zeroes its counts when fit starts and reports them
+    # in its summary: the counts cover the training path (its validation)
+    train_launches = phase_train(voc)
+    phase_train_card_vs_cpu()
 
     n = len(STAGE_SHAPES)
     bucket, stage32 = rows16[n:2 * n], rows32[:n]  # the main path's shapes; T_mel 1024
@@ -767,7 +1000,10 @@ def main():
         "name": "resblock_conv1d_bf16", "route": "cuda",
         "source": "neuralsvb_torch/csrc/resblock_bf16.cu", "replaces": TPU_KERNEL,
         "launches": launches["resblock_conv1d_bf16"],
-        "prepass_launches": launches["lrelu_bf16"], "max_abs_err": worst16,
+        "prepass_launches": launches["lrelu_bf16"],
+        "train_launches": train_launches["resblock_conv1d_bf16_launches"],
+        "train_prepass_launches": train_launches["lrelu_bf16_launches"],
+        "max_abs_err": worst16,
         "ms": total(bucket, "kernel_ms"), "plain_ms": total(bucket, "plain_ms"),
         "bound_ms": total(bucket, "bound_ms"), "bound_by": bucket[0]["bound_by"],
         "library_ms": None, "plain_tf32_ms": total(bucket, "plain_tf32_ms"),

@@ -1,6 +1,6 @@
 """JAX (flax) params -> the port's ``state_dict``: the exact inverse of
 ``convert_svbvae_mle_sd``, ``convert_hifigan`` and ``convert_ge2e`` in
-``neuralsvb_tpu/convert/torch2jax.py``.
+``neuralsvb_tpu/convert/torch2jax.py``, and the mel discriminator's map.
 
 The functions take nested dicts of numpy arrays (no JAX needed) and
 return ``{name: torch.Tensor}`` under the reference parameter names, ready
@@ -153,6 +153,41 @@ def svbvae_mle_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tens
     _global_fvae(sd, "vae_model", params["vae_model"], batch_stats["vae_model"])
     _global_latent_map(sd, "z_mapping_function", params["z_mapping_function"],
                        batch_stats["z_mapping_function"])
+    return dict(sd)
+
+
+def disc_from_jax(params: Tree, batch_stats: Tree,
+                  freq_length: int = 80) -> Dict[str, torch.Tensor]:
+    """Flax ``Discriminator`` (unconditional) params + batch_stats -> the
+    port's ``mel_disc`` state_dict. Conv2d kernels [kh, kw, in, out] ->
+    [out, in, kh, kw]; the head's rows go from the JAX flatten order of the
+    NHWC conv output (t, f, c) to torch's NCHW order (c, t, f)."""
+    sd = _SD()
+    p = params["discriminator"]
+    s = (batch_stats or {}).get("discriminator", {})
+    n = sum(1 for k in p if k.startswith("disc_"))
+    for i in range(n):
+        dp, base = p[f"disc_{i}"], f"discriminator.discriminators.{i}"
+        for j in range(3):
+            conv = dp[f"conv_{j}"]
+            sd.put(f"{base}.model.{j}.0.weight",
+                   np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+            sd.put(f"{base}.model.{j}.0.bias", conv["bias"])
+            if f"norm_{j}" in dp:  # disc_norm 'bn'
+                st = s[f"disc_{i}"][f"norm_{j}"]
+                sd.norm(f"{base}.model.{j}.3", dp[f"norm_{j}"])
+                sd.put(f"{base}.model.{j}.3.running_mean", st["mean"])
+                sd.put(f"{base}.model.{j}.3.running_var", st["var"])
+                sd[f"{base}.model.{j}.3.num_batches_tracked"] = torch.tensor(0)
+        C = np.asarray(dp["conv_2"]["bias"]).shape[0]
+        k = np.asarray(dp["adv_layer"]["kernel"])[:, 0]
+        f = freq_length
+        for _ in range(3):  # three stride-2 convs with padding 1
+            f = (f + 1) // 2
+        t = k.shape[0] // (C * f)
+        sd.put(f"{base}.adv_layer.weight",
+               k.reshape(t, f, C).transpose(2, 0, 1).reshape(1, -1))
+        sd.put(f"{base}.adv_layer.bias", dp["adv_layer"]["bias"])
     return dict(sd)
 
 

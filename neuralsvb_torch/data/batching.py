@@ -1,16 +1,46 @@
-"""Index ordering and padded collation for the test split; port of the
-parts of ``neuralsvb_tpu/data/batching.py`` that inference uses.
+"""Token-budget batching, index ordering and padded collation; port of
+``neuralsvb_tpu/data/batching.py`` (reference: utils/__init__.py:152-217).
 
-The collater pads each batch's time axis up to a multiple of
-``bucket_quant`` frames, as the JAX package does, so a batch of the port
-and of the reference carry the same padding.
+``batch_by_size`` fills a batch over the size-sorted indices until
+``max_tokens`` (batch size x longest item) or ``max_sentences``. The
+collater pads each batch's time axis up to a multiple of ``bucket_quant``
+frames, as the JAX package does, so a batch of the port and of the
+reference carry the same padding.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import sys
+from typing import List, Sequence
 
 import numpy as np
+
+
+def batch_by_size(indices, num_tokens_fn, max_tokens=None, max_sentences=None,
+                  required_batch_size_multiple: int = 1) -> List[List[int]]:
+    max_tokens = max_tokens if max_tokens is not None else sys.maxsize
+    max_sentences = max_sentences if max_sentences is not None else sys.maxsize
+    mult = required_batch_size_multiple
+    sample_len, sample_lens, batch, batches = 0, [], [], []
+    for idx in indices:
+        idx = int(idx)
+        n = num_tokens_fn(idx)
+        sample_lens.append(n)
+        sample_len = max(sample_len, n)
+        if sample_len > max_tokens:
+            raise ValueError(f"sample at {idx} of size {sample_len} > max_tokens "
+                             f"{max_tokens}")
+        num_tokens = (len(batch) + 1) * sample_len
+        if batch and (len(batch) == max_sentences or num_tokens > max_tokens):
+            mod_len = max(mult * (len(batch) // mult), len(batch) % mult)
+            batches.append(batch[:mod_len])
+            batch = batch[mod_len:]
+            sample_lens = sample_lens[mod_len:]
+            sample_len = max(sample_lens) if sample_lens else 0
+        batch.append(idx)
+    if batch:
+        batches.append(batch)
+    return batches
 
 
 def ordered_indices(sizes, shuffle: bool, sort_by_len: bool = True,

@@ -1,5 +1,5 @@
 """Datasets over packed IndexedDatasets, producing numpy batches; port of the
-test-split path of ``neuralsvb_tpu/data/datasets.py`` (reference:
+SVB path of ``neuralsvb_tpu/data/datasets.py`` (reference:
 tasks/tts/dataset_utils.py:15-236, tasks/singing/neural_svb_task.py:10-86,
 tasks/singing/svb_vae_task.py:20-45).
 
@@ -38,6 +38,12 @@ class BaseDataset:
 
     def __len__(self):
         return len(self.sizes)
+
+    def num_tokens(self, index):
+        return self.size(index)
+
+    def size(self, index):
+        return min(self.sizes[index], self.hparams["max_frames"])
 
     def ordered_indices(self):
         return ordered_indices(self.sizes, self.shuffle, self.sort_by_len, self._rng)
@@ -81,7 +87,7 @@ class BaseTTSDataset(BaseDataset):
 
     def __getitem__(self, index):
         item = self._get_item(index)
-        return {"item_name": item["item_name"],
+        return {"id": index, "item_name": item["item_name"],
                 "mel": self._crop(item["mel"]).astype(np.float32)}
 
     def collater(self, samples: List[dict]) -> Dict:
@@ -89,6 +95,7 @@ class BaseTTSDataset(BaseDataset):
             return {}
         bq = self.bucket_quant
         return {
+            "id": np.asarray([s["id"] for s in samples], np.int64),
             "item_name": [s["item_name"] for s in samples],
             "nsamples": len(samples),
             "mels": collate_2d([s["mel"] for s in samples], 0.0, bucket_quant=bq),

@@ -28,8 +28,9 @@ class VCASR(nn.Module):
             hidden_size, asr_enc_layers, kernel_size=31,
             use_last_norm=asr_last_norm)
 
-    def forward(self, mel):
-        """mel [B, num_mels, T] -> {'h_content': [B, H, T / stride]}."""
+    def forward(self, mel, exact_lengths: bool = True):
+        """mel [B, num_mels, T] -> {'h_content': [B, H, T / stride]};
+        ``exact_lengths`` selects the conformer's rel-pos semantics."""
         _, h = self.mel_prenet(mel)
-        h = self.content_encoder(h.transpose(1, 2))
+        h = self.content_encoder(h.transpose(1, 2), exact_lengths)
         return {"h_content": h.transpose(1, 2)}

@@ -33,6 +33,46 @@ def draw_normal(shape, like: torch.Tensor, generator: Optional[torch.Generator],
                        device=like.device)
 
 
+def _batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
+    """BatchNorm over the channel dim 1 with flax ``nn.BatchNorm`` semantics
+    (the JAX package's ``BatchNorm1d``, momentum 0.9 there = 0.1 here).
+
+    In training the statistics run over every other dim, padding included,
+    with flax's fast variance E[x^2] - E[x]^2 clipped at 0, and the running
+    variance takes the BIASED batch variance (torch's own BatchNorm takes the
+    unbiased one). A single value per channel normalizes to 0, where torch
+    raises. In eval the running statistics apply."""
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    if not bn.training:
+        mean, var = bn.running_mean.view(shape), bn.running_var.view(shape)
+    else:
+        dims = [0] + list(range(2, x.dim()))
+        mean = x.mean(dims, keepdim=True)
+        var = ((x * x).mean(dims, keepdim=True) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1 - m).add_(mean.detach().flatten(), alpha=m)
+            bn.running_var.mul_(1 - m).add_(var.detach().flatten(), alpha=m)
+            bn.num_batches_tracked.add_(1)
+    y = (x - mean) * torch.rsqrt(var + bn.eps)
+    return y * bn.weight.view(shape) + bn.bias.view(shape)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (same state_dict) computing as flax does; see
+    ``_batch_norm``."""
+
+    def forward(self, x):
+        return _batch_norm(x, self)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same state_dict) computing as flax does."""
+
+    def forward(self, x):
+        return _batch_norm(x, self)
+
+
 def linear_ct(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """Apply a Linear over the channel dim of [B, C, T]."""
     return F.conv1d(x, layer.weight[:, :, None], layer.bias)
@@ -127,7 +167,7 @@ class Prenet(nn.Module):
                 nn.Conv1d(in_dim if i == 0 else out_dim, out_dim, kernel,
                           stride=s, padding=kernel // 2),
                 nn.ReLU(),
-                nn.BatchNorm1d(out_dim, eps=BN_EPS)))
+                BatchNorm1d(out_dim, eps=BN_EPS)))
         self.out_proj = nn.Linear(out_dim, out_dim)
 
     def forward(self, x):

@@ -6,8 +6,11 @@ modules/commons/espnet_transformer_attn.py:106-186).
 
 Attention works in ``[B, T, C]`` as ESPnet does; the convolution module
 transposes to ``[B, C, T]`` and back. Inference uses the exact-length
-semantics: every example gets the rel-pos table and rel-shift of its true
-length, so a padded batch reproduces the reference's unpadded (bs=1) run.
+semantics (``exact_lengths=True``): every example gets the rel-pos table
+and rel-shift of its true length, so a padded batch reproduces the
+reference's unpadded (bs=1) run. Training on padded batches uses the
+reference's collate-length semantics (``exact_lengths=False``): one legacy
+reversed table of the padded length and the plain rel-shift.
 """
 
 from __future__ import annotations
@@ -19,7 +22,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import BN_EPS, LN_EPS
+from .common import BN_EPS, LN_EPS, BatchNorm1d
+
+
+def rel_positional_encoding(T: int, dim: int, max_len: int = 5000) -> np.ndarray:
+    """The legacy ESPnet RelPositionalEncoding table: a REVERSED table of
+    length max(max_len, T), positions L-1 ... 0, of which the first T rows
+    are read (reference: espnet_positional_embedding.py:23-45,100-112)."""
+    L = max(max_len, T)
+    pos = np.arange(L - 1, -1, -1.0)[:T, None]
+    div = np.exp(np.arange(0, dim, 2) * -(math.log(10000.0) / dim))
+    pe = np.zeros((T, dim), np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return pe
 
 
 def _rel_shift(x):
@@ -68,8 +84,8 @@ class RelPositionMultiHeadedAttention(nn.Module):
         nn.init.xavier_uniform_(self.pos_bias_u)
         nn.init.xavier_uniform_(self.pos_bias_v)
 
-    def forward(self, x, pos_emb, mask):
-        """x [B, T, C]; pos_emb [B, T, C]; mask [B, 1, T] True = valid."""
+    def forward(self, x, pos_emb, mask, exact_lengths: bool = True):
+        """x [B, T, C]; pos_emb [B or 1, T, C]; mask [B, 1, T] True = valid."""
         B, T, C = x.shape
         H, Dh = self.h, self.d_k
         q = self.linear_q(x).view(B, T, H, Dh)
@@ -80,7 +96,8 @@ class RelPositionMultiHeadedAttention(nn.Module):
         q_v = (q + self.pos_bias_v).transpose(1, 2)
         matrix_ac = q_u @ k.transpose(-1, -2)
         matrix_bd = q_v @ p.transpose(-1, -2)
-        matrix_bd = _rel_shift_exact(matrix_bd, mask[:, 0].sum(-1))
+        matrix_bd = (_rel_shift_exact(matrix_bd, mask[:, 0].sum(-1)) if exact_lengths
+                     else _rel_shift(matrix_bd))
         scores = (matrix_ac + matrix_bd) / math.sqrt(Dh)
         keep = mask[:, None]  # [B, 1, 1, T]
         scores = scores.masked_fill(~keep, torch.finfo(scores.dtype).min)
@@ -98,7 +115,7 @@ class ConvolutionModule(nn.Module):
         self.depthwise_conv = nn.Conv1d(channels, channels, kernel_size,
                                         padding=(kernel_size - 1) // 2,
                                         groups=channels)
-        self.norm = nn.BatchNorm1d(channels, eps=BN_EPS)
+        self.norm = BatchNorm1d(channels, eps=BN_EPS)
         self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
 
     def forward(self, x):
@@ -135,9 +152,9 @@ class ConformerEncoderLayer(nn.Module):
                      "norm_final"):
             setattr(self, name, nn.LayerNorm(C, eps=LN_EPS))
 
-    def forward(self, x, pos_emb, mask):
+    def forward(self, x, pos_emb, mask, exact_lengths: bool = True):
         x = x + 0.5 * self.feed_forward_macaron(self.norm_ff_macaron(x))
-        x = x + self.self_attn(self.norm_mha(x), pos_emb, mask)
+        x = x + self.self_attn(self.norm_mha(x), pos_emb, mask, exact_lengths)
         # zero padded frames so the depthwise conv sees the implicit zero
         # padding of an unpadded run
         h = self.norm_conv(x) * mask.transpose(1, 2).to(x.dtype)
@@ -177,13 +194,20 @@ class ConformerLayers(nn.Module):
         return torch.stack([torch.sin(ang), torch.cos(ang)], -1).reshape(
             ang.shape[0], T, dim)
 
-    def forward(self, x):
-        """x [B, T, C] -> [B, T, C], zero at padded frames."""
+    def forward(self, x, exact_lengths: bool = True):
+        """x [B, T, C] -> [B, T, C], zero at padded frames. ``exact_lengths``
+        False: the collate-length table and plain shift of batched training."""
         nonpadding = x.abs().sum(-1) > 0  # [B, T]
         mask = nonpadding[:, None, :]
-        pos_emb = self._pos_emb_per_example(nonpadding.sum(-1), x.shape[1])
+        T = x.shape[1]
+        if exact_lengths:
+            pos_emb = self._pos_emb_per_example(nonpadding.sum(-1), T)
+        else:
+            pos_emb = torch.from_numpy(
+                rel_positional_encoding(T, self.hidden_size)).to(x.device)[None]
+        pos_emb = pos_emb.to(x.dtype)
         h = x * math.sqrt(self.hidden_size)
         for layer in self.encoder_layers:
-            h = layer(h, pos_emb, mask)
+            h = layer(h, pos_emb, mask, exact_lengths)
         h = self.layer_norm(h)
         return h * nonpadding[:, :, None].to(h.dtype)

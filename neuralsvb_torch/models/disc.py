@@ -1,0 +1,170 @@
+"""Multi-window 2-D mel discriminator; port of
+``neuralsvb_tpu/models/disc.py`` (reference:
+modules/fastspeech/multi_window_disc.py:6-199).
+
+Per window length (32/64/128 frames) a clip ``[B, 1, win, 80]`` of the mel
+goes through three stride-2 3x3 conv blocks (leaky-ReLU 0.2, dropout 0.25 in
+training, a norm after the second and third) and a linear head; reduction
+``stack`` returns the validities ``[B, n_windows]``. Parameter names are the
+reference's (``discriminator.discriminators.0.model.1.3.weight``, ...), and
+the head reads the conv output flattened in torch's NCHW order, as the
+reference does; ``convert.jax2torch.disc_from_jax`` permutes the JAX head
+(NHWC order) into it.
+
+Random draws (window starts, dropout masks) come from an explicit
+``torch.Generator`` on its own device, in float32 whatever the default
+dtype, and move to the input's device, so a CPU generator gives a run on
+the card the draws of a CPU run.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn as nn
+
+from .common import BatchNorm2d
+
+
+def dropout_keep_mask(shape, rate: float, generator: Optional[torch.Generator],
+                      device) -> torch.Tensor:
+    """Elementwise keep-mask (True = keep, probability 1 - rate)."""
+    if generator is None:
+        raise ValueError("discriminator dropout needs a torch.Generator")
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return (u < 1.0 - rate).to(device)
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout whose mask comes from an explicit generator."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = dropout_keep_mask(x.shape, self.rate, generator, x.device)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+class LeakyReLU(nn.Module):
+    """Leaky ReLU whose derivative at 0 is 1, as ``jax.nn.leaky_relu``'s
+    (torch's is the slope). Padded frames of a decoder with zero output bias
+    are exactly 0, and so are the conv outputs over them."""
+
+    def __init__(self, slope: float):
+        super().__init__()
+        self.slope = slope
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, x * self.slope)
+
+
+class InstanceNorm(nn.Module):
+    """Per-example, per-channel normalization over the clip, no affine."""
+
+    def forward(self, x):
+        mean = x.mean((2, 3), keepdim=True)
+        var = x.var((2, 3), unbiased=False, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + 1e-5)
+
+
+class Discriminator2D(nn.Module):
+    """Three stride-2 conv blocks and the linear validity head."""
+
+    def __init__(self, time_length: int, freq_length: int = 80, hidden_size: int = 128,
+                 norm_type: str = "bn", dropout: float = 0.25):
+        super().__init__()
+        blocks = []
+        for i in range(3):
+            layers = [nn.Conv2d(1 if i == 0 else hidden_size, hidden_size, 3,
+                                stride=2, padding=1),
+                      LeakyReLU(0.2), Dropout(dropout)]
+            if i > 0:
+                if norm_type == "bn":
+                    # the reference passes 0.8 positionally into BatchNorm2d:
+                    # its eps (multi_window_disc.py:26)
+                    layers.append(BatchNorm2d(hidden_size, eps=0.8))
+                elif norm_type == "in":
+                    layers.append(InstanceNorm())
+                else:
+                    raise NotImplementedError(f"disc_norm {norm_type!r}")
+            blocks.append(nn.Sequential(*layers))
+        self.model = nn.ModuleList(blocks)
+        t, f = time_length, freq_length
+        for _ in range(3):
+            t, f = (t + 1) // 2, (f + 1) // 2
+        self.adv_layer = nn.Linear(hidden_size * t * f, 1)
+
+    def forward(self, x, generator=None):
+        """x [B, 1, win, F] -> (validity [B, 1], per-block hiddens)."""
+        hiddens = []
+        for block in self.model:
+            conv, act, drop, *norm = block
+            x = drop(act(conv(x)), generator)
+            for n in norm:
+                x = n(x)
+            hiddens.append(x)
+        return self.adv_layer(x.flatten(1)), hiddens
+
+
+class MultiWindowDiscriminator(nn.Module):
+    def __init__(self, time_lengths: Sequence[int] = (32, 64, 128), freq_length: int = 80,
+                 hidden_size: int = 128, norm_type: str = "bn"):
+        super().__init__()
+        self.time_lengths = tuple(time_lengths)
+        self.discriminators = nn.ModuleList(
+            [Discriminator2D(w, freq_length, hidden_size, norm_type)
+             for w in self.time_lengths])
+
+    def forward(self, x, x_len, start_frames_wins=None, generator=None):
+        """x [B, T, F]; x_len [B] valid frames. A window starts at
+        ``floor(u * (max(x_len) - win + 1))`` for u from ``generator``, or
+        at ``start_frames_wins[i]``. Returns (validity [B, W] or None when
+        a window exceeds the padded T, starts, hiddens)."""
+        B, T, _ = x.shape
+        if any(win > T for win in self.time_lengths):
+            return None, [], []
+        validity, starts, hiddens = [], [], []
+        for i, (win, disc) in enumerate(zip(self.time_lengths, self.discriminators)):
+            if start_frames_wins is not None:
+                start = torch.as_tensor(start_frames_wins[i], device=x.device)
+            else:
+                if generator is None:
+                    raise ValueError("pass a torch.Generator or start_frames_wins")
+                u = torch.rand((), generator=generator, dtype=torch.float32,
+                               device=generator.device)
+                t_end = (x_len.max() - win).clamp_min(0)
+                start = torch.floor(u.to(x.device) * (t_end + 1).float()).long()
+            start = start.clamp(0, T - win)
+            starts.append(start)
+            clip = x[:, start + torch.arange(win, device=x.device)]  # [B, win, F]
+            v, hs = disc(clip[:, None], generator)
+            validity.append(v[:, 0])
+            hiddens.extend(hs)
+        return torch.stack(validity, -1), starts, hiddens
+
+
+class Discriminator(nn.Module):
+    """The task's ``mel_disc`` (reference: multi_window_disc.py:154-199)."""
+
+    def __init__(self, time_lengths: Sequence[int] = (32, 64, 128), freq_length: int = 80,
+                 hidden_size: int = 128, norm_type: str = "bn",
+                 reduction: str = "stack"):
+        super().__init__()
+        if reduction != "stack":
+            raise NotImplementedError(f"disc_reduction {reduction!r}")
+        self.discriminator = MultiWindowDiscriminator(time_lengths, freq_length,
+                                                      hidden_size, norm_type)
+
+    def forward(self, x, start_frames_wins=None, generator=None):
+        """x [B, T, 80] (or [B, 1, T, 80]) -> {'y': [B, W] or None, ...}."""
+        if x.dim() == 4:
+            x = x[:, 0]
+        x_len = (x.abs().sum(-1) > 0).long().sum(-1)
+        y, starts, h = self.discriminator(x, x_len, start_frames_wins, generator)
+        return {"y": y, "start_frames_wins": starts, "h": h}

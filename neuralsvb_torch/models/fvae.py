@@ -1,7 +1,9 @@
 """Global conditional VAE over mel-spectrograms and the latent mapping of
-the MLE variant; port of the parts of ``neuralsvb_tpu/models/fvae.py`` on
-the inference path (reference: modules/fastspeech/fs2_vae.py:103-237,
-modules/voice_conversion/vae_models.py).
+the MLE variant; port of the global-latent parts of
+``neuralsvb_tpu/models/fvae.py`` (reference:
+modules/fastspeech/fs2_vae.py:103-237, modules/voice_conversion/vae_models.py).
+Training and inference share the posterior branch; the BatchNorms follow
+the module's train/eval mode.
 
 Layout ``[B, C, T]``: a global latent is ``[B, latent, 1]`` (the JAX
 package keeps ``[B, 1, latent]``). Reparameterization noise comes from an
@@ -17,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import BN_EPS, draw_normal
+from .common import BN_EPS, BatchNorm1d, draw_normal
 from .wn import WN
 
 
@@ -51,8 +53,8 @@ class GlobalFVAEEncoder(nn.Module):
         self.out_proj = nn.Conv1d(hidden_channels, 2 * latent_channels, 1)
         L2 = 2 * latent_channels
         self.poolings = nn.Sequential(
-            nn.Conv1d(L2, L2, 3, stride=2), nn.ReLU(), nn.BatchNorm1d(L2, eps=BN_EPS),
-            nn.Conv1d(L2, L2, 3, stride=2), nn.ReLU(), nn.BatchNorm1d(L2, eps=BN_EPS),
+            nn.Conv1d(L2, L2, 3, stride=2), nn.ReLU(), BatchNorm1d(L2, eps=BN_EPS),
+            nn.Conv1d(L2, L2, 3, stride=2), nn.ReLU(), BatchNorm1d(L2, eps=BN_EPS),
             nn.Conv1d(L2, L2, 3, stride=2))
 
     def forward(self, x, x_mask, g, generator=None, zero_noise=False):
@@ -152,8 +154,8 @@ class GlobalLatentMap(nn.Module):
         self.spk_proj = nn.Sequential(nn.Conv1d(style_channels, L, 1), nn.ReLU(),
                                       nn.Conv1d(L, L, 1))
         self.convs = nn.Sequential(
-            nn.Conv1d(L, L, 1), nn.BatchNorm1d(L, eps=BN_EPS), nn.ReLU(),
-            nn.Conv1d(L, L, 1), nn.BatchNorm1d(L, eps=BN_EPS), nn.ReLU(),
+            nn.Conv1d(L, L, 1), BatchNorm1d(L, eps=BN_EPS), nn.ReLU(),
+            nn.Conv1d(L, L, 1), BatchNorm1d(L, eps=BN_EPS), nn.ReLU(),
             nn.Conv1d(L, L, 1))
 
     def forward(self, x, style):

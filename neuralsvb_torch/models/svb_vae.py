@@ -13,6 +13,11 @@ alignment.
 ``SVBVAE.forward`` takes mels ``[B, T, 80]`` and returns each way's
 ``mel_out`` as ``[B, T, 80]``; inside, everything is ``[B, C, T]`` and
 latents are ``[B, latent, 1]``.
+
+Training follows torch's module modes: ``model.train()`` puts every
+BatchNorm into batch statistics except the frozen ASR's, which stays in
+eval mode (the JAX package runs it with ``train=False`` always); the
+latent-map step sets ``model.eval()`` and ``z_mapping_function.train()``.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from .asr import VCASR
-from .common import BN_EPS, ConvStacks, Embedding, linear_ct
+from .common import BN_EPS, BatchNorm1d, ConvStacks, Embedding, linear_ct
 from .fvae import FVAE, GlobalLatentMap, normal_log_prob
 
 WAYS = ("a2a", "p2p", "a2p")
@@ -39,7 +44,7 @@ class CondUpsampler(nn.Sequential):
         H = hidden_size
         stages = [nn.Sequential(nn.Upsample(scale_factor=s, mode="nearest"),
                                 nn.Conv1d(H, H, 2 * s + 1, padding=s), nn.ReLU(),
-                                nn.BatchNorm1d(H, eps=BN_EPS))
+                                BatchNorm1d(H, eps=BN_EPS))
                   for s in mel_strides if s > 1]
         super().__init__(*stages, nn.Conv1d(H, H, 5, padding=2))
 
@@ -78,16 +83,28 @@ class SVBVAE(nn.Module):
                               fvae_enc_layers, fvae_dec_layers, H, frames_multiple)
         self.z_mapping_function = GlobalLatentMap(latent_size, H)
 
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.vc_asr.eval()  # frozen: never batch statistics
+        return self
+
     # ------------------------------------------------------------------
-    def prepare_condition(self, mel, pitch, spk_emb):
-        """mel [B, 80, T]; pitch [B, T] int; spk_emb [B, 256]
-        (reference: svb_vae.py:60-86)."""
+    @torch.no_grad()
+    def extract_ppg(self, mel, exact_lengths: bool = True):
+        """The frozen ASR's content rows for mel [B, 80, T] -> [B, H, T / 2];
+        padded (zero) frames come back as zero rows."""
+        return self.vc_asr(mel, exact_lengths)["h_content"]
+
+    def prepare_condition(self, mel, pitch, spk_emb, exact_lengths: bool = True,
+                          ppg=None):
+        """mel [B, 80, T]; pitch [B, T] int; spk_emb [B, 256]; ``ppg``:
+        precomputed content rows [B, H, T / 2] (the PPG cache), else the
+        frozen ASR runs here (reference: svb_vae.py:60-86)."""
         T = pitch.shape[1]
         tgt_nonpadding = (pitch > 0).to(mel.dtype)[:, None, :]  # [B, 1, T]
         h_pitch = self.pitch_encoder(self.pitch_embed(pitch).transpose(1, 2),
                                      x_mask=tgt_nonpadding)
-        with torch.no_grad():  # the ASR is frozen
-            ppg = self.vc_asr(mel)["h_content"]
+        ppg = self.extract_ppg(mel, exact_lengths) if ppg is None else ppg.detach()
         h_content = self.upsample_layer(ppg)[:, :, :T]
         h_style = linear_ct(self.spk_embed_proj, spk_emb[:, :, None]).expand(-1, -1, T)
         return dict(h_pitch=h_pitch, h_content=h_content, h_style=h_style,
@@ -109,20 +126,33 @@ class SVBVAE(nn.Module):
     def forward(self, amateur_mel, prof_mel, amateur_pitch, prof_pitch, spk_emb,
                 a2p_alignment, disable_map: bool = False,
                 generator: Optional[torch.Generator] = None,
-                zero_noise: bool = False) -> Dict[str, Dict[str, torch.Tensor]]:
+                zero_noise: bool = False, ways: Sequence[str] = WAYS,
+                exact_lengths: Optional[bool] = None, ppg_a=None,
+                ppg_p=None) -> Dict[str, Dict[str, torch.Tensor]]:
         """Mels [B, T, 80]; pitch [B, T] int; spk_emb [B, 256] (the amateur
         speaker embedding serves both sides, as in the reference task);
-        a2p_alignment [B, T_p] int indexes amateur frames. Runs the three
-        ways of ``WAYS``; returns {way: outputs}, ``mel_out`` [B, T, 80]."""
+        a2p_alignment [B, T_p] int indexes amateur frames. Runs ``ways`` (a2p
+        needs a2a and p2p); returns {way: outputs}, ``mel_out`` [B, T, 80].
+        ``exact_lengths`` (default: not training) picks the frozen ASR's
+        rel-pos semantics; ``ppg_a``/``ppg_p`` are cached content rows."""
+        if "a2p" in ways and not {"a2a", "p2p"} <= set(ways):
+            raise ValueError(f"the a2p way needs a2a and p2p; got {tuple(ways)}")
+        if exact_lengths is None:
+            exact_lengths = not self.training
         mel_a = amateur_mel.transpose(1, 2)
         mel_p = prof_mel.transpose(1, 2)
-        conds_a = self.prepare_condition(mel_a, amateur_pitch, spk_emb)
-        conds_p = self.prepare_condition(mel_p, prof_pitch, spk_emb)
-        ret: Dict[str, Dict[str, torch.Tensor]] = {
-            "a2a": self.normal_vae(mel_a, conds_a, generator, zero_noise),
-            "p2p": self.normal_vae(mel_p, conds_p, generator, zero_noise)}
-        ret["a2p"] = self._a2p(ret["a2a"], ret["p2p"], conds_a, conds_p,
-                               a2p_alignment, disable_map)
+        conds_a = self.prepare_condition(mel_a, amateur_pitch, spk_emb,
+                                         exact_lengths, ppg_a)
+        conds_p = self.prepare_condition(mel_p, prof_pitch, spk_emb,
+                                         exact_lengths, ppg_p)
+        ret: Dict[str, Dict[str, torch.Tensor]] = {}
+        if "a2a" in ways:
+            ret["a2a"] = self.normal_vae(mel_a, conds_a, generator, zero_noise)
+        if "p2p" in ways:
+            ret["p2p"] = self.normal_vae(mel_p, conds_p, generator, zero_noise)
+        if "a2p" in ways:
+            ret["a2p"] = self._a2p(ret["a2a"], ret["p2p"], conds_a, conds_p,
+                                   a2p_alignment, disable_map)
         for out in ret.values():
             out["mel_out"] = out["mel_out"].transpose(1, 2)
         return ret

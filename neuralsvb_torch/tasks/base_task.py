@@ -1,39 +1,83 @@
-"""Task base class and the inference loop; port of the test path of
-``neuralsvb_tpu/tasks/base_task.py`` and ``Trainer.test``
-(reference: tasks/base_task.py:27-355).
+"""Task base class and loader plumbing; port of
+``neuralsvb_tpu/tasks/base_task.py`` (reference: tasks/base_task.py:27-355).
 
-A task owns model construction, the test dataloader and the per-batch
-test step. Training is not ported yet (ROADMAP.md queue 1 item 6).
+A task owns model construction, its dataloaders and the per-batch steps;
+``training/trainer.py`` owns the training loop, checkpoints and the logger.
+``start`` runs ``Trainer.fit`` or, with ``--infer``, the inference loop.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from typing import Dict, Iterator, List
 
 import numpy as np
 
+from ..data.batching import batch_by_size
 from ..hparams import hparams
 
 
 class DataLoaderLite:
-    """Collated numpy batches over fixed index batches."""
+    """Collated numpy batches over fixed index batches. ``endless`` repeats
+    the batches, reshuffling their order each pass when ``shuffle``, from a
+    ``RandomState(seed)``; ``prefetch > 0`` collates that many batches ahead
+    on a daemon thread."""
 
-    def __init__(self, dataset, batches: List[List[int]]):
+    def __init__(self, dataset, batches: List[List[int]], endless: bool = False,
+                 shuffle: bool = False, seed: int = 1234, prefetch: int = 0):
         self.dataset = dataset
         self.batches = batches
+        self.endless = endless
+        self.shuffle = shuffle
+        self.prefetch = prefetch
+        self.rng = np.random.RandomState(seed)
 
     def __len__(self):
         return len(self.batches)
 
+    def _iter_sync(self) -> Iterator[Dict]:
+        while True:
+            order = list(range(len(self.batches)))
+            if self.shuffle:
+                self.rng.shuffle(order)
+            for bi in order:
+                yield self.dataset.collater([self.dataset[i] for i in self.batches[bi]])
+            if not self.endless:
+                return
+
     def __iter__(self) -> Iterator[Dict]:
-        for idxs in self.batches:
-            yield self.dataset.collater([self.dataset[i] for i in idxs])
+        if self.prefetch <= 0:
+            yield from self._iter_sync()
+            return
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        done = object()
+
+        def worker():
+            try:
+                for b in self._iter_sync():
+                    q.put(b)
+            except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
+                q.put(e)
+            q.put(done)
+
+        threading.Thread(target=worker, daemon=True).start()
+        while True:
+            b = q.get()
+            if b is done:
+                return
+            if isinstance(b, BaseException):
+                raise b
+            yield b
 
 
 class BaseTask:
     def __init__(self):
         self.hparams = hparams
         self.global_step = 0
+        self.current_epoch = 0
+        self.trainer = None
+        self.logger = None
 
     def build_model(self):
         raise NotImplementedError
@@ -42,11 +86,19 @@ class BaseTask:
         """Load the newest checkpoint of ``work_dir``; returns its step."""
         raise NotImplementedError
 
-    def build_dataloader(self, dataset, max_sentences: int = 1) -> DataLoaderLite:
+    def build_dataloader(self, dataset, shuffle: bool = False, max_tokens=None,
+                         max_sentences=None, endless: bool = False,
+                         use_batch_by_size: bool = True) -> DataLoaderLite:
         indices = dataset.ordered_indices()
-        batches = [list(indices[i:i + max_sentences])
-                   for i in range(0, len(indices), max_sentences)]
-        return DataLoaderLite(dataset, batches)
+        if use_batch_by_size:
+            batches = batch_by_size(indices, dataset.num_tokens, max_tokens=max_tokens,
+                                    max_sentences=max_sentences)
+        else:
+            ms = max_sentences or 1
+            batches = [list(indices[i:i + ms]) for i in range(0, len(indices), ms)]
+        prefetch = 4 if shuffle and int(hparams.get("ds_workers", 1) or 0) > 0 else 0
+        return DataLoaderLite(dataset, batches, endless=endless, shuffle=shuffle,
+                              seed=int(hparams.get("seed", 1234)), prefetch=prefetch)
 
     def test_dataloader(self):
         raise NotImplementedError
@@ -71,12 +123,25 @@ class BaseTask:
                 outputs.append(self.test_step(batch, i))
         return self.test_end(outputs)
 
+    def validation_end(self, outputs):
+        """Sample-weighted means of the validation losses."""
+        sums: Dict[str, float] = {}
+        n_total = 0
+        for out in outputs:
+            n = out["nsamples"]
+            n_total += n
+            for k, v in dict(out["losses"], total_loss=out["total_loss"]).items():
+                sums[k] = sums.get(k, 0.0) + float(v) * n
+        loss_output = {k: round(v / n_total, 4) for k, v in sums.items()}
+        print(f"| Valid results: {loss_output}")
+        return {"tb_log": {f"val/{k}": v for k, v in loss_output.items()},
+                "val_loss": loss_output["total_loss"]}
+
     @classmethod
     def start(cls):
         np.random.seed(hparams.get("seed", 1234))
         task = cls()
-        if not hparams.get("infer"):
-            raise NotImplementedError(
-                "training is not ported to PyTorch yet (ROADMAP.md queue 1 "
-                "item 6); run with --infer")
-        return task.test()
+        if hparams.get("infer"):
+            return task.test()
+        from ..training.trainer import Trainer
+        return Trainer.from_hparams(hparams).fit(task)

@@ -1,43 +1,112 @@
-"""SVB VAE inference task: the a2a/p2p/a2p serving path of the flagship
-recipe; port of the inference subset of ``neuralsvb_tpu/tasks/svb_vae_task.py``
+"""SVB VAE task: three-optimizer training (generator, multi-window
+discriminator, MLE latent map) and the a2a/p2p/a2p inference path of the
+flagship recipe; port of ``neuralsvb_tpu/tasks/svb_vae_task.py``
 (reference: tasks/singing/svb_vae_task.py:48-726).
 
-packed test split -> ``SVBVAE`` forward for the three ways -> HiFiGAN-NSF
--> ``generated_{step}_{gen_dir_name}/wavs/{gt_a,gt_p,a2a,p2p,a2p}_wavout``
-and ``mels/*_mel``. Everything after the collated numpy batch runs on the
+Training (``Trainer.fit``): phase 2 runs the generator step on the ways
+``a2a,p2p`` and the discriminator step on its detached fakes; phase 3
+(after ``phase_2_steps``) runs only the latent-map step, with the model in
+eval mode and ``z_mapping_function`` in training mode. Each optimizer is a
+chain of an optional value clip, a clip by global norm (by hand: optax
+scales by max/norm only when norm > max) and AdamW with the learning rate
+of its schedule at the step. Random draws of a step come from a
+``torch.Generator`` seeded by (seed, step), so a resumed run draws what the
+uninterrupted run draws.
+
+Inference (``--infer``): packed test split -> ``SVBVAE`` forward for the
+three ways -> HiFiGAN-NSF ->
+``generated_{step}_{gen_dir_name}/wavs/{gt_a,gt_p,a2a,p2p,a2p}_wavout`` and
+``mels/*_mel``. Everything after the collated numpy batch runs on the
 ``device`` hparam's device, f0 denormalization and the NSF source included.
 """
 
 from __future__ import annotations
 
+import contextlib
+import glob
 import json
 import os
 import time
 from multiprocessing.pool import ThreadPool
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from ..convert.checkpoint import load_into, load_state_dict, newest_checkpoint
+from ..convert.checkpoint import (_is_torch_file, load_into, load_state_dict,
+                                  newest_checkpoint)
 from ..data.datasets import MultiSpkEmbDataset
 from ..hparams import hparams, resolve_device
+from ..models.disc import Discriminator
 from ..models.svb_vae import SVBVAE, WAYS
 from ..ops.fused_resblock import lrelu_bf16, resblock_conv1d, resblock_conv1d_bf16
 from ..ops.pitch_utils import denorm_f0
+from ..training.schedulers import rsqrt_schedule, step_lr_schedule
 from .base_task import BaseTask
+from .losses import add_mel_loss, mse, nan_guard, parse_mel_losses
+
+KERNEL_COUNTERS = (resblock_conv1d, resblock_conv1d_bf16, lrelu_bf16)
+
+
+def _off(v) -> bool:
+    return v in (False, 0, None, "", "off", "false", "0")
+
+
+@contextlib.contextmanager
+def _no_grad_for(params):
+    """Take ``params`` out of autograd for the block (no weight gradients
+    are computed for them)."""
+    saved = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, r in zip(params, saved):
+            p.requires_grad_(r)
+
+
+def clip_gradients(params, max_norm: float, clip_value: float = 0.0) -> None:
+    """optax's ``clip(clip_value)`` then ``clip_by_global_norm(max_norm)``, in
+    place: the gradients scale by max/norm only when norm > max (torch's
+    ``clip_grad_norm_`` scales by max/(norm + 1e-6) whenever it clips)."""
+    grads = [p.grad for p in params]
+    if clip_value > 0:
+        for g in grads:
+            g.clamp_(-clip_value, clip_value)
+    if max_norm > 0:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+        torch._foreach_mul_(grads, scale)
 
 
 class SVBVAEMleTask(BaseTask):
     """Global latent + MLE-trained z mapping: the flagship
     (reference: SVBVAEMleTask:543, vae_global_mle_eng.yaml)."""
 
+    num_optimizers = 3
+
     def __init__(self):
         super().__init__()
         self.device = resolve_device(hparams.get("device"))
+        self.seed = int(hparams.get("seed", 1234))
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(hparams.get("seed", 1234)))
+        self.generator.manual_seed(self.seed)
         self.zero_noise = bool(hparams.get("zero_noise", False))
         self.vocoder = None
+        self.mel_disc = None
+        # the host stream of the training batches' speaker-embedding column
+        self._np_rng = np.random.RandomState(self.seed)
+        # where a training step's random draws run; a CPU generator gives a
+        # run on the card the draws of a CPU run
+        self.rand_device = self.device
+        self.disc_start_frames_wins = None  # pins the discriminator's windows
+        self.grad_hook = None  # (name, params) after backward, before clipping
+        self._train_ds = None
+        self._ppg_cache = None
+        self._pending_disc = None
+        self.vocoder_calls = 0
 
     def _dict_size(self):
         fn = os.path.join(hparams["binary_data_dir"], "phone_set.json")
@@ -48,9 +117,11 @@ class SVBVAEMleTask(BaseTask):
         return 100
 
     def build_model(self):
+        """The SVB VAE from the seed, in eval mode without gradients (the
+        inference path); ``build_train`` makes it trainable."""
         hp = hparams
         with torch.random.fork_rng(devices=[]):  # seeded random init
-            torch.manual_seed(int(hp.get("seed", 1234)))
+            torch.manual_seed(self.seed)
             model = SVBVAE(
                 dict_size=self._dict_size(),
                 hidden_size=hp["hidden_size"],
@@ -78,26 +149,400 @@ class SVBVAEMleTask(BaseTask):
         self.model.to(self.device)
         return int(ckpt.rsplit("steps_", 1)[1].split(".")[0])
 
-    def _prep_batch(self, batch):
-        """Collated numpy batch -> model inputs on the device; inference
-        takes speaker-embedding column 0 (reference: svb_vae_task.py:139-143)."""
+    # ------------------------------------------------------------------
+    # training set-up
+    @staticmethod
+    def check_train_options():
+        """Options of the JAX package this port does not train with."""
+        hp = hparams
+        refused = {
+            "accumulate_grad_batches > 1 (optax MultiSteps)":
+                int(hp.get("accumulate_grad_batches", 1) or 1) > 1,
+            "compute_dtype: bfloat16": hp.get("compute_dtype") == "bfloat16",
+            "use_cond_disc: true": bool(hp.get("use_cond_disc")),
+            "binary_data_dirs (multi-dataset training)": bool(hp.get("binary_data_dirs")),
+            "a mesh_shape over more than one device (DDP)":
+                int(np.prod([int(p.split(":")[1]) for p in
+                             str(hp.get("mesh_shape") or "").split(",") if ":" in p]
+                            or [1])) > 1,
+        }
+        for what, on in refused.items():
+            if on:
+                raise NotImplementedError(f"{what} is not ported to PyTorch yet "
+                                          "(ROADMAP.md)")
+
+    def build_train(self):
+        """Discriminator, optimizers and schedules; the frozen ASR stays
+        without gradients (reference: svb_vae_task.py:290-434)."""
+        hp = hparams
+        self.check_train_options()
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(self.seed + 1)
+            self.mel_disc = Discriminator(
+                time_lengths=(32, 64, 128)[: hp["disc_win_num"]],
+                freq_length=hp["audio_num_mel_bins"],
+                hidden_size=hp["mel_disc_hidden_size"], norm_type=hp["disc_norm"],
+                reduction=hp["disc_reduction"]).to(self.device)
+        self.model.requires_grad_(True)
+        self.model.vc_asr.requires_grad_(False)
+        self._load_pretrained_asr()
+        skip = ("vc_asr.", "z_mapping_function.")
+        self.gen_params = [p for n, p in self.model.named_parameters()
+                           if not n.startswith(skip)]
+        self.map_params = list(self.model.z_mapping_function.parameters())
+        self.disc_params = list(self.mel_disc.parameters())
+        b1, b2 = hp["optimizer_adam_beta1"], hp["optimizer_adam_beta2"]
+        wd = hp.get("weight_decay", 0.0) or 0.0
+        disc_p = hp.get("discriminator_optimizer_params") or {}
+
+        def adamw(params, eps, weight_decay):
+            return torch.optim.AdamW(params, lr=0.0, betas=(b1, b2), eps=eps,
+                                     weight_decay=weight_decay)
+        self.opt_gen = adamw(self.gen_params, 1e-8, wd)
+        self.opt_disc = adamw(self.disc_params, disc_p.get("eps", 1e-8),
+                              disc_p.get("weight_decay", 0.0))
+        self.opt_map = adamw(self.map_params, 1e-8, wd)
+        self.sched_gen = (rsqrt_schedule(hp["lr"], hp["warmup_updates"], hp["hidden_size"])
+                          if hp["scheduler"] == "rsqrt" else (lambda s: hp["lr"]))
+        dsp = hp.get("discriminator_scheduler_params") or {"step_size": 60000, "gamma": 0.5}
+        self.sched_disc = step_lr_schedule(hp["disc_lr"], dsp["step_size"], dsp["gamma"])
+        msp = hp.get("map_scheduler_params") or {"step_size": 60000, "gamma": 0.5}
+        self.sched_map = step_lr_schedule(hp["map_lr"], msp["step_size"], msp["gamma"])
+        self.loss_and_lambda = parse_mel_losses(hp["mel_loss"])
+
+    def _load_pretrained_asr(self):
+        """Warm-start the frozen ASR from the newest ``*.ckpt`` of a
+        reference torch checkpoint directory (reference: svb_vae_task.py:558)."""
+        path = hparams.get("pretrain_asr_ckpt") or ""
+        if not path:
+            return
+        ckpts = (sorted(glob.glob(os.path.join(path, "*.ckpt"))) if os.path.isdir(path)
+                 else [path] if os.path.isfile(path) else [])
+        if not ckpts:
+            print(f"| WARNING: no checkpoint at {path}; keeping the ASR's init.")
+            return
+        if not _is_torch_file(ckpts[-1]):
+            raise ValueError(f"{ckpts[-1]} is not a PyTorch checkpoint; JAX msgpack "
+                             "checkpoints are not readable by the port (ROADMAP.md)")
+        sd = load_state_dict(ckpts[-1], "model")
+        if any(k.startswith("model.") for k in sd):
+            sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+        if not any(k.startswith("vc_asr.") for k in sd):
+            sd = {f"vc_asr.{k}": v for k, v in sd.items()}
+        load_into(self.model.vc_asr, {k[len("vc_asr."):]: v for k, v in sd.items()
+                                      if k.startswith("vc_asr.")}, "VCASR")
+        print(f"| Loaded the ASR from {ckpts[-1]}")
+
+    def warm_start(self, path: str):
+        """``load_ckpt``: the SVB model's parameters from another run's
+        checkpoint (a file or the newest in a directory); parameters whose
+        shape differs keep their init."""
+        ckpt = newest_checkpoint(path) if os.path.isdir(path) else path
+        if not ckpt or not os.path.exists(ckpt):
+            print(f"| WARNING: no checkpoint at {path}; keeping init.")
+            return
+        sd = load_state_dict(ckpt, "model")
+        with torch.no_grad():
+            for name, p in self.model.named_parameters():
+                if name in sd and sd[name].shape == p.shape:
+                    p.copy_(sd[name])
+                elif name in sd:
+                    print(f"| skip mismatched {name}: {tuple(sd[name].shape)} vs "
+                          f"{tuple(p.shape)}")
+        print(f"| Warm-started params from {ckpt}")
+
+    def checkpoint_state(self) -> dict:
+        st = self._np_rng.get_state()
+        return {
+            "state_dict": {"model": self.model.state_dict(),
+                           "mel_disc": self.mel_disc.state_dict()},
+            "optimizer_states": [self.opt_gen.state_dict(), self.opt_disc.state_dict(),
+                                 self.opt_map.state_dict()],
+            "emb_column_rng": {"keys": torch.from_numpy(st[1].astype(np.int64)),
+                               "pos": int(st[2]), "has_gauss": int(st[3]),
+                               "cached_gaussian": float(st[4])},
+        }
+
+    def load_checkpoint_state(self, ckpt: dict):
+        self.model.load_state_dict(ckpt["state_dict"]["model"])
+        if "mel_disc" in ckpt["state_dict"]:
+            self.mel_disc.load_state_dict(ckpt["state_dict"]["mel_disc"])
+        for opt, st in zip((self.opt_gen, self.opt_disc, self.opt_map),
+                           ckpt.get("optimizer_states") or []):
+            opt.load_state_dict(st)
+        if "emb_column_rng" in ckpt:
+            r = ckpt["emb_column_rng"]
+            self._np_rng.set_state(("MT19937", r["keys"].numpy().astype(np.uint32),
+                                    r["pos"], r["has_gauss"], r["cached_gaussian"]))
+        # cached PPG rows came from the ASR weights before the restore
+        self._ppg_cache = None
+
+    # ------------------------------------------------------------------
+    # phases (reference: svb_vae_task.py:587-595)
+    def phase_and_ways(self, step: int) -> Tuple[int, Tuple[str, ...]]:
+        hp = hparams
+        if step <= hp["phase_1_steps"]:
+            return 1, tuple(hp["phase_1_concurrent_ways"].split(","))
+        if step <= hp["phase_2_steps"]:
+            return 2, tuple(hp["phase_2_concurrent_ways"].split(","))
+        return 3, tuple(hp["phase_3_concurrent_ways"].split(","))
+
+    def _disc_start(self, step: int) -> bool:
+        return bool(hparams["mel_gan"] and step > hparams["disc_start_steps"]
+                    and hparams["lambda_mel_adv"] > 0)
+
+    def _val_ways(self, step: int) -> Tuple[str, ...]:
+        if step <= hparams["phase_1_steps"]:
+            return ("p2p",)
+        if step <= hparams["phase_2_steps"]:
+            return ("a2a", "p2p")
+        return WAYS
+
+    def step_generator(self, step: int) -> torch.Generator:
+        g = torch.Generator(device=self.rand_device)
+        g.manual_seed(int(np.random.SeedSequence([self.seed + 1, step]).generate_state(1)[0]))
+        return g
+
+    # ------------------------------------------------------------------
+    def _prep_batch(self, batch, train: bool = False):
+        """Collated numpy batch -> model inputs on the device. Inference
+        takes speaker-embedding column 0, a training batch a random other
+        column (reference: svb_vae_task.py:139-143); with ``cache_ppg`` a
+        training batch carries the cached content rows."""
         def dev(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
-        return {
-            "mels": dev(batch["mels"], torch.float32),
-            "prof_mels": dev(batch["prof_mels"], torch.float32),
+        real = torch.get_default_dtype()
+        col = (int(self._np_rng.randint(1, batch["multi_spk_emb"].shape[1]))
+               if train else 0)
+        b = {
+            "mels": dev(batch["mels"], real),
+            "prof_mels": dev(batch["prof_mels"], real),
             "pitch": dev(batch["pitch"], torch.long),
             "prof_pitch": dev(batch["prof_pitch"], torch.long),
             "a2p_f0_alignment": dev(batch["a2p_f0_alignment"], torch.long),
-            "spk_emb": dev(batch["multi_spk_emb"][:, 0], torch.float32),
+            "spk_emb": dev(batch["multi_spk_emb"][:, col], real),
         }
+        if train and not _off(hparams.get("cache_ppg", False)):
+            b["ppg_a"], b["ppg_p"] = self._cached_ppg(batch)
+        return b
+
+    def _mel_stride(self) -> int:
+        return int(np.prod(hparams.get("mel_strides", (2, 1, 1))))
 
     @torch.no_grad()
-    def forward(self, b):
+    def _build_ppg_cache(self):
+        """The frozen ASR's content rows of every train item, each side
+        computed alone at its exact length, kept on the device in f32."""
+        t0 = time.perf_counter()
+        cache = {"a": {}, "p": {}}
+        ds = self._train_ds
+        for i in range(len(ds)):
+            s = ds[i]
+            for side, key in (("a", "mel"), ("p", "prof_mel")):
+                mel = torch.as_tensor(s[key], dtype=torch.get_default_dtype(),
+                                      device=self.device).T[None]
+                cache[side][int(s["id"])] = self.model.extract_ppg(mel, True)[0]
+        n = sum(r.numel() for side in cache.values() for r in side.values())
+        print(f"| PPG cache: {len(ds)} items, {n * 4 / 1e6:.1f} MB on {self.device}, "
+              f"{time.perf_counter() - t0:.2f} s")
+        return cache
+
+    def _cached_ppg(self, batch):
+        if self._ppg_cache is None:
+            self._ppg_cache = self._build_ppg_cache()
+        stride, H = self._mel_stride(), hparams["hidden_size"]
+        out = []
+        for side, key in (("a", "mels"), ("p", "prof_mels")):
+            T = -(-batch[key].shape[1] // stride)
+            rows = torch.zeros(len(batch["id"]), H, T, device=self.device)
+            for i, idx in enumerate(batch["id"]):
+                r = self._ppg_cache[side][int(idx)]
+                rows[i, :, : r.shape[-1]] = r
+            out.append(rows)
+        return out
+
+    def _run_model(self, b, ways, generator, exact_lengths=None):
         return self.model(b["mels"], b["prof_mels"], b["pitch"], b["prof_pitch"],
                           b["spk_emb"], b["a2p_f0_alignment"],
                           disable_map=bool(hparams.get("disable_map", False)),
-                          generator=self.generator, zero_noise=self.zero_noise)
+                          generator=generator, zero_noise=self.zero_noise, ways=ways,
+                          exact_lengths=exact_lengths, ppg_a=b.get("ppg_a"),
+                          ppg_p=b.get("ppg_p"))
+
+    @torch.no_grad()
+    def forward(self, b):
+        return self._run_model(b, WAYS, self.generator)
+
+    def _model_losses(self, out, b, ways) -> Dict[str, torch.Tensor]:
+        losses: Dict[str, torch.Tensor] = {}
+        for way in ways:
+            mel_g = b["prof_mels"] if way in ("p2p", "a2p") else b["mels"]
+            if "kl" in out[way]:
+                losses[f"{way}_kl"] = nan_guard(out[way]["kl"]) * hparams["lambda_kl"]
+            if way in ("a2a", "p2p") or not hparams["cross_way_no_recon_loss"]:
+                add_mel_loss(self.loss_and_lambda, out[way]["mel_out"], mel_g, losses,
+                             postfix=way)
+        return losses
+
+    def _adv_loss(self, mel, generator, target: float):
+        o = self.mel_disc(mel, self.disc_start_frames_wins, generator)
+        return None if o["y"] is None else mse(o["y"], target)
+
+    def _update(self, name, opt, params, total, lr, max_norm):
+        """Backward, then clip and AdamW; a parameter without a gradient
+        steps with a zero one, as the optax chain steps every leaf."""
+        opt.zero_grad(set_to_none=True)
+        if torch.is_tensor(total) and total.requires_grad:
+            total.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.grad_hook is not None:
+            self.grad_hook(name, params)
+        clip_gradients(params, float(max_norm or 0),
+                       float(hparams.get("clip_grad_value") or 0))
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+
+    # ------------------------------------------------------------------
+    # the three optimizer steps (reference: svb_vae_task.py:549-693)
+    def gen_step(self, b, ways, disc_on: bool, lr: float, generator):
+        self.model.train()
+        self.mel_disc.eval()
+        out = self._run_model(b, ways, generator)
+        losses = self._model_losses(out, b, ways)
+        if disc_on:
+            with _no_grad_for(self.disc_params):
+                for way in ways:
+                    adv = self._adv_loss(out[way]["mel_out"], generator, 1.0)
+                    if adv is not None:
+                        losses[f"{way}_a"] = adv * hparams["lambda_mel_adv"]
+        self._update("gen", self.opt_gen, self.gen_params, sum(losses.values()), lr,
+                     hparams.get("generator_grad_norm", 0))
+        return losses, {w: out[w]["mel_out"].detach() for w in ways}
+
+    def disc_step(self, b, ways, fakes, lr: float, generator):
+        self.mel_disc.train()
+        losses: Dict[str, torch.Tensor] = {}
+        for way in ways:
+            mel_g = b["prof_mels"] if way in ("p2p", "a2p") else b["mels"]
+            real = self._adv_loss(mel_g, generator, 1.0)
+            fake = self._adv_loss(fakes[way], generator, 0.0)
+            if real is not None:
+                losses[f"{way}_r"] = real
+            if fake is not None:
+                losses[f"{way}_f"] = fake
+        self._update("disc", self.opt_disc, self.disc_params,
+                     sum(losses.values()) if losses else 0.0, lr,
+                     hparams.get("discriminator_grad_norm", 0))
+        return losses
+
+    def map_step(self, b, ways, disc_on: bool, lr: float, generator):
+        """Eval-mode model with the mapping in training mode, on padded
+        batches at the collate-length rel-pos (svb_vae_task.py:645-652)."""
+        hp = hparams
+        all_ways = tuple(dict.fromkeys(("a2a", "p2p") + tuple(ways)))
+        self.model.eval()
+        self.model.z_mapping_function.train()
+        self.mel_disc.eval()
+        with _no_grad_for(self.gen_params + self.disc_params):
+            out = self._run_model(b, all_ways, generator, exact_lengths=False)
+            losses = self._model_losses(out, b, all_ways)
+            for way in ways:
+                if way in ("a2a", "p2p"):
+                    continue
+                if "mle" in out[way]:
+                    losses[f"{way}_mle"] = nan_guard(out[way]["mle"]) * hp.get("lambda_mle", 1.0)
+                if disc_on and not hp["cross_way_no_disc_loss"]:
+                    adv = self._adv_loss(out[way]["mel_out"], generator, 1.0)
+                    if adv is not None:
+                        losses[f"{way}_a"] = adv * hp["lambda_mel_adv"]
+        self._update("map", self.opt_map, self.map_params, sum(losses.values()), lr,
+                     hp.get("generator_grad_norm", 0))
+        return losses
+
+    def training_step(self, batch, step: int, optimizer_idx: int):
+        """(total loss, logs) of optimizer ``optimizer_idx`` at ``step``, or
+        None when it is idle; the generator pass also runs the
+        discriminator's, whose result optimizer 1 reports."""
+        phase, ways = self.phase_and_ways(step)
+        disc_on = self._disc_start(step)
+        if optimizer_idx == 0:
+            if phase == 3:
+                return None
+            b = self._prep_batch(batch, train=True)
+            g = self.step_generator(step)
+            lr = self.sched_gen(step)
+            losses, fakes = self.gen_step(b, ways, disc_on, lr, g)
+            self._pending_disc = None
+            if disc_on and step % hparams["disc_interval"] == 0:
+                lr_d = self.sched_disc(max(step - hparams["disc_start_steps"], 1))
+                self._pending_disc = (self.disc_step(b, ways, fakes, lr_d, g), lr_d)
+            return sum(losses.values()), dict(losses, lr_0=lr)
+        if optimizer_idx == 1:
+            if phase == 3 or self._pending_disc is None:
+                return None
+            losses, lr_d = self._pending_disc
+            self._pending_disc = None
+            total = sum(losses.values()) if losses else 0.0
+            return total, dict(losses, lr_1=lr_d)
+        if optimizer_idx == 2 and phase == 3:
+            b = self._prep_batch(batch, train=True)
+            lr = self.sched_map(step)
+            losses = self.map_step(b, ways, disc_on, lr, self.step_generator(step))
+            return sum(losses.values()), dict(losses, lr_2=lr)
+        return None
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def validation_step(self, batch, batch_idx: int):
+        ways = self._val_ways(self.global_step)
+        self.model.eval()
+        b = self._prep_batch(batch)
+        out = self._run_model(b, ways, self.generator)
+        losses = self._model_losses(out, b, ways)
+        for way in ways:
+            if "mle" in out[way]:
+                losses[f"{way}_mle"] = out[way]["mle"]
+        losses = {k: float(v) for k, v in losses.items()}
+        self._vis_validation(out, batch, batch_idx, ways)
+        return {"losses": losses, "total_loss": sum(losses.values()),
+                "nsamples": batch["nsamples"]}
+
+    def _vis_validation(self, out, batch, batch_idx, ways):
+        """Vocoded validation audio of the first ``num_valid_plots``
+        batches every ``valid_infer_interval`` steps (reference:
+        svb_vae_task.py:247-298); the mel figures are not drawn."""
+        if (self.logger is None
+                or self.global_step % hparams["valid_infer_interval"] != 0
+                or batch_idx >= hparams.get("num_valid_plots", 0)):
+            return
+        if self.vocoder is None:
+            from ..vocoders.base import get_vocoder_cls
+            self.vocoder = get_vocoder_cls(hparams)(dict(hparams), device=self.device)
+
+        def dev(k):
+            return torch.as_tensor(batch[k], device=self.device)
+        f0s = {"a2a": denorm_f0(dev("f0"), dev("uv"), hparams),
+               "p2p": denorm_f0(dev("prof_f0"), dev("prof_uv"), hparams)}
+        f0s["a2p"] = f0s["p2p"]
+        lens = {"a2a": int(batch["mel_lengths"][0]),
+                "p2p": int(batch["prof_mel_lengths"][0])}
+        lens["a2p"] = lens["p2p"]
+        sr = hparams["audio_sample_rate"]
+        for way in ways:
+            L = lens[way]
+            wav = self.vocoder.spec2wav(out[way]["mel_out"][0, :L], f0=f0s[way][0, :L],
+                                        zero_noise=self.zero_noise)
+            self.logger.add_audio(f"{way}_wavout_{batch_idx}", wav.cpu().numpy(),
+                                  self.global_step, sr)
+        L = lens["a2a"]
+        gt_a = self.vocoder.spec2wav(torch.as_tensor(batch["mels"][0, :L], device=self.device),
+                                     f0=f0s["a2a"][0, :L], zero_noise=self.zero_noise)
+        self.logger.add_audio(f"gt_a_wav_{batch_idx}", gt_a.cpu().numpy(),
+                              self.global_step, sr)
+        self.vocoder_calls += len(ways) + 1
 
     # ------------------------------------------------------------------
     def test_start(self):
@@ -110,7 +555,8 @@ class SVBVAEMleTask(BaseTask):
         self._audio_sec = 0.0
         self._compute_sec = 0.0
         # test_end reports the test loop's launches
-        resblock_conv1d.launches = resblock_conv1d_bf16.launches = lrelu_bf16.launches = 0
+        for c in KERNEL_COUNTERS:
+            c.launches = 0
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
 
@@ -188,9 +634,7 @@ class SVBVAEMleTask(BaseTask):
             "audio_sec": self._audio_sec,
             "compute_sec": self._compute_sec,
             "rtf": self._compute_sec / max(self._audio_sec, 1e-9),
-            "resblock_conv1d_launches": resblock_conv1d.launches,
-            "resblock_conv1d_bf16_launches": resblock_conv1d_bf16.launches,
-            "lrelu_bf16_launches": lrelu_bf16.launches,
+            **{f"{c.__name__}_launches": c.launches for c in KERNEL_COUNTERS},
         }
         if self.device.type == "cuda":
             summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)
@@ -198,6 +642,44 @@ class SVBVAEMleTask(BaseTask):
         return summary
 
     # ------------------------------------------------------------------
+    def train_dataloader(self):
+        ds = MultiSpkEmbDataset(hparams["train_set_name"], shuffle=True)
+        self._train_ds = ds  # the PPG cache's items
+        return self.build_dataloader(ds, True, hparams["max_tokens"],
+                                     hparams["max_sentences"],
+                                     endless=hparams["endless_ds"])
+
+    def val_dataloader(self):
+        ds = MultiSpkEmbDataset(hparams["valid_set_name"], shuffle=False)
+        max_vt = hparams["max_valid_tokens"]
+        max_vs = hparams["max_valid_sentences"]
+        return self.build_dataloader(
+            ds, False, hparams["max_tokens"] if max_vt == -1 else max_vt,
+            hparams["max_sentences"] if max_vs == -1 else max_vs)
+
     def test_dataloader(self):
         ds = MultiSpkEmbDataset(hparams["test_set_name"], shuffle=False)
-        return self.build_dataloader(ds, int(hparams.get("infer_batch_size") or 1))
+        return self.build_dataloader(ds, max_sentences=int(hparams.get("infer_batch_size") or 1),
+                                     use_batch_by_size=False)
+
+
+class _NotPorted(SVBVAEMleTask):
+    def __init__(self):
+        raise NotImplementedError(f"{type(self).__name__} is not ported to PyTorch "
+                                  "yet (ROADMAP.md); the port trains SVBVAEMleTask")
+
+
+class SVBVAETask(_NotPorted):
+    """Frame-level latent variant (JAX: ``variant="local"``)."""
+
+
+class SVBVAEBoostTask(_NotPorted):
+    """Global latent, mean/scale mapping (JAX: ``variant="global"``)."""
+
+
+class SVBVAETechMleTask(_NotPorted):
+    """Technique-conditioned prior (JAX: ``variant="tech_mle"``)."""
+
+
+class SVBVAESegTechMleTask(_NotPorted):
+    """Technique prior with attention-aligned PPG (JAX: ``variant="seg_tech_mle"``)."""

@@ -1,0 +1,139 @@
+#!/usr/bin/env python3
+"""Where a training step of the PyTorch port's flagship goes, on one card.
+
+Builds ``SVBVAEMleTask`` at the flagship's full widths from seeded weights
+on a synthetic packed train split of 4 pairs (amateur 1034-2412 frames, the
+smoke run's Female1 lengths: one batch of 4, padded to 2560 frames), then:
+
+- times warm phase-2 steps (generator + discriminator) and phase-3 steps
+  (latent map), each between two ``torch.cuda.synchronize()`` calls;
+- runs one warm phase-2 step under ``torch.profiler`` and sums the device
+  time of its kernels and copies by name and by kind (user annotations such
+  as ``Optimizer.step`` left out: they repeat their kernels), against the
+  profiled step's wall time and the unprofiled median (the device's busy
+  share);
+- reports peak device memory.
+
+TF32 is off, as the training CLI sets it. Run from the repository root on
+a machine with a CUDA card: ``python3 scripts/train_profile.py [--out
+FILE]``. It prints one JSON object and writes it to ``--out`` (default
+``build/train_profile.json``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FRAMES = (1034, 2412, 1241, 2171)
+KINDS = (("optimizer (Adam, clip)", ("adam", "foreach", "multi_tensor", "norm_kernel")),
+         ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "winograd", "fft", "xmma", "sm90")),
+         ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "ampere", "sm80")),
+         ("reduction", ("reduce", "softmax", "norm", "mean", "sum")),
+         ("elementwise", ("elementwise", "vectorized", "unrolled", "where", "copy", "fill",
+                          "index", "cat", "gather", "scatter")))
+
+
+def kind_of(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=os.path.join(REPO, "build", "train_profile.json"))
+    ap.add_argument("--warm", type=int, default=4, help="timed steps per phase")
+    args = ap.parse_args()
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from neuralsvb_torch.data.synthetic import write_synthetic_split
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
+
+    data = os.path.join(REPO, "build", "train_profile_data")
+    for prefix, seed in (("train", 1), ("valid", 2)):
+        write_synthetic_split(data, FRAMES, prefix=prefix, seed=seed)
+    hp = set_hparams(config="egs/datasets/audio/PopBuTFy/vae_global_mle_eng_torch.yaml",
+                     hparams_str=f"binary_data_dir={data},pretrain_asr_ckpt=,ds_workers=0",
+                     print_hparams=False, global_hparams=False)
+    dev = torch.device("cuda")
+    with hparams_scope(hp) as h:
+        task = SVBVAEMleTask()
+        task.build_model()
+        task.build_train()
+        batch = next(iter(task.train_dataloader()))
+        step2, step3 = 1, int(h["phase_2_steps"]) + 1
+
+        def run(step):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for idx in range(3):
+                task.training_step(batch, step, idx)
+            torch.cuda.synchronize(dev)
+            return time.perf_counter() - t0
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        first2 = run(0)  # the discriminator starts after step 0
+        times2 = [run(step2) for _ in range(args.warm + 1)]
+        first3 = run(step3)
+        times3 = [run(step3) for _ in range(args.warm)]
+        peak = torch.cuda.max_memory_allocated(dev)
+
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = run(step2)
+        sums = {}
+        for e in prof.events():  # device ops only; user annotations repeat them
+            if e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False) \
+                    or e.name.startswith("Optimizer."):
+                continue
+            ms, n = sums.get(e.name, (0.0, 0))
+            sums[e.name] = (ms + e.device_time / 1e3, n + 1)
+        rows = sorted(((k, ms, n) for k, (ms, n) in sums.items()), key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        kinds = {}
+        for name, ms, n in rows:
+            k = kinds.setdefault(kind_of(name), [0.0, 0])
+            k[0] += ms
+            k[1] += n
+    smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
+    res = {
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "torch": torch.__version__, "batch": [int(batch["nsamples"]), int(batch["mels"].shape[1])],
+        "frames": list(FRAMES), "tf32": False,
+        "phase2_first_step_s": first2, "phase2_warm_steps_s": times2[1:],
+        "phase2_median_s": statistics.median(times2[1:]),
+        "phase3_first_step_s": first3, "phase3_warm_steps_s": times3,
+        "phase3_median_s": statistics.median(times3),
+        "max_memory_allocated": peak,
+        "profiled_phase2_step": {
+            "wall_ms": wall * 1e3, "kernel_ms": busy, "busy_share": busy / (wall * 1e3),
+            "busy_share_of_unprofiled_median": busy / (statistics.median(times2[1:]) * 1e3),
+            "launches": sum(r[2] for r in rows),
+            "by_kind_ms": {k: {"ms": v[0], "launches": v[1], "share": v[0] / busy}
+                           for k, v in sorted(kinds.items(), key=lambda kv: -kv[1][0])},
+            "top_kernels": [{"name": n[:120], "ms": ms, "launches": c}
+                            for n, ms, c in rows[:25]]},
+    }
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(res, f, indent=1)
+    print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()

@@ -13,8 +13,9 @@ Every phase prints one JSON line; any failure raises.
 3. kernel vs plain, TF32 off for every plain reference. The bf16
    ResBlock-cluster kernel (tensor cores; the main path's) against the plain
    version with bf16 operands at the flagship vocoder's stage shapes for
-   1024 mel frames and for the main path's 2048-frame bucket, a ragged
-   length and B=2: max|d| <= 1e-3 * max(1, max|ref|) and mean|d| <=
+   1024 mel frames, for the main path's 2048-frame bucket and for the
+   vocoder training path's 16 crops of 64 frames, a ragged length and B=2:
+   max|d| <= 1e-3 * max(1, max|ref|) and mean|d| <=
    0.5 * mean|plain_bf16 - plain_f32| (the bf16 pipeline's rounding flips
    under another f32 summation order stay below that; f32 operands sit at
    about 1.0); median times over 20 runs from CUDA events of the kernel,
@@ -89,11 +90,36 @@ Every phase prints one JSON line; any failure raises.
    the latent map's float32 gradient is ill-conditioned in itself (its few
    parameters take a whole batch's decoder Jacobian through a
    training-mode BatchNorm over the batch alone), and two correct float32
-   runs differ there by percents of its scale.
+   runs differ there by percents of its scale;
+10. vocoder train: the pairs of phase 6 binarized again with
+   ``vocoder_bin_torch.yaml`` (waveforms kept; the χ² kernel launches once
+   per item), then ``python -m neuralsvb_torch.tasks.run --config
+   hifigan_nsf_torch.yaml`` trains the recipe's vocoder at full width (512
+   channels, rates 8,8,2, ResBlock1 3/7/11 x (1,3,5), crops of 8192
+   samples; the 4 Female1 items train, the 4 Male6 items validate) from
+   seeded weights for 4 steps, the discriminators from step 2, validating
+   at 0 and 4, then resumes to 6. Every logged loss is finite with the
+   keys of its step, the generator and both discriminators change, and the
+   bf16 ResBlock kernel launches exactly 54 convs + 3 pre-passes per
+   generator call (each training step and each validation batch). Then the
+   SVB ``--infer`` of phase 8 renders the test split through the trained
+   vocoder (``vocoder_ckpt`` = its work dir): it must print the load line
+   and write 20 wavs that are not silent. In this process, warm generator
+   + discriminator steps at the recipe's batch (16 x 8192, synthetic
+   crops): first step, median/min/max, peak memory, launches per step
+   (54 + 3, checked), a ``torch.profiler`` split by kernel kind and the
+   device times of the cluster forward (phase 3's training rows), the plain
+   f32 cluster backward, the discriminators and the log-mel L1, each alone;
+11. vocoder train, card vs CPU: see ``phase_vocoder_card_vs_cpu``: in f32
+   losses within 1e-4 relative, gradients within 1e-3 in relative L2 (the
+   discriminators' also per tensor); with bf16 operands each loss within
+   the bf16-vs-f32 gap of the CPU.
 
 The line before the last is the kernel table: per kernel its launches on
 the main path (the bf16 ResBlock kernel's also on the training path's
-validation: ``train_launches``), worst error, time per call (``ms``; for the
+validation, ``train_launches``, and on the vocoder's training path,
+``vocoder_train_launches``, with its times at that path's shapes; the χ²
+kernel's also in the vocoder's binarize pass), worst error, time per call (``ms``; for the
 χ² kernel also ``device_ms``), plain time and bound (``bound_ms``,
 ``bound_by``) at the main path's shapes; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -118,6 +144,8 @@ STAGE_SHAPES = ((1, 256, 8192), (1, 128, 65536), (1, 64, 131072))  # T_mel 1024
 # the main path pads every utterance (1040-1780 frames) to the 2048 bucket
 BUCKET_SHAPES = ((1, 256, 16384), (1, 128, 131072), (1, 64, 262144))
 EXTRA_SHAPES = ((1, 256, 8000), (2, 128, 16384))  # ragged T, B = 2
+# vocoder training: max_sentences 16 crops of max_samples 8192 (T_mel 64)
+TRAIN_SHAPES = ((16, 256, 512), (16, 128, 4096), (16, 64, 8192))
 BF16_MEAN_RATIO = 0.5  # phase 3: mean|kernel - plain_bf16| / mean|plain_bf16 - plain_f32|
 WAV_MEAN_RATIO = 0.8   # phase 5: mean|card - cpu_bf16| / mean|cpu_bf16 - cpu_f32|
 TPU_KERNEL = "neuralsvb_tpu/ops/fused_resblock.py:82"
@@ -210,7 +238,7 @@ def phase_kernel(fr, spec):
     bf16 = torch.bfloat16
     gen = torch.Generator().manual_seed(0)
     rows16, rows32, worst16, worst32 = [], [], 0.0, 0.0
-    for B, C, T in STAGE_SHAPES + BUCKET_SHAPES + EXTRA_SHAPES:
+    for B, C, T in STAGE_SHAPES + BUCKET_SHAPES + EXTRA_SHAPES + TRAIN_SHAPES:
         x = torch.randn(B, C, T, generator=gen).cuda()
         w = random_cluster(C, spec, gen, "cuda")
         w16 = [t.to(bf16) if t.dim() == 4 else t for t in w]  # as the generator packs
@@ -246,7 +274,7 @@ def phase_kernel(fr, spec):
             raise AssertionError(f"bf16 kernel disagrees with plain: {row}")
         rows16.append(row)
         worst16 = max(worst16, err)
-        if (B, C, T) not in BUCKET_SHAPES:  # the f32 kernel's rows
+        if (B, C, T) in STAGE_SHAPES + EXTRA_SHAPES:  # the f32 kernel's rows
             with torch.no_grad():
                 out = fr.fused_resblock_cluster(x, w, spec, torch.float32)
                 torch.cuda.synchronize()
@@ -925,6 +953,390 @@ def phase_train_card_vs_cpu(devices=("cpu", "cuda")):
     return row
 
 
+VOC_STEPS, VOC_RESUME, VOC_DISC_START, VOC_VAL_EVERY = 4, 6, 1, 4
+VOC_VALID_ITEMS = 4  # the Male6 pairs' amateur sides, one per validation batch
+VOC_BATCH, VOC_TIMED_STEPS = 16, 5  # the recipe's max_sentences; warm steps timed
+VOC_LOSS_RATIO = 1.0  # phase 11: |card_bf16 - cpu_bf16| / |cpu_bf16 - cpu_f32| per loss
+VOC_GEN_KEYS = {"mel", "a_p", "a_s", "lr_0"}
+VOC_DISC_KEYS = {"r_p", "f_p", "r_s", "f_s", "lr_1"}
+# kernel names -> kinds, for profiler splits (also scripts/train_profile.py)
+KERNEL_KINDS = (("ResBlock cluster kernels", ("resblock_conv1d", "lrelu_bf16")),
+                ("optimizer (Adam, clip)", ("adam", "foreach", "multi_tensor", "norm_kernel")),
+                ("FFT (cuFFT)", ("fft",)),
+                ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "winograd", "xmma",
+                                         "sm90", "dgrad", "wgrad")),
+                ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "ampere", "sm80")),
+                ("reduction", ("reduce", "softmax", "norm", "mean", "sum")),
+                ("elementwise", ("elementwise", "vectorized", "unrolled", "where", "copy",
+                                 "fill", "index", "cat", "gather", "scatter", "pad")))
+
+
+def kernel_kind(name):
+    low = name.lower()
+    for kind, keys in KERNEL_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def vocoder_configs(device="cuda", **over):
+    """The vocoder's binarize pass (``vocoder_bin_torch.yaml`` over phase
+    6's wavs and speaker embeddings, waveforms kept) and its training recipe
+    (``hifigan_nsf_torch.yaml``, full width) on that split."""
+    import yaml
+    root = os.path.join(WORK, "binarize")
+    binary = os.path.join(WORK, "vocoder_binary")
+    bin_cfg, cfg = (os.path.join(WORK, f) for f in ("vocoder_bin.yaml", "vocoder_train.yaml"))
+    with open(bin_cfg, "w") as f:
+        yaml.safe_dump({
+            "base_config": [os.path.join(
+                REPO, "egs/datasets/audio/PopBuTFy/vocoder_bin_torch.yaml")],
+            "processed_data_dir": os.path.join(root, "processed"), "binary_data_dir": binary,
+            "spk_emb_data_dir": os.path.join(root, "spk_emb"),
+            "test_prefixes": ["Male6#singing#"], "ge2e_ckpt": "", "ds_workers": 1}, f)
+    with open(cfg, "w") as f:
+        yaml.safe_dump(dict({
+            "base_config": [os.path.join(
+                REPO, "egs/datasets/audio/PopBuTFy/hifigan_nsf_torch.yaml")],
+            "binary_data_dir": binary, "device": device, "max_updates": VOC_STEPS,
+            "disc_start_steps": VOC_DISC_START, "val_check_interval": VOC_VAL_EVERY,
+            "tb_log_interval": 1}, **over), f)
+    return bin_cfg, cfg
+
+
+def phase_vocoder_train(device="cuda"):
+    """Binarize with waveforms, train the vocoder, resume, render the SVB
+    test split through it; returns (the training run's cluster-kernel
+    launches, the binarize pass's χ² launches, the training config)."""
+    import math
+    import numpy as np
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.vocoder_task import HifiGanTask
+    bin_cfg, cfg = vocoder_configs(device)
+    wall_bin, bsum = run_binarize(bin_cfg, device)
+    binary = os.path.join(WORK, "vocoder_binary")
+    bad = [f"{it['item_name']}: wav {it['wav'].shape} for {len(it['mel'])} frames"
+           for prefix in ("train", "valid") for it in read_split(binary, prefix)
+           if it["wav"].shape != (128 * len(it["mel"]),)]
+    binarized = sum(bsum["items"].values())
+    chi2_launches = bsum["chi2_dist_launches"]
+    if device == "cuda" and chi2_launches != binarized:
+        bad.append(f"chi2 launches {chi2_launches} != items {binarized}")
+
+    work = os.path.join(WORK, "vocoder_work")
+    out, wall = run_train_cli(cfg, work)
+    s = summary_of(out, "train")
+    steps = {int(m.group(1)): json.loads(m.group(2))
+             for m in re.finditer(r"^\| step (\d+): (\{.*\})$", out, re.M)}
+    for n, logs in steps.items():  # "step n" logs step n - 1
+        want = VOC_GEN_KEYS | (VOC_DISC_KEYS if n - 1 > VOC_DISC_START else set())
+        if set(logs) - {"total_loss_0", "total_loss_1"} != want:
+            bad.append(f"step {n} logs {sorted(logs)}")
+        if not all(math.isfinite(v) for v in logs.values()):
+            bad.append(f"step {n}: non-finite {logs}")
+    if sorted(steps) != list(range(1, VOC_STEPS + 1)):
+        bad.append(f"logged steps {sorted(steps)}")
+    validations = out.count("| Valid results:")
+    calls = s["vocoder_calls"]
+    on_card = device == "cuda"  # CPU tensors take the plain cluster
+    hp = set_hparams(config=cfg, hparams_str="device=cpu", print_hparams=False,
+                     global_hparams=False)
+    stages = len(hp["upsample_rates"])
+    want = {"resblock_conv1d_bf16_launches": 18 * stages * calls * on_card,
+            "lrelu_bf16_launches": stages * calls * on_card, "resblock_conv1d_launches": 0}
+    launches = {k: s[k] for k in want}
+    if calls != VOC_STEPS + VOC_VALID_ITEMS * validations or launches != want:
+        bad.append(f"{calls} generator calls, {validations} validations, launches "
+                   f"{launches} != {want}")
+
+    with hparams_scope(hp):
+        init = HifiGanTask()
+        init.build_model()
+    trained = torch.load(os.path.join(work, f"model_ckpt_steps_{VOC_STEPS}.ckpt"),
+                         map_location="cpu", weights_only=True)["state_dict"]
+    changed_groups = {name: bool(changed(m.state_dict(), trained[name])) for name, m in
+                      (("model_gen", init.model), ("mpd", init.mpd), ("msd", init.msd))}
+    if not all(changed_groups.values()):
+        bad.append(f"unchanged parameter groups: {changed_groups}")
+
+    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={VOC_RESUME}")
+    rs = summary_of(resumed, "train")
+    if (rs["start_step"], rs["end_step"]) != (VOC_STEPS, VOC_RESUME) \
+            or f"model_ckpt_steps_{VOC_STEPS}.ckpt" not in resumed:
+        bad.append(f"resume: {rs['start_step']} -> {rs['end_step']}")
+
+    # the SVB test split rendered through the trained vocoder
+    svb_cfg = train_config(os.path.join(WORK, "voc"), device=device)
+    infer, wall_infer = run_train_cli(svb_cfg, os.path.join(WORK, "train_work"), "--infer",
+                                      hp=f",vocoder_ckpt={work},gen_dir_name=trained_vocoder")
+    if f"| Loaded HifiGAN weights from {work}" not in infer:
+        bad.append("--infer did not load the trained vocoder")
+    wavs = glob.glob(os.path.join(WORK, "train_work", f"generated_{TRAIN_RESUME}_trained_vocoder",
+                                  "wavs", "*_wavout", "*.wav"))
+    rms = []
+    for wf in wavs:
+        with wave.open(wf) as f:
+            pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2").astype(np.float64)
+        rms.append(float(np.sqrt(np.mean(pcm ** 2))))
+    if len(wavs) != 5 * 4 or min(rms) < 1.0:
+        bad.append(f"{len(wavs)} wavs rendered, rms {rms}")
+    emit("vocoder_train", ok=not bad, problems=bad, binarize_wall_s=wall_bin,
+         binarize_summary=bsum, wall_s=wall, resume_wall_s=wall_resume,
+         infer_wall_s=wall_infer, summary=s, resume_summary=rs, validations=validations,
+         generator_calls=calls, launches=launches, expected_launches=want,
+         changed_groups=changed_groups, rendered_wavs=len(wavs), min_rms_int16=min(rms or [0]),
+         last_step_losses=steps.get(VOC_STEPS))
+    print(f"| train summary: {json.dumps(s)}", flush=True)
+    if bad:
+        raise AssertionError(f"vocoder train phase failed: {bad}")
+    return launches, chi2_launches, cfg
+
+
+def synthetic_crops(n, hp, seed=0):
+    """``n`` crops of ``max_samples`` sung vibrato with their log-mel and a
+    constant f0 each, as the vocoder's collater gives them."""
+    import numpy as np
+    import torch
+    from neuralsvb_torch.ops.stft import log_mel_batch
+    rng = np.random.RandomState(seed)
+    L = hp["max_samples"]
+    f0 = rng.uniform(150, 400, n)
+    t = np.arange(L) / SR
+    wav = 0.3 * np.sin(2 * np.pi * f0[:, None] * t * (1 + 0.01 * np.sin(2 * np.pi * 5 * t)))
+    wav = (wav + 0.01 * rng.randn(n, L)).astype(np.float32)
+    mel = log_mel_batch(torch.as_tensor(wav), sample_rate=SR, fft_size=hp["fft_size"],
+                        hop_size=hp["hop_size"], win_size=hp["win_size"],
+                        num_mels=hp["audio_num_mel_bins"], fmin=float(hp["fmin"]),
+                        fmax=float(hp["fmax"]))[:, : L // hp["hop_size"]]
+    frames = L // hp["hop_size"]
+    return {"wavs": wav, "mels": mel.numpy(), "nsamples": n,
+            "f0": np.repeat(f0[:, None], frames, 1).astype(np.float32)}
+
+
+def vocoder_step_parts(task, batch, spec):
+    """Device time of a step's parts, each alone between CUDA events
+    (median of 10): the plain f32 recompute of the cluster backward at the
+    three stage shapes, the discriminators (the generator step's pass over
+    y_hat with its input gradient, the discriminator step's real and fake
+    passes with their weight gradients) and the log-mel L1 with its input
+    gradient."""
+    import torch
+    from neuralsvb_torch.models import hifigan as hf
+    from neuralsvb_torch.ops import fused_resblock as fr
+    from neuralsvb_torch.tasks.base_task import no_grad_for
+    gen = torch.Generator().manual_seed(3)
+    b = task._prep_batch(batch)
+    B, L = b["wavs"].shape
+    parts = {}
+    bwd = 0.0
+    for Bs, C, T in TRAIN_SHAPES:
+        x = torch.randn(Bs, C, T, generator=gen).cuda().requires_grad_(True)
+        w = [t.requires_grad_(True) for t in random_cluster(C, spec, gen, "cuda")]
+        g = torch.randn(Bs, C, T, generator=gen).cuda()
+        bwd += median_ms(lambda: torch.autograd.grad(
+            fr.resblock_cluster_plain(x, w, spec), [x] + w, g), n=10)
+        del x, w, g
+    parts["cluster_backward_f32_recompute"] = bwd
+    y_hat = (0.3 * torch.randn(B, L, generator=gen)).cuda().requires_grad_(True)
+
+    def disc_gen():
+        with no_grad_for(task.disc_params):
+            loss = hf.generator_loss(task.mpd(y_hat)[0]) + hf.generator_loss(task.msd(y_hat)[0])
+            torch.autograd.grad(loss, y_hat)
+
+    def disc_disc():
+        task.opt_disc.zero_grad(set_to_none=True)
+        fake = y_hat.detach()
+        rp, fp = hf.discriminator_loss(task.mpd(b["wavs"])[0], task.mpd(fake)[0])
+        rs, fs = hf.discriminator_loss(task.msd(b["wavs"])[0], task.msd(fake)[0])
+        (rp + fp + rs + fs).backward()
+
+    def log_mel_l1():
+        ref = task._mel_fn(b["wavs"])
+        torch.autograd.grad((task._mel_fn(y_hat) - ref).abs().mean(), y_hat)
+
+    parts["discriminators_gen_step"] = median_ms(disc_gen, n=10)
+    parts["discriminators_disc_step"] = median_ms(disc_disc, n=10)
+    parts["log_mel_l1"] = median_ms(log_mel_l1, n=10)
+    task.opt_disc.zero_grad(set_to_none=True)
+    return parts
+
+
+def phase_vocoder_step_time(cfg, train_rows, spec):
+    """Warm generator + discriminator steps of the recipe at B = 16 x 8192
+    on synthetic crops, in this process: first step, median/min/max of the
+    warm ones, peak memory, kernel launches per step, one step under
+    ``torch.profiler`` (kernel time by kind, busy share) and the parts'
+    device times (``vocoder_step_parts``); the cluster forward's is phase
+    3's at the training shapes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.ops import fused_resblock as fr
+    from neuralsvb_torch.tasks.vocoder_task import HifiGanTask
+    hp = set_hparams(config=cfg, print_hparams=False, global_hparams=False)
+    with hparams_scope(hp, disc_start_steps=0) as h:
+        task = HifiGanTask()
+        task.build_model()
+        task.build_train()
+        batch = synthetic_crops(VOC_BATCH, h)
+
+        def step(i):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            task.training_step(batch, i, 0)
+            task.training_step(batch, i, 1)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        torch.cuda.reset_peak_memory_stats()
+        first = step(1)
+        for c in fr.KERNEL_COUNTERS:
+            c.launches = 0
+        warm = [step(2 + i) for i in range(VOC_TIMED_STEPS)]
+        per_step = {f"{c.__name__}_launches": c.launches / VOC_TIMED_STEPS
+                    for c in fr.KERNEL_COUNTERS}
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = step(2 + VOC_TIMED_STEPS)
+        kinds, ops = {}, 0
+        for e in prof.events():  # device ops only; user annotations repeat them
+            if e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False) \
+                    or e.name.startswith("Optimizer."):
+                continue
+            k = kinds.setdefault(kernel_kind(e.name), [0.0, 0])
+            k[0] += e.device_time / 1e3
+            k[1] += 1
+            ops += 1
+        busy = sum(v[0] for v in kinds.values())
+        parts = vocoder_step_parts(task, batch, spec)
+    med = statistics.median(warm)
+    parts["cluster_forward_bf16_kernel"] = sum(r["kernel_ms"] for r in train_rows)
+    row = dict(batch=[VOC_BATCH, batch["wavs"].shape[1]], first_step_s=first,
+               warm_steps_s=warm, median_s=med, min_s=min(warm), max_s=max(warm),
+               max_memory_allocated=peak, launches_per_step=per_step,
+               profiled_step={"wall_ms": wall * 1e3, "kernel_ms": busy, "device_ops": ops,
+                              "busy_share_of_wall": busy / (wall * 1e3),
+                              "busy_share_of_median": busy / (med * 1e3),
+                              "by_kind_ms": {k: {"ms": v[0], "launches": v[1],
+                                                 "share": v[0] / busy}
+                                             for k, v in sorted(kinds.items(),
+                                                                key=lambda kv: -kv[1][0])}},
+               parts_ms=parts, parts_share_of_median={k: v / (med * 1e3)
+                                                      for k, v in parts.items()})
+    emit("vocoder_step_time", **row)
+    want = {"resblock_conv1d_bf16_launches": 54, "lrelu_bf16_launches": 3,
+            "resblock_conv1d_launches": 0}
+    if per_step != want:
+        raise AssertionError(f"launches per vocoder step {per_step} != {want}")
+    return row
+
+
+def phase_vocoder_card_vs_cpu(cfg, devices=("cpu", "cuda")):
+    """One generator + discriminator step of the seeded full-width vocoder
+    on two crops of the train split, at zero noise, on the CPU and on the
+    card, with f32 and with bf16 cluster operands. The crops' f0 is moved to
+    the nearest multiple of sr/1024 Hz, so the NSF phase sums are exact in
+    float32 on both devices: at random init the gradient is discontinuous
+    in the source (leaky-ReLU units at 0 switch slope), and two cumsum
+    orders move it by about 1% (``tests/test_torch_vocoder_step.py``).
+    f32: losses within 1e-4 relative; each optimizer group's gradient
+    within 1e-3 of its norm (relative L2); the discriminators' also per
+    tensor, max|d| within 1e-3 of the tensor's scale (max(max|g_cpu|, 1e-3
+    of the group's largest)). The generator's per-tensor error is printed,
+    with the CPU's own change when the input mel moves by one ulp (1e-7
+    relative), and not gated: at full width a few generator units sit
+    within rounding of 0 and switch slope under any other summation order,
+    so a one-ulp change of the input or the weights moves single generator
+    tensors by up to 0.45% of their scale (0.16% in their L2 norm) on the
+    CPU alone, and the whole generator gradient by about 1e-4 in L2. bf16:
+    per loss |card - cpu_bf16| <= max(1e-4 |cpu_bf16|, VOC_LOSS_RATIO x
+    |cpu_bf16 - cpu_f32|), the gap the bf16 operands open on the CPU;
+    gradients are printed."""
+    import numpy as np
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.vocoder_task import HifiGanTask, VocoderDataset
+    t0 = time.perf_counter()
+    runs = {}
+    for mm, side, dev in ((torch.float32, "cpu", devices[0]), (torch.float32, "card", devices[1]),
+                          (torch.float32, "cpu_ulp", devices[0]),
+                          (torch.bfloat16, "cpu", devices[0]),
+                          (torch.bfloat16, "card", devices[1])):
+        hp = set_hparams(config=cfg, print_hparams=False, global_hparams=False)
+        with hparams_scope(hp, device=dev, zero_noise=True, disc_start_steps=0,
+                           ds_workers=0) as h:
+            ds = VocoderDataset("train")
+            batch = ds.collater([ds[0], ds[1]])
+            step = h["audio_sample_rate"] / 1024
+            batch["f0"] = (np.round(batch["f0"] / step) * step).astype(np.float32)
+            if side == "cpu_ulp":
+                noise = np.random.RandomState(2).randn(*batch["mels"].shape)
+                batch["mels"] = (batch["mels"] * (1 + 1e-7 * noise)).astype(np.float32)
+            task = HifiGanTask()
+            task.build_model()
+            task.build_train()
+            task.model.mm_dtype = mm
+            grads = {}
+            task.grad_hook = lambda group, params: grads.__setitem__(
+                group, [p.grad.detach().cpu().double().clone() for p in params])
+            names = {"gen": [n for n, _ in task.model.named_parameters()],
+                     "disc": [f"mpd.{n}" for n, _ in task.mpd.named_parameters()]
+                     + [f"msd.{n}" for n, _ in task.msd.named_parameters()]}
+            logs = {}
+            for idx in (0, 1):
+                logs.update({k: float(v) for k, v in
+                             task.training_step(batch, 1, idx)[1].items()})
+            runs[side, mm] = logs, grads
+    f32, bf16 = torch.float32, torch.bfloat16
+    rel32 = {k: abs(runs["card", f32][0][k] - v) / max(abs(v), 1e-12)
+             for k, v in runs["cpu", f32][0].items()}
+    ok = max(rel32.values()) <= 1e-4
+    groups = {}
+    for group in ("gen", "disc"):
+        ref = runs["cpu", f32][1][group]
+        big = max(float(t.abs().max()) for t in ref)
+        scales = [max(float(t.abs().max()), 1e-3 * big) for t in ref]
+
+        def worst(a, b):
+            return max(float((x - y).abs().max()) / sc for x, y, sc in zip(a, b, scales))
+
+        def top(a, b, n=3):
+            return sorted(((float((x - y).abs().max()) / sc, name) for x, y, sc, name in
+                           zip(a, b, scales, names[group])), reverse=True)[:n]
+
+        def l2(a, b):
+            return float(torch.sqrt(sum(((x - y) ** 2).sum() for x, y in zip(a, b)))
+                         / torch.sqrt(sum((y ** 2).sum() for y in b)))
+        card = runs["card", f32][1][group]
+        floor = worst(runs["cpu_ulp", f32][1][group], ref)
+        g = groups[group] = dict(
+            card_vs_cpu_f32=worst(card, ref), card_vs_cpu_f32_l2=l2(card, ref),
+            worst_tensors_f32=top(card, ref), cpu_one_ulp=floor,
+            cpu_one_ulp_l2=l2(runs["cpu_ulp", f32][1][group], ref),
+            card_vs_cpu_bf16=worst(runs["card", bf16][1][group], runs["cpu", bf16][1][group]),
+            cpu_bf16_vs_f32=worst(runs["cpu", bf16][1][group], ref))
+        ok = ok and g["card_vs_cpu_f32_l2"] <= 1e-3
+        if group == "disc":
+            ok = ok and g["card_vs_cpu_f32"] <= 1e-3
+    loss16 = {}
+    for k, v in runs["cpu", bf16][0].items():
+        gap = abs(v - runs["cpu", f32][0][k])
+        d = abs(runs["card", bf16][0][k] - v)
+        tol = max(1e-4 * abs(v), VOC_LOSS_RATIO * gap)
+        loss16[k] = dict(card_vs_cpu=d, cpu_bf16_f32_gap=gap, tol=tol, ok=d <= tol)
+        ok = ok and d <= tol
+    row = dict(ok=ok, batch=list(batch["wavs"].shape), tol_loss_f32=1e-4, tol_grad_l2=1e-3,
+               loss_ratio_bf16=VOC_LOSS_RATIO, loss_rel_err_f32=rel32, losses_bf16=loss16,
+               grads_over_scale=groups, losses_cpu_f32=runs["cpu", f32][0],
+               seconds=time.perf_counter() - t0)
+    emit("vocoder_train_card_vs_cpu", **row)
+    if not ok:
+        raise AssertionError(f"vocoder card vs CPU: {rel32} {loss16} {groups}")
+    return row
+
+
 def build_all():
     """nvcc for each CUDA source and g++ for the host library, all started
     together."""
@@ -988,9 +1400,14 @@ def main():
     # in its summary: the counts cover the training path (its validation)
     train_launches = phase_train(voc)
     phase_train_card_vs_cpu()
-
+    # the vocoder's training process zeroes its counts when fit starts and
+    # reports them in its summary: the counts cover that training path
+    voc_launches, voc_chi2_launches, voc_cfg = phase_vocoder_train()
     n = len(STAGE_SHAPES)
     bucket, stage32 = rows16[n:2 * n], rows32[:n]  # the main path's shapes; T_mel 1024
+    train_rows = rows16[-len(TRAIN_SHAPES):]  # the vocoder training path's
+    phase_vocoder_step_time(voc_cfg, train_rows, spec)
+    phase_vocoder_card_vs_cpu(voc_cfg)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -1003,6 +1420,11 @@ def main():
         "prepass_launches": launches["lrelu_bf16"],
         "train_launches": train_launches["resblock_conv1d_bf16_launches"],
         "train_prepass_launches": train_launches["lrelu_bf16_launches"],
+        "vocoder_train_launches": voc_launches["resblock_conv1d_bf16_launches"],
+        "vocoder_train_prepass_launches": voc_launches["lrelu_bf16_launches"],
+        "vocoder_train_shapes_ms": total(train_rows, "kernel_ms"),
+        "vocoder_train_shapes_plain_ms": total(train_rows, "plain_ms"),
+        "vocoder_train_shapes_bound_ms": total(train_rows, "bound_ms"),
         "max_abs_err": worst16,
         "ms": total(bucket, "kernel_ms"), "plain_ms": total(bucket, "plain_ms"),
         "bound_ms": total(bucket, "bound_ms"), "bound_by": bucket[0]["bound_by"],
@@ -1017,6 +1439,7 @@ def main():
         "name": "chi2_dist", "route": "cuda",
         "source": "neuralsvb_torch/csrc/chi2_dist.cu",
         "replaces": CHI2_TPU_KERNEL, "launches": chi2_launches,
+        "vocoder_bin_launches": voc_chi2_launches,
         "max_abs_err": chi2_worst, "ms": chi2_row["kernel_ms"],
         "device_ms": chi2_row["device_ms"], "plain_ms": chi2_row["plain_ms"],
         "bound_ms": chi2_row["bound_us"] / 1e3, "bound_by": chi2_row["bound_by"],

@@ -1,12 +1,14 @@
 """JAX (flax) params -> the port's ``state_dict``: the exact inverse of
 ``convert_svbvae_mle_sd``, ``convert_hifigan`` and ``convert_ge2e`` in
-``neuralsvb_tpu/convert/torch2jax.py``, and the mel discriminator's map.
+``neuralsvb_tpu/convert/torch2jax.py``, and the maps of the mel
+discriminator and of the vocoder's multi-period and multi-scale ones.
 
 The functions take nested dicts of numpy arrays (no JAX needed) and
 return ``{name: torch.Tensor}`` under the reference parameter names, ready
 for ``load_state_dict``. Layout rules:
 
-- conv ``[k, in, out]`` -> ``[out, in, k]``
+- conv ``[k, in, out]`` -> ``[out, in, k]`` (grouped: ``[k, in/g, out]`` ->
+  ``[out, in/g, k]``); 2-D conv ``[kh, kw, in, out]`` -> ``[out, in, kh, kw]``
 - ConvTranspose (``transpose_kernel=True``) ``[k, out, in]`` -> ``[in, out, k]``
 - dense ``[in, out]`` -> ``[out, in]``
 - BatchNorm ``scale``/``bias`` + ``mean``/``var`` -> ``weight``/``bias`` +
@@ -32,6 +34,11 @@ class _SD(dict):
         self.put(f"{prefix}.weight", np.asarray(p["kernel"]).transpose(2, 1, 0))
         if "bias" in p:
             self.put(f"{prefix}.bias", p["bias"])
+
+    def conv2d(self, prefix: str, p: Tree) -> None:
+        """flax 2-D Conv kernel [kh, kw, in, out] -> torch [out, in, kh, kw]."""
+        self.put(f"{prefix}.weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        self.put(f"{prefix}.bias", p["bias"])
 
     def convt(self, prefix: str, p: Tree) -> None:
         """flax ConvTranspose kernel [k, out, in] -> torch [in, out, k]."""
@@ -237,4 +244,27 @@ def hifigan_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
                 n = sum(1 for k in blk if k.startswith("conv_"))
                 for c in range(n):
                     sd.conv(f"resblocks.{r}.convs.{c}", blk[f"conv_{c}"])
+    return dict(sd)
+
+
+def mpd_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """``MultiPeriodDiscriminator`` params (``disc_p{period}``, in period
+    order) -> port state_dict."""
+    sd = _SD()
+    for i, name in enumerate(sorted(params, key=lambda k: int(k[len("disc_p"):]))):
+        dp = params[name]
+        for j in range(sum(1 for k in dp if k.startswith("conv_") and k != "conv_post")):
+            sd.conv2d(f"discriminators.{i}.convs.{j}", dp[f"conv_{j}"])
+        sd.conv2d(f"discriminators.{i}.conv_post", dp["conv_post"])
+    return dict(sd)
+
+
+def msd_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """``MultiScaleDiscriminator`` params (``disc_s{i}``) -> port state_dict."""
+    sd = _SD()
+    for i in range(len(params)):
+        dp = params[f"disc_s{i}"]
+        for j in range(sum(1 for k in dp if k.startswith("conv_") and k != "conv_post")):
+            sd.conv(f"discriminators.{i}.convs.{j}", dp[f"conv_{j}"])
+        sd.conv(f"discriminators.{i}.conv_post", dp["conv_post"])
     return dict(sd)

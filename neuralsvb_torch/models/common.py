@@ -33,6 +33,24 @@ def draw_normal(shape, like: torch.Tensor, generator: Optional[torch.Generator],
                        device=like.device)
 
 
+def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
+    """Leaky ReLU whose derivative at exactly 0 is 1, as ``jax.nn.leaky_relu``'s
+    (torch's is the slope). Zero-padded inputs through convs with zero biases
+    (flax's init) put values exactly at 0."""
+    return torch.where(x >= 0, x, x * slope)
+
+
+class LeakyReLU(nn.Module):
+    """``leaky_relu`` as a module."""
+
+    def __init__(self, slope: float):
+        super().__init__()
+        self.slope = slope
+
+    def forward(self, x):
+        return leaky_relu(x, self.slope)
+
+
 def _batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.Tensor:
     """BatchNorm over the channel dim 1 with flax ``nn.BatchNorm`` semantics
     (the JAX package's ``BatchNorm1d``, momentum 0.9 there = 0.1 here).

@@ -24,7 +24,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from .common import BatchNorm2d
+from .common import BatchNorm2d, LeakyReLU
 
 
 def dropout_keep_mask(shape, rate: float, generator: Optional[torch.Generator],
@@ -49,19 +49,6 @@ class Dropout(nn.Module):
             return x
         keep = dropout_keep_mask(x.shape, self.rate, generator, x.device)
         return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
-
-
-class LeakyReLU(nn.Module):
-    """Leaky ReLU whose derivative at 0 is 1, as ``jax.nn.leaky_relu``'s
-    (torch's is the slope). Padded frames of a decoder with zero output bias
-    are exactly 0, and so are the conv outputs over them."""
-
-    def __init__(self, slope: float):
-        super().__init__()
-        self.slope = slope
-
-    def forward(self, x):
-        return torch.where(x >= 0, x, x * self.slope)
 
 
 class InstanceNorm(nn.Module):

@@ -89,7 +89,10 @@ def resolve_mm_dtype(mm_dtype: Optional[torch.dtype],
 
 
 def _lrelu(x):
-    return F.leaky_relu(x, LRELU_SLOPE)
+    # derivative 1 at exactly 0, as jax.nn.leaky_relu's (torch's is the
+    # slope): the backward recomputes through this function, and a
+    # zero-padded crop keeps whole stretches of the cluster at exactly 0
+    return torch.where(x >= 0, x, x * LRELU_SLOPE)
 
 
 def resblock_cluster_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -276,6 +279,9 @@ def resblock_conv1d_bf16(op: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 
 resblock_conv1d_bf16.launches = 0
+
+# the launch counters of the cluster's kernels, which the task summaries report
+KERNEL_COUNTERS = (resblock_conv1d, resblock_conv1d_bf16, lrelu_bf16)
 
 
 def resblock_cluster_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],

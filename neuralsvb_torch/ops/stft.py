@@ -1,15 +1,22 @@
-"""STFT + log-mel frontend of the binarizer; port of
-``neuralsvb_tpu/ops/stft.py`` (reference: data_gen/tts/data_gen_utils.py:93-147
-``process_utterance`` and vocoders/pwg.py:105-122 ``wav2spec``).
+"""STFT + log-mel frontend; port of ``neuralsvb_tpu/ops/stft.py``
+(reference: data_gen/tts/data_gen_utils.py:93-147 ``process_utterance`` and
+vocoders/pwg.py:105-122 ``wav2spec``).
 
 Centered STFT with constant (zero) padding, periodic hann window, magnitude,
-Slaney mel basis and ``log10(max(eps, .))``. ``log_mel`` runs on the
-binarizer's device in float64, the precision of the JAX binarizer's numpy
-path (``log_mel_np``); the H100 runs FP64 at full rate. No Pallas kernel is
-involved: the FFT and the mel matmul are library calls.
+Slaney mel basis and ``log10(max(eps, .))``. Two entry points:
+
+- ``log_mel``: the binarizer's, one utterance on its device in float64, the
+  precision of the JAX binarizer's numpy path (``log_mel_np``); the H100
+  runs FP64 at full rate.
+- ``log_mel_batch``: the vocoder training loss's, a batch in float32 with
+  gradients (``log_mel_jax``).
+
+No Pallas kernel is involved: the FFT and the mel matmul are library calls.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -53,3 +60,30 @@ def log_mel(wav: np.ndarray, hp: dict, device: torch.device) -> torch.Tensor:
     mel = basis @ spec.abs()                          # [num_mels, T]
     eps = float(hp.get("wav2spec_eps", 1e-10))
     return torch.log10(mel.clamp_min(eps)).T.float()
+
+
+@functools.lru_cache(maxsize=8)
+def _mel_consts(sample_rate: int, fft_size: int, win_size: int, num_mels: int,
+                fmin: float, fmax: float, device: torch.device):
+    """(periodic hann window [win_size], Slaney basis [num_mels, bins]) f32."""
+    window = torch.as_tensor(hann_window(win_size, np.float32), device=device)
+    basis = torch.as_tensor(mel_filterbank(sample_rate, fft_size, num_mels, fmin, fmax),
+                            device=device)
+    return window, basis
+
+
+def log_mel_batch(wav: torch.Tensor, *, sample_rate: int, fft_size: int, hop_size: int,
+                  win_size: int, num_mels: int, fmin: float, fmax: float,
+                  eps: float = 1e-10) -> torch.Tensor:
+    """wav [B, N] -> log10-mel [B, 1 + N // hop, num_mels], float32 and
+    differentiable (``log_mel_jax``). ``torch.stft`` centres the window in
+    ``fft_size`` when ``win_size`` is shorter, as the JAX function pads it.
+    ``torch.maximum`` against ``eps`` splits the gradient at a tie as
+    ``jnp.maximum`` does (``clamp_min`` would pass all of it)."""
+    window, basis = _mel_consts(sample_rate, fft_size, win_size, num_mels, float(fmin),
+                                float(fmax), wav.device)
+    spec = torch.stft(wav.float(), n_fft=fft_size, hop_length=hop_size, win_length=win_size,
+                      window=window, center=True, pad_mode="constant",
+                      return_complex=True)                # [B, bins, T]
+    mel = torch.einsum("mf,bft->btm", basis, spec.abs())
+    return torch.log10(torch.maximum(mel.new_tensor(eps), mel))

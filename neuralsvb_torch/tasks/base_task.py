@@ -8,11 +8,13 @@ A task owns model construction, its dataloaders and the per-batch steps;
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 from typing import Dict, Iterator, List
 
 import numpy as np
+import torch
 
 from ..data.batching import batch_by_size
 from ..hparams import hparams
@@ -71,6 +73,43 @@ class DataLoaderLite:
             yield b
 
 
+@contextlib.contextmanager
+def no_grad_for(params):
+    """Take ``params`` out of autograd for the block (no weight gradients
+    are computed for them)."""
+    saved = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, r in zip(params, saved):
+            p.requires_grad_(r)
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The ``torch.Generator`` of a training step's random draws, seeded by
+    (seed, step): a resumed run draws what the uninterrupted run draws."""
+    g = torch.Generator(device=device)
+    g.manual_seed(int(np.random.SeedSequence([seed + 1, step]).generate_state(1)[0]))
+    return g
+
+
+def clip_gradients(params, max_norm: float, clip_value: float = 0.0) -> None:
+    """optax's ``clip(clip_value)`` then ``clip_by_global_norm(max_norm)``, in
+    place: the gradients scale by max/norm only when norm > max (torch's
+    ``clip_grad_norm_`` scales by max/(norm + 1e-6) whenever it clips)."""
+    grads = [p.grad for p in params]
+    if clip_value > 0:
+        for g in grads:
+            g.clamp_(-clip_value, clip_value)
+    if max_norm > 0:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+        torch._foreach_mul_(grads, scale)
+
+
 class BaseTask:
     def __init__(self):
         self.hparams = hparams
@@ -78,6 +117,28 @@ class BaseTask:
         self.current_epoch = 0
         self.trainer = None
         self.logger = None
+        self.grad_hook = None  # (name, params) after backward, before clipping
+
+    def train_phase(self, step: int):
+        """The label under which the trainer times step ``step``."""
+        return "train"
+
+    def update(self, name, opt, params, total, lr, max_norm, clip_value=0.0):
+        """Backward, then clip and the optimizer's step at ``lr``; a
+        parameter without a gradient steps with a zero one, as an optax
+        chain steps every leaf."""
+        opt.zero_grad(set_to_none=True)
+        if torch.is_tensor(total) and total.requires_grad:
+            total.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.grad_hook is not None:
+            self.grad_hook(name, params)
+        clip_gradients(params, float(max_norm or 0), float(clip_value or 0))
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
 
     def build_model(self):
         raise NotImplementedError

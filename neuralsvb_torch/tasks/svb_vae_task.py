@@ -22,7 +22,6 @@ three ways -> HiFiGAN-NSF ->
 
 from __future__ import annotations
 
-import contextlib
 import glob
 import json
 import os
@@ -39,46 +38,15 @@ from ..data.datasets import MultiSpkEmbDataset
 from ..hparams import hparams, resolve_device
 from ..models.disc import Discriminator
 from ..models.svb_vae import SVBVAE, WAYS
-from ..ops.fused_resblock import lrelu_bf16, resblock_conv1d, resblock_conv1d_bf16
+from ..ops.fused_resblock import KERNEL_COUNTERS
 from ..ops.pitch_utils import denorm_f0
 from ..training.schedulers import rsqrt_schedule, step_lr_schedule
-from .base_task import BaseTask
+from .base_task import BaseTask, no_grad_for, step_generator
 from .losses import add_mel_loss, mse, nan_guard, parse_mel_losses
-
-KERNEL_COUNTERS = (resblock_conv1d, resblock_conv1d_bf16, lrelu_bf16)
 
 
 def _off(v) -> bool:
     return v in (False, 0, None, "", "off", "false", "0")
-
-
-@contextlib.contextmanager
-def _no_grad_for(params):
-    """Take ``params`` out of autograd for the block (no weight gradients
-    are computed for them)."""
-    saved = [p.requires_grad for p in params]
-    for p in params:
-        p.requires_grad_(False)
-    try:
-        yield
-    finally:
-        for p, r in zip(params, saved):
-            p.requires_grad_(r)
-
-
-def clip_gradients(params, max_norm: float, clip_value: float = 0.0) -> None:
-    """optax's ``clip(clip_value)`` then ``clip_by_global_norm(max_norm)``, in
-    place: the gradients scale by max/norm only when norm > max (torch's
-    ``clip_grad_norm_`` scales by max/(norm + 1e-6) whenever it clips)."""
-    grads = [p.grad for p in params]
-    if clip_value > 0:
-        for g in grads:
-            g.clamp_(-clip_value, clip_value)
-    if max_norm > 0:
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-        scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-        torch._foreach_mul_(grads, scale)
 
 
 class SVBVAEMleTask(BaseTask):
@@ -102,7 +70,6 @@ class SVBVAEMleTask(BaseTask):
         # run on the card the draws of a CPU run
         self.rand_device = self.device
         self.disc_start_frames_wins = None  # pins the discriminator's windows
-        self.grad_hook = None  # (name, params) after backward, before clipping
         self._train_ds = None
         self._ppg_cache = None
         self._pending_disc = None
@@ -287,6 +254,9 @@ class SVBVAEMleTask(BaseTask):
             return 2, tuple(hp["phase_2_concurrent_ways"].split(","))
         return 3, tuple(hp["phase_3_concurrent_ways"].split(","))
 
+    def train_phase(self, step: int) -> int:
+        return self.phase_and_ways(step)[0]
+
     def _disc_start(self, step: int) -> bool:
         return bool(hparams["mel_gan"] and step > hparams["disc_start_steps"]
                     and hparams["lambda_mel_adv"] > 0)
@@ -297,11 +267,6 @@ class SVBVAEMleTask(BaseTask):
         if step <= hparams["phase_2_steps"]:
             return ("a2a", "p2p")
         return WAYS
-
-    def step_generator(self, step: int) -> torch.Generator:
-        g = torch.Generator(device=self.rand_device)
-        g.manual_seed(int(np.random.SeedSequence([self.seed + 1, step]).generate_state(1)[0]))
-        return g
 
     # ------------------------------------------------------------------
     def _prep_batch(self, batch, train: bool = False):
@@ -388,23 +353,6 @@ class SVBVAEMleTask(BaseTask):
         o = self.mel_disc(mel, self.disc_start_frames_wins, generator)
         return None if o["y"] is None else mse(o["y"], target)
 
-    def _update(self, name, opt, params, total, lr, max_norm):
-        """Backward, then clip and AdamW; a parameter without a gradient
-        steps with a zero one, as the optax chain steps every leaf."""
-        opt.zero_grad(set_to_none=True)
-        if torch.is_tensor(total) and total.requires_grad:
-            total.backward()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.grad_hook is not None:
-            self.grad_hook(name, params)
-        clip_gradients(params, float(max_norm or 0),
-                       float(hparams.get("clip_grad_value") or 0))
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-
     # ------------------------------------------------------------------
     # the three optimizer steps (reference: svb_vae_task.py:549-693)
     def gen_step(self, b, ways, disc_on: bool, lr: float, generator):
@@ -413,13 +361,13 @@ class SVBVAEMleTask(BaseTask):
         out = self._run_model(b, ways, generator)
         losses = self._model_losses(out, b, ways)
         if disc_on:
-            with _no_grad_for(self.disc_params):
+            with no_grad_for(self.disc_params):
                 for way in ways:
                     adv = self._adv_loss(out[way]["mel_out"], generator, 1.0)
                     if adv is not None:
                         losses[f"{way}_a"] = adv * hparams["lambda_mel_adv"]
-        self._update("gen", self.opt_gen, self.gen_params, sum(losses.values()), lr,
-                     hparams.get("generator_grad_norm", 0))
+        self.update("gen", self.opt_gen, self.gen_params, sum(losses.values()), lr,
+                    hparams.get("generator_grad_norm", 0), hparams.get("clip_grad_value"))
         return losses, {w: out[w]["mel_out"].detach() for w in ways}
 
     def disc_step(self, b, ways, fakes, lr: float, generator):
@@ -433,9 +381,9 @@ class SVBVAEMleTask(BaseTask):
                 losses[f"{way}_r"] = real
             if fake is not None:
                 losses[f"{way}_f"] = fake
-        self._update("disc", self.opt_disc, self.disc_params,
-                     sum(losses.values()) if losses else 0.0, lr,
-                     hparams.get("discriminator_grad_norm", 0))
+        self.update("disc", self.opt_disc, self.disc_params,
+                    sum(losses.values()) if losses else 0.0, lr,
+                    hparams.get("discriminator_grad_norm", 0), hparams.get("clip_grad_value"))
         return losses
 
     def map_step(self, b, ways, disc_on: bool, lr: float, generator):
@@ -446,7 +394,7 @@ class SVBVAEMleTask(BaseTask):
         self.model.eval()
         self.model.z_mapping_function.train()
         self.mel_disc.eval()
-        with _no_grad_for(self.gen_params + self.disc_params):
+        with no_grad_for(self.gen_params + self.disc_params):
             out = self._run_model(b, all_ways, generator, exact_lengths=False)
             losses = self._model_losses(out, b, all_ways)
             for way in ways:
@@ -458,8 +406,8 @@ class SVBVAEMleTask(BaseTask):
                     adv = self._adv_loss(out[way]["mel_out"], generator, 1.0)
                     if adv is not None:
                         losses[f"{way}_a"] = adv * hp["lambda_mel_adv"]
-        self._update("map", self.opt_map, self.map_params, sum(losses.values()), lr,
-                     hp.get("generator_grad_norm", 0))
+        self.update("map", self.opt_map, self.map_params, sum(losses.values()), lr,
+                    hp.get("generator_grad_norm", 0), hp.get("clip_grad_value"))
         return losses
 
     def training_step(self, batch, step: int, optimizer_idx: int):
@@ -472,7 +420,7 @@ class SVBVAEMleTask(BaseTask):
             if phase == 3:
                 return None
             b = self._prep_batch(batch, train=True)
-            g = self.step_generator(step)
+            g = step_generator(self.seed, step, self.rand_device)
             lr = self.sched_gen(step)
             losses, fakes = self.gen_step(b, ways, disc_on, lr, g)
             self._pending_disc = None
@@ -490,7 +438,8 @@ class SVBVAEMleTask(BaseTask):
         if optimizer_idx == 2 and phase == 3:
             b = self._prep_batch(batch, train=True)
             lr = self.sched_map(step)
-            losses = self.map_step(b, ways, disc_on, lr, self.step_generator(step))
+            losses = self.map_step(b, ways, disc_on, lr,
+                                   step_generator(self.seed, step, self.rand_device))
             return sum(losses.values()), dict(losses, lr_2=lr)
         return None
 

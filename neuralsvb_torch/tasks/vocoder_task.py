@@ -1,0 +1,244 @@
+"""HiFiGAN-NSF vocoder training; port of ``VocoderDataset`` and
+``HifiGanTask`` of ``neuralsvb_tpu/tasks/vocoder_task.py``.
+
+LSGAN over the multi-period and multi-scale discriminators, an L1 loss on
+the log-mel of the generated audio (``ops.stft.log_mel_batch``) and an
+optional feature-matching loss, on random ``max_samples`` crops of a
+packed split binarized with ``binarization_args.with_wav`` (and ``with_f0``
+for NSF). Two optimizers, each Adam (``adam_b1``/``adam_b2``, eps 1e-8, no
+weight decay) behind the optax-style clip by global norm (``clip_gradients``:
+``generator_grad_norm``, ``discriminator_grad_norm`` over both
+discriminators together), learning rates from StepLR schedules. The
+generator's ResBlock clusters run forward through the card's ResBlock kernel
+(bf16 operands by default) and backward through the plain f32 recompute,
+as the JAX ``custom_vjp`` does.
+
+Step s: the generator step, then, once s > ``disc_start_steps``, the
+discriminator step on the generator step's detached output and the same
+batch. The NSF draws of a step come from a ``torch.Generator`` seeded by
+(seed, step), so a resumed run draws what the uninterrupted run draws;
+``zero_noise`` makes them zero. Checkpoints hold ``state_dict.model_gen``
+(what ``vocoders/hifigan.py`` loads), ``mpd`` and ``msd`` and both
+optimizer states. The JAX mesh and jit step cache are left out.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from ..data.indexed_dataset import IndexedDataset
+from ..hparams import hparams, resolve_device
+from ..models.hifigan import (HifiGanGenerator, MultiPeriodDiscriminator,
+                              MultiScaleDiscriminator, discriminator_loss, feature_loss,
+                              generator_loss)
+from ..ops.stft import log_mel_batch
+from ..training.schedulers import step_lr_schedule
+from .base_task import BaseTask, no_grad_for, step_generator
+
+
+class VocoderDataset:
+    """Random fixed-length wav crops and their mel/f0 windows. One
+    ``RandomState(seed)`` draws the shuffle of ``ordered_indices`` and the
+    crop starts; an item shorter than the crop is zero-padded from 0."""
+
+    def __init__(self, prefix: str, shuffle: bool = False):
+        self.prefix = prefix
+        self.ds = IndexedDataset(f"{hparams['binary_data_dir']}/{prefix}")
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(hparams.get("seed", 1234))
+        self.max_samples = hparams.get("max_samples", 8192)
+        self.hop = hparams["hop_size"]
+
+    def __len__(self):
+        return len(self.ds)
+
+    def ordered_indices(self):
+        idx = np.arange(len(self))
+        if self.shuffle:
+            self.rng.shuffle(idx)
+        return idx
+
+    def __getitem__(self, index):
+        item = self.ds[index]
+        wav = np.asarray(item["wav"], np.float32)
+        mel = np.asarray(item["mel"], np.float32)
+        f0 = np.asarray(item.get("f0", np.zeros(len(mel))), np.float32)
+        frames = self.max_samples // self.hop
+        T = min(len(mel), len(wav) // self.hop)
+        if T <= frames:
+            mel_seg = np.pad(mel[:T], ((0, frames - T), (0, 0)))
+            f0_seg = np.pad(f0[:T], (0, frames - T))
+            wav_seg = np.pad(wav[: T * self.hop], (0, (frames - T) * self.hop))
+        else:
+            start = self.rng.randint(0, T - frames)
+            mel_seg = mel[start:start + frames]
+            f0_seg = f0[start:start + frames]
+            wav_seg = wav[start * self.hop:(start + frames) * self.hop]
+        return {"wav": wav_seg, "mel": mel_seg, "f0": f0_seg}
+
+    def collater(self, samples):
+        return {"wavs": np.stack([s["wav"] for s in samples]),
+                "mels": np.stack([s["mel"] for s in samples]),
+                "f0": np.stack([s["f0"] for s in samples]),
+                "nsamples": len(samples)}
+
+
+class HifiGanTask(BaseTask):
+    num_optimizers = 2
+
+    def __init__(self):
+        super().__init__()
+        self.device = resolve_device(hparams.get("device"))
+        self.seed = int(hparams.get("seed", 1234))
+        self.generator = torch.Generator(device=self.device)  # validation's NSF draws
+        self.generator.manual_seed(self.seed)
+        self.zero_noise = bool(hparams.get("zero_noise", False))
+        self.vocoder_calls = 0  # generator forwards (train and validation)
+        self._pending = None  # the generator step's batch and output, for the disc step
+
+    def build_model(self):
+        """Generator and both discriminators from the seed, on the device."""
+        hp = hparams
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(self.seed)
+            self.model = HifiGanGenerator(
+                upsample_rates=tuple(hp["upsample_rates"]),
+                upsample_kernel_sizes=tuple(hp["upsample_kernel_sizes"]),
+                upsample_initial_channel=hp["upsample_initial_channel"],
+                resblock=str(hp["resblock"]),
+                resblock_kernel_sizes=tuple(hp["resblock_kernel_sizes"]),
+                resblock_dilation_sizes=tuple(tuple(d) for d in hp["resblock_dilation_sizes"]),
+                use_pitch_embed=hp["use_pitch_embed"],
+                audio_sample_rate=hp["audio_sample_rate"],
+                num_mels=hp["audio_num_mel_bins"])
+            self.mpd = MultiPeriodDiscriminator()
+            self.msd = MultiScaleDiscriminator()
+        for m in (self.model, self.mpd, self.msd):
+            m.to(self.device)
+        return self.model
+
+    def build_train(self):
+        hp = hparams
+        b1, b2 = hp.get("adam_b1", 0.8), hp.get("adam_b2", 0.99)
+        self.gen_params = list(self.model.parameters())
+        self.disc_params = list(self.mpd.parameters()) + list(self.msd.parameters())
+        self.opt_gen = torch.optim.Adam(self.gen_params, lr=0.0, betas=(b1, b2), eps=1e-8)
+        self.opt_disc = torch.optim.Adam(self.disc_params, lr=0.0, betas=(b1, b2), eps=1e-8)
+        gsp = hp.get("generator_scheduler_params") or {"step_size": 600, "gamma": 0.999}
+        dsp = hp.get("discriminator_scheduler_params") or gsp
+        self.sched_gen = step_lr_schedule(
+            (hp.get("generator_optimizer_params") or {}).get("lr", 2e-4),
+            gsp["step_size"], gsp["gamma"])
+        self.sched_disc = step_lr_schedule(
+            (hp.get("discriminator_optimizer_params") or {}).get("lr", 2e-4),
+            dsp["step_size"], dsp["gamma"])
+
+    def checkpoint_state(self) -> dict:
+        return {"state_dict": {"model_gen": self.model.state_dict(),
+                               "mpd": self.mpd.state_dict(), "msd": self.msd.state_dict()},
+                "optimizer_states": [self.opt_gen.state_dict(), self.opt_disc.state_dict()]}
+
+    def load_checkpoint_state(self, ckpt: dict):
+        sd = ckpt["state_dict"]
+        self.model.load_state_dict(sd["model_gen"])
+        self.mpd.load_state_dict(sd["mpd"])
+        self.msd.load_state_dict(sd["msd"])
+        for opt, st in zip((self.opt_gen, self.opt_disc), ckpt.get("optimizer_states") or []):
+            opt.load_state_dict(st)
+
+    def train_phase(self, step: int) -> str:
+        return "gen" if step <= hparams.get("disc_start_steps", 0) else "gen_disc"
+
+    # ------------------------------------------------------------------
+    def _prep_batch(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(batch[k]), dtype=torch.float32,
+                                   device=self.device) for k in ("wavs", "mels", "f0")}
+
+    def _mel_fn(self, wav):
+        hp = hparams
+        return log_mel_batch(wav, sample_rate=hp["audio_sample_rate"], fft_size=hp["fft_size"],
+                             hop_size=hp["hop_size"], win_size=hp["win_size"],
+                             num_mels=hp["audio_num_mel_bins"], fmin=float(hp["fmin"]),
+                             fmax=float(hp["fmax"]))
+
+    def _generate(self, b, generator):
+        self.vocoder_calls += 1
+        return self.model(b["mels"], b["f0"] if hparams["use_pitch_embed"] else None,
+                          generator=generator, zero_noise=self.zero_noise)
+
+    def gen_step(self, b, lr: float, generator):
+        """Mel L1 + adversarial (+ feature matching) losses of the generator
+        and its update; the discriminators take no gradient. Returns
+        (losses, detached output)."""
+        hp = hparams
+        self.model.train()
+        y_hat = self._generate(b, generator)
+        with torch.no_grad():
+            mel_ref = self._mel_fn(b["wavs"])
+        losses = {"mel": (self._mel_fn(y_hat) - mel_ref).abs().mean() * hp.get("lambda_mel", 5.0)}
+        with no_grad_for(self.disc_params):
+            p_g, fp_g = self.mpd(y_hat)
+            s_g, fs_g = self.msd(y_hat)
+            lam_adv = hp.get("lambda_adv", 1.0)
+            losses["a_p"] = generator_loss(p_g) * lam_adv
+            losses["a_s"] = generator_loss(s_g) * lam_adv
+            if hp.get("use_fm_loss", False):
+                with torch.no_grad():
+                    fp_r, fs_r = self.mpd(b["wavs"])[1], self.msd(b["wavs"])[1]
+                losses["fm"] = feature_loss(fp_r, fp_g) + feature_loss(fs_r, fs_g)
+        self.update("gen", self.opt_gen, self.gen_params, sum(losses.values()), lr,
+                    hp.get("generator_grad_norm", 10))
+        return losses, y_hat.detach()
+
+    def disc_step(self, b, y_hat, lr: float):
+        """LSGAN losses of both discriminators on real and generated audio
+        and their update."""
+        p_r, p_g = self.mpd(b["wavs"])[0], self.mpd(y_hat)[0]
+        s_r, s_g = self.msd(b["wavs"])[0], self.msd(y_hat)[0]
+        rp, fp = discriminator_loss(p_r, p_g)
+        rs, fs = discriminator_loss(s_r, s_g)
+        losses = {"r_p": rp, "f_p": fp, "r_s": rs, "f_s": fs}
+        self.update("disc", self.opt_disc, self.disc_params, sum(losses.values()), lr,
+                    hparams.get("discriminator_grad_norm", 1))
+        return losses
+
+    def training_step(self, batch, step: int, optimizer_idx: int):
+        """(total loss, logs) of optimizer ``optimizer_idx`` at ``step``, or
+        None when it is idle."""
+        if optimizer_idx == 0:
+            b = self._prep_batch(batch)
+            lr = self.sched_gen(step)
+            losses, y_hat = self.gen_step(b, lr, step_generator(self.seed, step, self.device))
+            self._pending = (b, y_hat)
+            return sum(losses.values()), dict(losses, lr_0=lr)
+        if optimizer_idx == 1 and self._pending is not None:
+            b, y_hat = self._pending
+            self._pending = None
+            if step <= hparams.get("disc_start_steps", 0):
+                return None
+            lr = self.sched_disc(step)
+            losses = self.disc_step(b, y_hat, lr)
+            return sum(losses.values()), dict(losses, lr_1=lr)
+        return None
+
+    @torch.no_grad()
+    def validation_step(self, batch, batch_idx: int):
+        self.model.eval()
+        b = self._prep_batch(batch)
+        y_hat = self._generate(b, self.generator)
+        mel_l1 = float((self._mel_fn(y_hat) - self._mel_fn(b["wavs"])).abs().mean())
+        return {"losses": {"mel": mel_l1}, "total_loss": mel_l1,
+                "nsamples": batch["nsamples"]}
+
+    # ------------------------------------------------------------------
+    def train_dataloader(self):
+        ds = VocoderDataset(hparams["train_set_name"], shuffle=True)
+        return self.build_dataloader(ds, True, None, hparams.get("max_sentences", 24),
+                                     endless=hparams["endless_ds"], use_batch_by_size=False)
+
+    def val_dataloader(self):
+        ds = VocoderDataset(hparams["valid_set_name"], shuffle=False)
+        return self.build_dataloader(ds, False, None, 1, use_batch_by_size=False)

@@ -15,15 +15,21 @@ phase, validation time, peak device memory and the kernels' launches.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import time
 from typing import Optional
 
 import torch
+import yaml
 
 from ..hparams import hparams
+from ..ops.fused_resblock import KERNEL_COUNTERS
 from .checkpoint import get_last_checkpoint, load_checkpoint, save_checkpoint
 from .logger import JsonLogger
+
+# per-process keys of the CLI, not part of a run's configuration
+RUN_KEYS = ("infer", "debug", "validate", "exp_name")
 
 
 class Trainer:
@@ -64,7 +70,6 @@ class Trainer:
         self.global_step = task.global_step = step
 
     def fit(self, task):
-        from ..tasks.svb_vae_task import KERNEL_COUNTERS
         task.trainer = self
         task.build_model()
         task.build_train()
@@ -81,6 +86,7 @@ class Trainer:
             task.warm_start(hparams["load_ckpt"])
         if self.work_dir:
             self.logger = task.logger = JsonLogger(self.work_dir)
+            self._write_config()
         for c in KERNEL_COUNTERS:
             c.launches = 0
         if task.device.type == "cuda":
@@ -91,7 +97,7 @@ class Trainer:
 
         if hparams.get("validate"):
             self.run_evaluation(task, save=False)
-            return self._summary(task, start_step, KERNEL_COUNTERS)
+            return self._summary(task, start_step)
 
         train_loader = iter(task.train_dataloader())
         if self.num_sanity_val_steps > 0 and self.global_step == 0:
@@ -114,11 +120,20 @@ class Trainer:
         except KeyboardInterrupt:
             print("| KeyboardInterrupt: saving and exiting.")
         self._save(task)
-        return self._summary(task, start_step, KERNEL_COUNTERS)
+        return self._summary(task, start_step)
+
+    def _write_config(self):
+        """``config.yaml`` of the run in ``work_dir`` unless one is there
+        (``--exp_name`` writes it): a vocoder directory is read through it
+        (``vocoders/hifigan.py``)."""
+        path = os.path.join(self.work_dir, "config.yaml")
+        if not os.path.exists(path):
+            with open(path, "w") as f:
+                yaml.safe_dump({k: v for k, v in hparams.items() if k not in RUN_KEYS}, f)
 
     def _train_one(self, task, batch) -> dict:
         step = self.global_step
-        phase = task.phase_and_ways(step)[0]
+        phase = task.train_phase(step)
         self._sync(task)
         t0 = time.perf_counter()
         logs = {}
@@ -180,7 +195,7 @@ class Trainer:
                                self.num_ckpt_keep, is_best)
         print(f"| Saved ckpt: {path}")
 
-    def _summary(self, task, start_step: int, counters) -> dict:
+    def _summary(self, task, start_step: int) -> dict:
         phases = {}
         for phase, times in sorted(self._times.items()):
             warm = times[1:] or times
@@ -191,7 +206,7 @@ class Trainer:
                    "end_step": self.global_step, "phases": phases,
                    "validations": self._validations, "validation_s": self._val_seconds,
                    "vocoder_calls": getattr(task, "vocoder_calls", 0),
-                   **{f"{c.__name__}_launches": c.launches for c in counters}}
+                   **{f"{c.__name__}_launches": c.launches for c in KERNEL_COUNTERS}}
         if task.device.type == "cuda":
             summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(task.device)
         print(f"| train summary: {json.dumps(summary)}")

@@ -67,7 +67,6 @@ def load_hifigan(base_dir: str, hp: dict, device: torch.device):
         print(f"| Loaded HifiGAN weights from {ckpt}")
     model = model.to(device).eval()
     model.requires_grad_(False)
-    model.pack_resblocks()
     return model, config, ckpt is not None
 
 

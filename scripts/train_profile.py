@@ -31,20 +31,6 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = (1034, 2412, 1241, 2171)
-KINDS = (("optimizer (Adam, clip)", ("adam", "foreach", "multi_tensor", "norm_kernel")),
-         ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "winograd", "fft", "xmma", "sm90")),
-         ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "ampere", "sm80")),
-         ("reduction", ("reduce", "softmax", "norm", "mean", "sum")),
-         ("elementwise", ("elementwise", "vectorized", "unrolled", "where", "copy", "fill",
-                          "index", "cat", "gather", "scatter")))
-
-
-def kind_of(name: str) -> str:
-    low = name.lower()
-    for kind, keys in KINDS:
-        if any(k in low for k in keys):
-            return kind
-    return "other"
 
 
 def main():
@@ -60,6 +46,7 @@ def main():
         raise SystemExit("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import kernel_kind
     from neuralsvb_torch.data.synthetic import write_synthetic_split
     from neuralsvb_torch.hparams import hparams_scope, set_hparams
     from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
@@ -107,7 +94,7 @@ def main():
         busy = sum(r[1] for r in rows)
         kinds = {}
         for name, ms, n in rows:
-            k = kinds.setdefault(kind_of(name), [0.0, 0])
+            k = kinds.setdefault(kernel_kind(name), [0.0, 0])
             k[0] += ms
             k[1] += n
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()

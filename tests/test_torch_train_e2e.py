@@ -118,7 +118,8 @@ def test_phases_touch_only_their_parameters(root, trained):
 
 def test_first_run_validates_saves_and_logs(root, trained):
     first, _, kept, c2, c4 = trained
-    assert kept == ["lightning_logs", "model_ckpt_steps_2.ckpt", "model_ckpt_steps_4.ckpt"]
+    assert kept == ["config.yaml", "lightning_logs", "model_ckpt_steps_2.ckpt",
+                    "model_ckpt_steps_4.ckpt"]
     assert (c2["global_step"], c4["global_step"]) == (2, 4)
     assert len(c4["optimizer_states"]) == 3
     assert first.count("| Valid results:") == 3  # sanity, step 2, step 4

@@ -113,12 +113,31 @@ Every phase prints one JSON line; any failure raises.
 11. vocoder train, card vs CPU: see ``phase_vocoder_card_vs_cpu``: in f32
    losses within 1e-4 relative, gradients within 1e-3 in relative L2 (the
    discriminators' also per tensor); with bf16 operands each loss within
-   the bf16-vs-f32 gap of the CPU.
+   the bf16-vs-f32 gap of the CPU;
+12. variants: the two technique-prior recipes (``vae_tech_mle_eng_torch.yaml``,
+   ``vae_seg_tech_mle_eng_torch.yaml``) at the flagship's full width on
+   phase 6's splits, seeded weights, ``phase_2_steps`` 2: train steps 0-2
+   (validating and vocoding the first validation batch at 0), resume for
+   step 3 (the latent map; validating at 4), then ``--infer`` the test
+   split. Every logged loss is finite with its phase's keys (the map step
+   has no ``a2p_mle``, as in the JAX package); the frozen ASR never
+   changes, the latent map is the only part that changes in phase 3 (the
+   seg attention trains in phase 2); 20 wavs, none silent; the bf16
+   ResBlock kernel launches exactly 54 convs + 3 pre-passes per vocoder
+   call in every process. Prints each recipe's synchronized step seconds
+   by phase and peak memory;
+13. variants, card vs CPU, TF32 off: each other variant's seeded model
+   (``local`` at latent 16) forward on one test utterance at zero noise:
+   ``mel_out`` and the sampled a2p decode within 1e-3, ``kl``/``mle``
+   within 1e-4 relative, the seg attention weights within 1e-5; one gen +
+   disc and one map step of the seg task in float64 at phase 9's gates.
 
 The line before the last is the kernel table: per kernel its launches on
 the main path (the bf16 ResBlock kernel's also on the training path's
-validation, ``train_launches``, and on the vocoder's training path,
-``vocoder_train_launches``, with its times at that path's shapes; the χ²
+validation, ``train_launches``, on the vocoder's training path,
+``vocoder_train_launches``, with its times at that path's shapes, and on
+the technique-prior recipes' training and ``--infer`` processes,
+``variants_train_launches`` and ``variants_infer_launches``; the χ²
 kernel's also in the vocoder's binarize pass), worst error, time per call (``ms``; for the
 χ² kernel also ``device_ms``), plain time and bound (``bound_ms``,
 ``bound_by``) at the main path's shapes; the last line is
@@ -758,14 +777,17 @@ PHASE_KEYS = {"2": {"a2a_kl", "ssima2a", "l1a2a", "p2p_kl", "ssimp2p", "l1p2p", 
               "3": {"a2a_kl", "ssima2p", "l1a2p", "a2p_mle", "a2p_a", "lr_2"}}
 
 
-def train_config(voc_dir, device="cuda", **over):
-    """The flagship at full width on phase 6's packed splits."""
+FLAGSHIP = "vae_global_mle_eng_torch.yaml"
+
+
+def train_config(voc_dir, device="cuda", recipe=FLAGSHIP, name="train.yaml", **over):
+    """A PopBuTFy SVB recipe (the flagship unless ``recipe`` names another)
+    at full width on phase 6's packed splits, written to ``name``."""
     import yaml
-    cfg = os.path.join(WORK, "train.yaml")
+    cfg = os.path.join(WORK, name)
     with open(cfg, "w") as f:
         yaml.safe_dump(dict({
-            "base_config": [os.path.join(
-                REPO, "egs/datasets/audio/PopBuTFy/vae_global_mle_eng_torch.yaml")],
+            "base_config": [os.path.join(REPO, "egs/datasets/audio/PopBuTFy", recipe)],
             "binary_data_dir": os.path.join(WORK, "binarize", "binary"),
             "vocoder_ckpt": voc_dir, "device": device, "pretrain_asr_ckpt": "",
             "hidden_size": 256, "latent_size": 128, "fvae_enc_dec_hidden": 192,
@@ -884,21 +906,22 @@ def phase_train(voc, device="cuda"):
     return launches
 
 
-def phase_train_card_vs_cpu(devices=("cpu", "cuda")):
-    """One gen+disc step and one map step on the card and on the CPU, in
-    float32 and in float64 from the same float32 weights; returns the row."""
+def train_step_runs(task_cls, dtypes, devices=("cpu", "cuda"), **over):
+    """One gen+disc step and one map step of ``task_cls`` on the CPU and on
+    the card, per dtype, from the same seeded float32 weights, at zero noise
+    with pinned discriminator windows and the same dropout masks (drawn on
+    the CPU); the four train items cropped to 640 frames. Returns ({(side,
+    dtype): (losses, gradients by group)}, the batch)."""
     import torch
     from neuralsvb_torch.hparams import hparams_scope, set_hparams
-    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
-    t0 = time.perf_counter()
     runs = {}
-    for dtype in (torch.float32, torch.float64):
+    for dtype in dtypes:
         for side, dev in zip(("cpu", "card"), devices):
             cfg = train_config(os.path.join(WORK, "voc"), device=dev, max_frames=640,
-                               zero_noise=True, ds_workers=0)
+                               zero_noise=True, ds_workers=0, **over)
             hp = set_hparams(config=cfg, print_hparams=False, global_hparams=False)
             with hparams_scope(hp):
-                task = SVBVAEMleTask()
+                task = task_cls()
                 task.build_model()
                 task.build_train()
                 task.model.to(dtype)
@@ -920,22 +943,41 @@ def phase_train_card_vs_cpu(devices=("cpu", "cuda")):
                 finally:
                     torch.set_default_dtype(torch.float32)
                 runs[side, dtype] = logs, grads
-    f32, f64 = torch.float32, torch.float64
+    return runs, batch
 
-    def loss_rel(a, b):
-        return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b}
+
+def loss_rel(a, b):
+    return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for k in b}
+
+
+def grad_scales(ref):
+    """Per tensor max(max|g|, 1e-3 of the group's largest)."""
+    big = max(float(t.abs().max()) for t in ref)
+    return [max(float(t.abs().max()), 1e-3 * big) for t in ref]
+
+
+def grads_over_scale(a, b, scales):
+    return max(float((x - y).abs().max()) / s for x, y, s in zip(a, b, scales))
+
+
+def phase_train_card_vs_cpu(devices=("cpu", "cuda")):
+    """One gen+disc step and one map step on the card and on the CPU, in
+    float32 and in float64 from the same float32 weights; returns the row."""
+    import torch
+    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
+    t0 = time.perf_counter()
+    runs, batch = train_step_runs(SVBVAEMleTask, (torch.float32, torch.float64), devices)
+    f32, f64 = torch.float32, torch.float64
     rel32 = loss_rel(runs["card", f32][0], runs["cpu", f32][0])
     rel64 = loss_rel(runs["card", f64][0], runs["cpu", f64][0])
     ok = (runs["card", f32][0].keys() == runs["cpu", f32][0].keys()
           and max(rel32.values()) <= 1e-4 and max(rel64.values()) <= 1e-4)
     groups = {}
     for group in ("gen", "disc", "map"):
-        ref = runs["cpu", f64][1][group]
-        big = max(float(t.abs().max()) for t in ref)
-        scales = [max(float(t.abs().max()), 1e-3 * big) for t in ref]
+        scales = grad_scales(runs["cpu", f64][1][group])
 
         def worst(a, b):
-            return max(float((x - y).abs().max()) / s for x, y, s in zip(a, b, scales))
+            return grads_over_scale(a, b, scales)
         g = {(side, dt): runs[side, dt][1][group] for side in ("cpu", "card") for dt in (f32, f64)}
         groups[group] = dict(
             card_vs_cpu_f64=worst(g["card", f64], g["cpu", f64]),
@@ -1337,6 +1379,213 @@ def phase_vocoder_card_vs_cpu(cfg, devices=("cpu", "cuda")):
     return row
 
 
+# phase 12: the two technique-prior recipes, trained across the phases and served
+VARIANT_RECIPES = {"tech_mle": ("vae_tech_mle_eng_torch.yaml", "SVBVAETechMleTask"),
+                   "seg_tech_mle": ("vae_seg_tech_mle_eng_torch.yaml", "SVBVAESegTechMleTask")}
+VAR_STEPS, VAR_PHASE2 = 4, 2
+# their map step has no a2p_mle term: the JAX step reads the a2p way's
+# "kl", which the technique-prior variants do not return
+VAR_PHASE_KEYS = {"2": PHASE_KEYS["2"], "3": PHASE_KEYS["3"] - {"a2p_mle"}}
+# phase 13: every other variant's task class; the local one at latent 16
+VARIANT_TASKS = {"tech_mle": ("SVBVAETechMleTask", {}),
+                 "seg_tech_mle": ("SVBVAESegTechMleTask", {}),
+                 "global": ("SVBVAEBoostTask", {}),
+                 "local": ("SVBVAETask", {"latent_size": 16})}
+
+
+def wav_rms(path):
+    import numpy as np
+    with wave.open(path) as f:
+        pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2").astype(np.float64)
+    return float(np.sqrt(np.mean(pcm ** 2))) if pcm.size else 0.0
+
+
+def phase_variants_train(voc, device="cuda"):
+    """Both technique-prior recipes at full width on phase 6's splits:
+    train steps 0-2 (phase 2, validating and vocoding at 0), resume for
+    step 3 (phase 3, validating and vocoding at 4), ``--infer`` the test
+    split. Returns the launches of the training processes and of the
+    ``--infer`` ones, summed over the recipes."""
+    import math
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks import svb_vae_task
+    stages = len(voc["upsample_rates"])
+    on_card = device == "cuda"  # CPU tensors take the plain cluster
+    keys = ("resblock_conv1d_bf16_launches", "lrelu_bf16_launches", "resblock_conv1d_launches")
+
+    def want(calls):
+        return {keys[0]: 18 * stages * calls * on_card, keys[1]: stages * calls * on_card,
+                keys[2]: 0}
+    train_total, infer_total = dict.fromkeys(keys, 0), dict.fromkeys(keys, 0)
+    rows, failed = {}, []
+    for variant, (recipe, cls_name) in VARIANT_RECIPES.items():
+        cfg = train_config(os.path.join(WORK, "voc"), device=device, recipe=recipe,
+                           name=f"train_{variant}.yaml", phase_2_steps=VAR_PHASE2,
+                           max_updates=VAR_PHASE2 + 1)
+        work = os.path.join(WORK, f"train_{variant}")
+        out2, wall2 = run_train_cli(cfg, work)
+        out3, wall3 = run_train_cli(cfg, work, hp=f",max_updates={VAR_STEPS}")
+        runs = {"2": summary_of(out2, "train"), "3": summary_of(out3, "train")}
+        steps = {int(m.group(1)): json.loads(m.group(2))
+                 for out in (out2, out3)
+                 for m in re.finditer(r"^\| step (\d+): (\{.*\})$", out, re.M)}
+        bad = []
+        for step, logs in steps.items():
+            phase = "2" if step - 1 <= VAR_PHASE2 else "3"
+            if not all(math.isfinite(v) for v in logs.values()):
+                bad.append(f"step {step}: non-finite {logs}")
+            missing = VAR_PHASE_KEYS[phase] - set(logs)
+            if step > 1 and missing:  # the discriminator starts after step 0
+                bad.append(f"step {step} (phase {phase}) lacks {sorted(missing)}")
+            if phase == "3" and "a2p_mle" in logs:
+                bad.append(f"step {step}: a2p_mle in the map step")
+        if sorted(steps) != list(range(1, VAR_STEPS + 1)):
+            bad.append(f"logged steps {sorted(steps)}")
+
+        def load(step):
+            return torch.load(os.path.join(work, f"model_ckpt_steps_{step}.ckpt"),
+                              map_location="cpu", weights_only=True)["state_dict"]
+        c2, c3 = load(VAR_PHASE2 + 1), load(VAR_STEPS)
+        hp = set_hparams(config=cfg, hparams_str="device=cpu", print_hparams=False,
+                         global_hparams=False)
+        with hparams_scope(hp):
+            init = getattr(svb_vae_task, cls_name)()
+            init.build_model()
+            init.build_train()
+        maps = tuple(f"{k}." for k in init.model.mapping_keys)
+        phase2 = changed(init.model.state_dict(), c2["model"])
+        phase3 = changed(c2["model"], c3["model"])
+        invariants = {
+            "phase2_changes_generator": bool(phase2),
+            "phase2_keeps_asr_and_map": not any(k.startswith(("vc_asr.",) + maps)
+                                                for k in phase2),
+            "phase2_changes_disc": bool(changed(init.mel_disc.state_dict(), c2["mel_disc"])),
+            "phase3_changes_only_map": bool(phase3) and all(k.startswith(maps)
+                                                            for k in phase3),
+            "phase3_keeps_disc": not changed(c2["mel_disc"], c3["mel_disc"]),
+            "asr_never_changes": not any(k.startswith("vc_asr.") for k in changed(
+                init.model.state_dict(), c3["model"]))}
+        if variant == "seg_tech_mle":
+            invariants["phase2_trains_attention"] = any(
+                k.startswith("seg_ref_attn.") for k in phase2)
+        # sanity validation at 0: a2a, p2p, gt_a; at 4: a2a, p2p, a2p, gt_a
+        calls = {"2": 3, "3": 4}
+        for phase, summ in runs.items():
+            got = {k: summ[k] for k in keys}
+            if summ["vocoder_calls"] != calls[phase] or got != want(calls[phase]):
+                bad.append(f"phase {phase} run: {summ['vocoder_calls']} vocoder calls, "
+                           f"launches {got}")
+            for k in keys:
+                train_total[k] += got[k]
+        audio = sorted(os.path.basename(p) for p in glob.glob(
+            os.path.join(work, "lightning_logs", "version_*", "audio", "*.wav")))
+        if len(audio) != sum(calls.values()):
+            bad.append(f"validation wavs {audio}")
+        infer, wall_infer = run_train_cli(cfg, work, "--infer")
+        isum = summary_of(infer, "infer")
+        gen_dir = os.path.join(work, f"generated_{VAR_STEPS}_", "wavs")
+        wavs = {k: sorted(glob.glob(os.path.join(gen_dir, f"{k}_wavout", "*.wav")))
+                for k in ("gt_a", "gt_p", "a2a", "p2p", "a2p")}
+        n_wavs = sum(len(v) for v in wavs.values())
+        silent = [os.path.basename(p) for v in wavs.values() for p in v if wav_rms(p) < 1.0]
+        got = {k: isum[k] for k in keys}
+        if n_wavs != 20 or silent or got != want(n_wavs):
+            bad.append(f"--infer: {n_wavs} wavs, silent {silent}, launches {got}")
+        for k in keys:
+            infer_total[k] += got[k]
+        rows[variant] = dict(
+            recipe=recipe, ok=not bad and all(invariants.values()), problems=bad,
+            invariants=invariants, wall_s={"phase2_run": wall2, "phase3_run": wall3,
+                                          "infer": wall_infer},
+            step_s={p: r["phases"][p] for p, r in runs.items()},
+            max_memory_allocated={p: r.get("max_memory_allocated") for p, r in runs.items()},
+            infer_rtf=isum["rtf"], infer_max_memory_allocated=isum.get("max_memory_allocated"),
+            wavs=n_wavs, validation_wavs=len(audio),
+            last_step_losses=steps.get(VAR_STEPS))
+        print(f"| {variant} step seconds by phase: "
+              f"{json.dumps(rows[variant]['step_s'])}; peak memory "
+              f"{json.dumps(rows[variant]['max_memory_allocated'])}", flush=True)
+        if not rows[variant]["ok"]:
+            failed.append(variant)
+    emit("variants_train", ok=not failed, train_launches=train_total,
+         infer_launches=infer_total, **rows)
+    if failed:
+        raise AssertionError(f"variants train: {failed}: "
+                             f"{ {v: rows[v]['problems'] for v in failed} }")
+    return train_total, infer_total
+
+
+def phase_variants_card_vs_cpu(devices=("cpu", "cuda")):
+    """Every other variant's seeded full-width model (the local one at
+    latent 16) forward on one test utterance of phase 6 at zero noise, on
+    the CPU and on the card, TF32 off: each way's ``mel_out`` (and the
+    sampled a2p decode) within 1e-3 as in phase 5, ``kl``/``mle`` within
+    1e-4 relative, the seg attention weights within 1e-5. Then one gen+disc
+    and one map step of the seg task in float64 at phase 9's gates."""
+    import torch
+    from neuralsvb_torch.data.datasets import MultiSpkEmbDataset
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks import svb_vae_task
+    t0 = time.perf_counter()
+    fwd, bad = {}, []
+    for variant, (cls_name, over) in VARIANT_TASKS.items():
+        cfg = train_config(os.path.join(WORK, "voc"), device=devices[0],
+                           name=f"card_vs_cpu_{variant}.yaml", zero_noise=True,
+                           ds_workers=0, **over)
+        hp = set_hparams(config=cfg, print_hparams=False, global_hparams=False)
+        with hparams_scope(hp):
+            task = getattr(svb_vae_task, cls_name)()
+            model = task.build_model()
+            ds = MultiSpkEmbDataset("test")
+            batch = ds.collater([ds[0]])
+            outs = {}
+            for dev in devices:
+                task.device = torch.device(dev)
+                model.to(dev)
+                with torch.no_grad():
+                    out = task.forward(task._prep_batch(batch))
+                outs[dev] = {(w, k): v.detach().cpu() for w, o in out.items()
+                             for k, v in o.items() if k in ("mel_out", "a2p_sample_recon",
+                                                           "kl", "mle", "attn")}
+        cpu, card = outs[devices[0]], outs[devices[1]]
+        row = {}
+        for (way, key), ref in cpu.items():
+            d = float((card[way, key] - ref).abs().max())
+            if key in ("kl", "mle"):
+                d /= max(float(ref.abs()), 1e-12)
+            tol = {"kl": 1e-4, "mle": 1e-4, "attn": 1e-5}.get(key, 1e-3)
+            row[f"{way}_{key}"] = d
+            if not d <= tol or not bool(torch.isfinite(card[way, key]).all()):
+                bad.append(f"{variant} {way} {key}: {d:.3e} > {tol}")
+        fwd[variant] = dict(row, frames=int(batch["prof_mel_lengths"][0]))
+    runs, train_batch = train_step_runs(
+        svb_vae_task.SVBVAESegTechMleTask, (torch.float64,), devices,
+        recipe=VARIANT_RECIPES["seg_tech_mle"][0], name="card_vs_cpu_steps.yaml")
+    f64 = torch.float64
+    rel = loss_rel(runs["card", f64][0], runs["cpu", f64][0])
+    if runs["card", f64][0].keys() != runs["cpu", f64][0].keys() or max(rel.values()) > 1e-4:
+        bad.append(f"seg step losses: {rel}")
+    if any(k.endswith("a2p_mle") for k in runs["cpu", f64][0]):
+        bad.append("a2p_mle in the seg map step")
+    groups = {}
+    for group in ("gen", "disc", "map"):
+        scales = grad_scales(runs["cpu", f64][1][group])
+        groups[group] = grads_over_scale(runs["card", f64][1][group],
+                                         runs["cpu", f64][1][group], scales)
+        if groups[group] > 1e-3:
+            bad.append(f"seg {group} gradients: {groups[group]:.3e} of scale")
+    emit("variants_card_vs_cpu", ok=not bad, problems=bad, forward=fwd,
+         tol={"mel_out": 1e-3, "kl_mle_rel": 1e-4, "attn": 1e-5, "loss_rel": 1e-4,
+              "grad_f64": 1e-3},
+         seg_steps=dict(frames=640, batch=len(train_batch["id"]),
+                        max_loss_rel_err_f64=max(rel.values()),
+                        grads_over_scale_f64=groups, losses_cpu_f64=runs["cpu", f64][0]),
+         seconds=time.perf_counter() - t0)
+    if bad:
+        raise AssertionError(f"variants card vs CPU: {bad}")
+
+
 def build_all():
     """nvcc for each CUDA source and g++ for the host library, all started
     together."""
@@ -1408,6 +1657,10 @@ def main():
     train_rows = rows16[-len(TRAIN_SHAPES):]  # the vocoder training path's
     phase_vocoder_step_time(voc_cfg, train_rows, spec)
     phase_vocoder_card_vs_cpu(voc_cfg)
+    # each training and --infer process of the technique-prior recipes zeroes
+    # its counts when it starts its loop and reports them in its summary
+    var_train_launches, var_infer_launches = phase_variants_train(voc)
+    phase_variants_card_vs_cpu()
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -1422,6 +1675,10 @@ def main():
         "train_prepass_launches": train_launches["lrelu_bf16_launches"],
         "vocoder_train_launches": voc_launches["resblock_conv1d_bf16_launches"],
         "vocoder_train_prepass_launches": voc_launches["lrelu_bf16_launches"],
+        "variants_train_launches": var_train_launches["resblock_conv1d_bf16_launches"],
+        "variants_train_prepass_launches": var_train_launches["lrelu_bf16_launches"],
+        "variants_infer_launches": var_infer_launches["resblock_conv1d_bf16_launches"],
+        "variants_infer_prepass_launches": var_infer_launches["lrelu_bf16_launches"],
         "vocoder_train_shapes_ms": total(train_rows, "kernel_ms"),
         "vocoder_train_shapes_plain_ms": total(train_rows, "plain_ms"),
         "vocoder_train_shapes_bound_ms": total(train_rows, "bound_ms"),

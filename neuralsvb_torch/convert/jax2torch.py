@@ -1,6 +1,7 @@
 """JAX (flax) params -> the port's ``state_dict``: the exact inverse of
 ``convert_svbvae_mle_sd``, ``convert_hifigan`` and ``convert_ge2e`` in
-``neuralsvb_tpu/convert/torch2jax.py``, and the maps of the mel
+``neuralsvb_tpu/convert/torch2jax.py``, the SVB VAE's other variants (which
+the JAX package has no converter for), and the maps of the mel
 discriminator and of the vocoder's multi-period and multi-scale ones.
 
 The functions take nested dicts of numpy arrays (no JAX needed) and
@@ -120,23 +121,27 @@ def _conv_stacks(sd: _SD, prefix: str, p: Tree) -> None:
     sd.dense(f"{prefix}.out_proj", p["Dense_1"])
 
 
-def _global_fvae(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
+def _fvae(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
+    """``FVAE``, global (with the encoder's poolings) or frame-level."""
     sd.conv(f"{prefix}.g_pre_net.0", p["g_pre_0"])
     enc, dec = p["encoder"], p["decoder"]
     sd.conv(f"{prefix}.encoder.pre_net.0", enc["pre_0"])
     _wn(sd, f"{prefix}.encoder.wn", enc["wn"])
     sd.conv(f"{prefix}.encoder.out_proj", enc["out_proj"])
+    sd.convt(f"{prefix}.decoder.pre_net.0", dec["pre_0"])
+    _wn(sd, f"{prefix}.decoder.wn", dec["wn"])
+    sd.conv(f"{prefix}.decoder.out_proj", dec["out_proj"])
+    if "pool_0" not in enc:
+        return
     for i, ci in enumerate((0, 3, 6)):
         sd.conv(f"{prefix}.encoder.poolings.{ci}", enc[f"pool_{i}"])
     for i, bi in enumerate((2, 5)):
         sd.bn(f"{prefix}.encoder.poolings.{bi}", enc[f"pool_bn_{i}"],
               s["encoder"][f"pool_bn_{i}"])
-    sd.convt(f"{prefix}.decoder.pre_net.0", dec["pre_0"])
-    _wn(sd, f"{prefix}.decoder.wn", dec["wn"])
-    sd.conv(f"{prefix}.decoder.out_proj", dec["out_proj"])
 
 
-def _global_latent_map(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
+def _latent_map(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
+    """``LatentMap`` and ``GlobalLatentMap`` (the same layout)."""
     for i, ci in enumerate((0, 3, 6)):
         sd.conv(f"{prefix}.convs.{ci}", p[f"conv_{i}"])
     for i, bi in enumerate((1, 4)):
@@ -145,8 +150,13 @@ def _global_latent_map(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
     sd.conv(f"{prefix}.spk_proj.2", p["spk_proj_1"])
 
 
-def svbvae_mle_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
-    """``SVBVAE(variant="mle")`` params + batch_stats -> port state_dict."""
+def svbvae_from_jax(params: Tree, batch_stats: Tree,
+                    variant: str = "mle") -> Dict[str, torch.Tensor]:
+    """``SVBVAE(variant=...)`` params + batch_stats -> port state_dict, for
+    all five variants. The seg variant's attention modules have no known
+    reference names: the port names them after their JAX module paths
+    (``k_mel_encoder_0``, ``k_mel_encoder_bn``, ``k_mel_encoder_1``,
+    ``seg_ref_attn.{q,k,v,out}_proj``)."""
     sd = _SD()
     sd.put("pitch_embed.weight", params["pitch_embed"]["Embed_0"]["embedding"])
     _conv_stacks(sd, "pitch_encoder", params["pitch_encoder"])
@@ -157,10 +167,23 @@ def svbvae_mle_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tens
     sd.conv("upsample_layer.1", up["conv_out"])
     sd.dense("spk_embed_proj", params["spk_embed_proj"])
     sd.dense("encoded_embed_proj", params["encoded_embed_proj"])
-    _global_fvae(sd, "vae_model", params["vae_model"], batch_stats["vae_model"])
-    _global_latent_map(sd, "z_mapping_function", params["z_mapping_function"],
-                       batch_stats["z_mapping_function"])
+    _fvae(sd, "vae_model", params["vae_model"], batch_stats.get("vae_model", {}))
+    maps = (("z_mapping_function",) if variant in ("mle", "tech_mle", "seg_tech_mle")
+            else ("m_mapping_function", "logs_mapping_function"))
+    for name in maps:
+        _latent_map(sd, name, params[name], batch_stats[name])
+    if variant == "seg_tech_mle":
+        sd.conv("k_mel_encoder_0", params["k_mel_encoder_0"])
+        sd.bn("k_mel_encoder_bn", params["k_mel_encoder_bn"], batch_stats["k_mel_encoder_bn"])
+        sd.conv("k_mel_encoder_1", params["k_mel_encoder_1"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd.dense(f"seg_ref_attn.{name}", params["seg_ref_attn"][name])
     return dict(sd)
+
+
+def svbvae_mle_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+    """``SVBVAE(variant="mle")`` params + batch_stats -> port state_dict."""
+    return svbvae_from_jax(params, batch_stats, "mle")
 
 
 def disc_from_jax(params: Tree, batch_stats: Tree,

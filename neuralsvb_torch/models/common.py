@@ -1,5 +1,5 @@
 """Common building blocks; port of the parts of
-``neuralsvb_tpu/models/common.py`` on the inference path (reference:
+``neuralsvb_tpu/models/common.py`` that the port's models use (reference:
 modules/commons/common_layers.py:63-772, modules/fastspeech/pe.py:7-41).
 
 Layout is torch's ``[B, C, T]`` with masks ``[B, 1, T]``. Parameter names
@@ -195,3 +195,37 @@ class Prenet(nn.Module):
             nonpadding = nonpadding[:, :, ::s]
             h = layer(h) * nonpadding
         return h, linear_ct(self.out_proj, h) * nonpadding
+
+
+class MultiheadAttention(nn.Module):
+    """Dot-product attention over ``num_heads`` heads without biases, key
+    mask or k/v cache: the JAX package's ``MultiheadAttention`` as the
+    seg-tech SVB VAE calls it (reference: common_layers.py:167-485). q is
+    scaled by ``Dh**-0.5`` after its projection; logits and softmax run in
+    at least float32. The weights are returned, so the product is written
+    out rather than left to a fused attention call."""
+
+    def __init__(self, channels: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(channels, channels, bias=False)
+        self.k_proj = nn.Linear(channels, channels, bias=False)
+        self.v_proj = nn.Linear(channels, channels, bias=False)
+        self.out_proj = nn.Linear(channels, channels, bias=False)
+
+    def forward(self, query, key, value):
+        """query [B, Tq, C]; key, value [B, Tk, C] -> (out [B, Tq, C],
+        weights [B, heads, Tq, Tk])."""
+        B, Tq, C = query.shape
+        H = self.num_heads
+        Dh = C // H
+
+        def split(x):
+            return x.reshape(B, x.shape[1], H, Dh).transpose(1, 2)
+
+        acc = torch.promote_types(query.dtype, torch.float32)
+        q = split(self.q_proj(query) * Dh ** -0.5).to(acc)
+        k, v = split(self.k_proj(key)).to(acc), split(self.v_proj(value))
+        weights = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+        out = (weights @ v.to(acc)).to(query.dtype).transpose(1, 2).reshape(B, Tq, C)
+        return self.out_proj(out), weights

@@ -1,13 +1,14 @@
-"""Global conditional VAE over mel-spectrograms and the latent mapping of
-the MLE variant; port of the global-latent parts of
-``neuralsvb_tpu/models/fvae.py`` (reference:
+"""Frame-level and global conditional VAEs over mel-spectrograms and the
+amateur -> professional latent maps; port of ``neuralsvb_tpu/models/fvae.py``
+without its prior flow and technique classifier (reference:
 modules/fastspeech/fs2_vae.py:103-237, modules/voice_conversion/vae_models.py).
 Training and inference share the posterior branch; the BatchNorms follow
 the module's train/eval mode.
 
-Layout ``[B, C, T]``: a global latent is ``[B, latent, 1]`` (the JAX
-package keeps ``[B, 1, latent]``). Reparameterization noise comes from an
-explicit ``torch.Generator``, or is exactly zero with ``zero_noise``.
+Layout ``[B, C, T]``: a latent is ``[B, latent, T / stride]``, a global one
+``[B, latent, 1]`` (the JAX package keeps ``[B, Tz, latent]``).
+Reparameterization noise comes from an explicit ``torch.Generator``, or is
+exactly zero with ``zero_noise``.
 """
 
 from __future__ import annotations
@@ -36,10 +37,9 @@ def normal_log_prob(x, mean, logs):
     return -0.5 * (math.log(2 * math.pi) + 2 * logs + (x - mean) ** 2 / torch.exp(2 * logs))
 
 
-class GlobalFVAEEncoder(nn.Module):
-    """Strided conv pre-net -> WN -> out-proj, then three stride-2 VALID
-    conv poolings and a temporal mean -> one global latent
-    (reference: fs2_vae.py:103-127, vae_models.py:81-105)."""
+class FVAEEncoder(nn.Module):
+    """Strided conv pre-net -> WN -> out-proj: a frame-level posterior, one
+    latent per ``stride`` frames (reference: fs2_vae.py:103-127)."""
 
     def __init__(self, in_channels, hidden_channels, latent_channels, kernel_size,
                  n_layers, gin_channels, stride: int = 4):
@@ -51,6 +51,36 @@ class GlobalFVAEEncoder(nn.Module):
             padding=stride // 2))
         self.wn = WN(hidden_channels, kernel_size, 1, n_layers, gin_channels)
         self.out_proj = nn.Conv1d(hidden_channels, 2 * latent_channels, 1)
+
+    def project(self, x, x_mask, g):
+        """-> the out-proj [B, 2 latent, T / stride] and the strided mask."""
+        x = self.pre_net(x)
+        x_mask = x_mask[:, :, ::self.stride][:, :, : x.shape[-1]]
+        x = x * x_mask
+        x = self.wn(x, x_mask, g) * x_mask
+        return self.out_proj(x), x_mask
+
+    def sample(self, h, generator, zero_noise):
+        m, logs = h.split(self.latent_channels, dim=1)
+        z = m + draw_normal(m.shape, m, generator, zero_noise) * torch.exp(logs)
+        return z, m, logs
+
+    def forward(self, x, x_mask, g, generator=None, zero_noise=False):
+        """x [B, C, T]; x_mask [B, 1, T]; g [B, gin, T / stride] ->
+        (z, m, logs) [B, latent, T / stride] and the strided mask
+        [B, 1, T / stride]. Padded latent frames hold the out-proj's bias."""
+        h, x_mask = self.project(x, x_mask, g)
+        return (*self.sample(h, generator, zero_noise), x_mask)
+
+
+class GlobalFVAEEncoder(FVAEEncoder):
+    """``FVAEEncoder``, then three stride-2 VALID conv poolings and a
+    temporal mean -> one global latent (reference: vae_models.py:81-105)."""
+
+    def __init__(self, in_channels, hidden_channels, latent_channels, kernel_size,
+                 n_layers, gin_channels, stride: int = 4):
+        super().__init__(in_channels, hidden_channels, latent_channels, kernel_size,
+                         n_layers, gin_channels, stride)
         L2 = 2 * latent_channels
         self.poolings = nn.Sequential(
             nn.Conv1d(L2, L2, 3, stride=2), nn.ReLU(), BatchNorm1d(L2, eps=BN_EPS),
@@ -58,15 +88,11 @@ class GlobalFVAEEncoder(nn.Module):
             nn.Conv1d(L2, L2, 3, stride=2))
 
     def forward(self, x, x_mask, g, generator=None, zero_noise=False):
-        """x [B, C, T]; x_mask [B, 1, T]; g [B, gin, T / stride] ->
-        (z, m, logs) [B, latent, 1] and the strided mask [B, 1, T / stride]."""
-        x = self.pre_net(x)
-        x_mask = x_mask[:, :, ::self.stride][:, :, : x.shape[-1]]
-        x = x * x_mask
-        x = self.wn(x, x_mask, g) * x_mask
+        """As ``FVAEEncoder``, with (z, m, logs) [B, latent, 1]."""
+        h, x_mask = self.project(x, x_mask, g)
         # mask the biased out-proj at padded frames, so a clip shorter than
         # the batch pools the zeros its unpadded run would see
-        h = self.out_proj(x) * x_mask
+        h = h * x_mask
         if h.shape[-1] < 15:  # three VALID stride-2 poolings need 15 frames
             h = F.pad(h, (0, 15 - h.shape[-1]))
         # the unpadded run averages exactly L3 pooled positions: restrict the
@@ -78,53 +104,58 @@ class GlobalFVAEEncoder(nn.Module):
         wmask = (torch.arange(h.shape[-1], device=h.device)[None, :]
                  < L[:, None])[:, None, :].to(h.dtype)
         h = (h * wmask).sum(-1, keepdim=True) / L.clamp_min(1)[:, None, None].to(h.dtype)
-        m, logs = h.split(self.latent_channels, dim=1)
-        z = m + draw_normal(m.shape, m, generator, zero_noise) * torch.exp(logs)
-        return z, m, logs, x_mask
+        return (*self.sample(h, generator, zero_noise), x_mask)
 
 
-class GlobalFVAEDecoder(nn.Module):
-    """Tile the global latent to T / stride, ConvTranspose pre-net -> WN ->
-    out-proj (reference: fs2_vae.py:130-151, vae_models.py:124-127)."""
+class FVAEDecoder(nn.Module):
+    """ConvTranspose pre-net -> WN -> out-proj (reference: fs2_vae.py:130-151);
+    ``repeat_global`` first tiles a global latent to T / stride
+    (reference: vae_models.py:124-127)."""
 
     def __init__(self, latent_channels, hidden_channels, out_channels, kernel_size,
-                 n_layers, gin_channels, stride: int = 4):
+                 n_layers, gin_channels, stride: int = 4, repeat_global: bool = True):
         super().__init__()
         self.stride = stride
+        self.repeat_global = repeat_global
         self.pre_net = nn.Sequential(nn.ConvTranspose1d(
             latent_channels, hidden_channels, stride, stride=stride))
         self.wn = WN(hidden_channels, kernel_size, 1, n_layers, gin_channels)
         self.out_proj = nn.Conv1d(hidden_channels, out_channels, 1)
 
     def forward(self, z, x_mask, g):
-        """z [B, latent, 1]; x_mask [B, 1, T]; g [B, gin, T] -> [B, out, T]."""
-        x = z.repeat_interleave(g.shape[-1] // self.stride, dim=-1)
+        """z [B, latent, 1] (global) or [B, latent, T / stride]; x_mask
+        [B, 1, T]; g [B, gin, T] -> [B, out, T]."""
+        x = z.repeat_interleave(g.shape[-1] // self.stride, dim=-1) if self.repeat_global else z
         x = self.pre_net(x) * x_mask
         x = self.wn(x, x_mask, g) * x_mask
         return self.out_proj(x)
 
 
 class FVAE(nn.Module):
-    """Conditional VAE with a global latent (GlobalFVAE in the reference,
-    vae_models.py:133-150); the posterior (non-infer) branch."""
+    """Conditional VAE: ``global_latent`` gives GlobalFVAE (one latent per
+    utterance), else TMPFVAE (one per ``stride`` frames) in the reference
+    (vae_models.py:11-48,133-150); the posterior (non-infer) branch."""
 
     def __init__(self, in_out_channels, hidden_channels, latent_size, kernel_size,
-                 enc_n_layers, dec_n_layers, gin_channels, stride: int = 4):
+                 enc_n_layers, dec_n_layers, gin_channels, stride: int = 4,
+                 global_latent: bool = True):
         super().__init__()
         self.stride = stride
         self.g_pre_net = nn.Sequential(nn.Conv1d(
             gin_channels, gin_channels, 2 * stride, stride=stride,
             padding=stride // 2))
-        self.encoder = GlobalFVAEEncoder(in_out_channels, hidden_channels,
-                                         latent_size, kernel_size, enc_n_layers,
-                                         gin_channels, stride)
-        self.decoder = GlobalFVAEDecoder(latent_size, hidden_channels,
-                                         in_out_channels, kernel_size,
-                                         dec_n_layers, gin_channels, stride)
+        enc_cls = GlobalFVAEEncoder if global_latent else FVAEEncoder
+        self.encoder = enc_cls(in_out_channels, hidden_channels, latent_size,
+                               kernel_size, enc_n_layers, gin_channels, stride)
+        self.decoder = FVAEDecoder(latent_size, hidden_channels, in_out_channels,
+                                   kernel_size, dec_n_layers, gin_channels, stride,
+                                   repeat_global=global_latent)
 
-    def forward(self, x, x_mask, g, generator: Optional[torch.Generator] = None, zero_noise=False):
+    def forward(self, x, x_mask, g, generator: Optional[torch.Generator] = None,
+                zero_noise=False, prior_mean: float = 0.0):
         """x [B, C, T]; x_mask [B, 1, T]; g [B, gin, T] ->
-        dict(mel_out, kl, m_q, logs_q, x_mask_sqz, z_q)."""
+        dict(mel_out, kl, m_q, logs_q, x_mask_sqz, z_q); the KL is against
+        the prior N(prior_mean, 1)."""
         if x.shape[-1] % self.stride:
             raise ValueError(f"FVAE input frames ({x.shape[-1]}) must be a "
                              f"multiple of the latent stride ({self.stride})")
@@ -136,28 +167,43 @@ class FVAE(nn.Module):
         s = torch.exp(logs_q)
         logs_q = torch.where(torch.isfinite(s) & (s > 0), logs_q,
                              torch.zeros_like(logs_q))
-        kl_elem = gaussian_kl(m_q, logs_q, 0.0, 0.0)  # [B, L, 1]
-        # length-weighted batch mean, as the reference computes it
+        kl_elem = gaussian_kl(m_q, logs_q, prior_mean, 0.0)  # [B, L, Tz]
+        # length-weighted batch mean, as the reference computes it (a global
+        # latent's [B, L, 1] broadcasts against the frame mask)
         loss_kl = ((kl_elem * x_mask_sqz).sum() / x_mask_sqz.sum()
                    / kl_elem.shape[1])
         return dict(mel_out=x_recon, kl=loss_kl, m_q=m_q, logs_q=logs_q,
                     x_mask_sqz=x_mask_sqz, z_q=z_q)
 
 
-class GlobalLatentMap(nn.Module):
-    """Global latent mapping of 1x1 convs with a projected speaker style
-    (reference: vae_models.py:149-172)."""
+class LatentMap(nn.Module):
+    """Frame-level latent mapping: three k3 convs (BN + ReLU between) on the
+    latent plus a projected speaker style (reference: vae_models.py:51-75).
+    The style projection ends at 16 channels, so only a 16-channel latent
+    adds to it, as in the JAX package."""
 
-    def __init__(self, latent_size: int, style_channels: int):
+    def __init__(self, latent_size: int, style_channels: int, kernel_size: int = 3,
+                 spk_hidden: int = 64, spk_out: int = 16):
         super().__init__()
-        L = latent_size
-        self.spk_proj = nn.Sequential(nn.Conv1d(style_channels, L, 1), nn.ReLU(),
-                                      nn.Conv1d(L, L, 1))
+        L, pad = latent_size, kernel_size // 2
+        self.spk_proj = nn.Sequential(
+            nn.Conv1d(style_channels, spk_hidden, kernel_size, padding=pad), nn.ReLU(),
+            nn.Conv1d(spk_hidden, spk_out, kernel_size, padding=pad))
         self.convs = nn.Sequential(
-            nn.Conv1d(L, L, 1), BatchNorm1d(L, eps=BN_EPS), nn.ReLU(),
-            nn.Conv1d(L, L, 1), BatchNorm1d(L, eps=BN_EPS), nn.ReLU(),
-            nn.Conv1d(L, L, 1))
+            nn.Conv1d(L, L, kernel_size, padding=pad), BatchNorm1d(L, eps=BN_EPS), nn.ReLU(),
+            nn.Conv1d(L, L, kernel_size, padding=pad), BatchNorm1d(L, eps=BN_EPS), nn.ReLU(),
+            nn.Conv1d(L, L, kernel_size, padding=pad))
 
     def forward(self, x, style):
-        """x [B, L, 1]; style [B, H, T] -> [B, L, 1]."""
+        """x [B, L, Tz]; style [B, H, T] (its first Tz frames are read) ->
+        [B, L, Tz]."""
         return self.convs(x + self.spk_proj(style[:, :, : x.shape[-1]]))
+
+
+class GlobalLatentMap(LatentMap):
+    """Global latent mapping of 1x1 convs with a projected speaker style
+    (reference: vae_models.py:149-172); x [B, L, 1]."""
+
+    def __init__(self, latent_size: int, style_channels: int):
+        super().__init__(latent_size, style_channels, kernel_size=1,
+                         spk_hidden=latent_size, spk_out=latent_size)

@@ -1,23 +1,29 @@
-"""MleSVBVAE: singing-voice beautification VAE with a global latent and an
-MLE-trained latent mapping; port of ``SVBVAE(variant="mle")`` in
-``neuralsvb_tpu/models/svb_vae.py`` (reference:
-modules/voice_conversion/svb_vae.py:13-312).
+"""The SVB VAE family; port of ``SVBVAE`` in
+``neuralsvb_tpu/models/svb_vae.py`` with its five variants (reference:
+modules/voice_conversion/svb_vae.py:13-478): ``mle`` (MleSVBVAE, the
+flagship: a global latent and an MLE-trained z map), ``tech_mle`` (the MLE
+variant with the technique prior N(0, 1) amateur / N(1, 1) professional),
+``seg_tech_mle`` (the technique prior with the amateur PPG aligned to the
+professional timeline by attention), ``global`` (GlobalSVBVAE: mean and
+scale maps, KL against the professional posterior) and ``local`` (SVBVAE:
+a frame-level latent and k3 latent maps on the alignment shrunk to the
+latent rate).
 
 Conditions per side: pitch embedding -> ConvStacks, frozen-ASR PPG
 upsampled x2, projected speaker embedding broadcast over time; fused by one
 Linear (``encoded_embed_proj``). Ways: a2a and p2p reconstruct each side
 from its posterior latent; a2p maps the amateur latent and decodes it on the
 professional timeline with the amateur content gathered through the DTW
-alignment.
+alignment (the attention-aligned content for ``seg_tech_mle``).
 
 ``SVBVAE.forward`` takes mels ``[B, T, 80]`` and returns each way's
-``mel_out`` as ``[B, T, 80]``; inside, everything is ``[B, C, T]`` and
-latents are ``[B, latent, 1]``.
+``mel_out`` (and ``a2p_sample_recon``) as ``[B, T, 80]``; inside,
+everything is ``[B, C, T]`` and latents are ``[B, latent, Tz]``.
 
 Training follows torch's module modes: ``model.train()`` puts every
 BatchNorm into batch statistics except the frozen ASR's, which stays in
 eval mode (the JAX package runs it with ``train=False`` always); the
-latent-map step sets ``model.eval()`` and ``z_mapping_function.train()``.
+latent-map step sets ``model.eval()`` and the maps' ``train()``.
 """
 
 from __future__ import annotations
@@ -28,10 +34,13 @@ import torch
 import torch.nn as nn
 
 from .asr import VCASR
-from .common import BN_EPS, BatchNorm1d, ConvStacks, Embedding, linear_ct
-from .fvae import FVAE, GlobalLatentMap, normal_log_prob
+from .common import (BN_EPS, BatchNorm1d, ConvStacks, Embedding, MultiheadAttention,
+                     draw_normal, linear_ct)
+from .fvae import FVAE, GlobalLatentMap, LatentMap, gaussian_kl, normal_log_prob
 
 WAYS = ("a2a", "p2p", "a2p")
+MLE_VARIANTS = ("mle", "tech_mle", "seg_tech_mle")
+VARIANTS = ("local", "global") + MLE_VARIANTS
 
 
 class CondUpsampler(nn.Sequential):
@@ -60,8 +69,11 @@ class CondUpsampler(nn.Sequential):
 
 
 class SVBVAE(nn.Module):
-    """The flagship's MleSVBVAE (``variant="mle"``); parameter names are the
-    reference's (``vae_model.encoder.wn.in_layers.0.weight``, ...)."""
+    """``variant``: one of ``VARIANTS``; ``mle`` is the flagship's
+    MleSVBVAE. Parameter names are the reference's
+    (``vae_model.encoder.wn.in_layers.0.weight``, ...); the seg variant's
+    attention modules are named after their JAX module paths
+    (``k_mel_encoder_0``, ``seg_ref_attn.q_proj``)."""
 
     def __init__(self, dict_size: int, hidden_size: int = 256,
                  num_mel_bins: int = 80, latent_size: int = 128,
@@ -69,8 +81,16 @@ class SVBVAE(nn.Module):
                  fvae_enc_layers: int = 8, fvae_dec_layers: int = 4,
                  frames_multiple: int = 4, mel_strides: Sequence[int] = (2, 1, 1),
                  asr_enc_layers: int = 2, asr_last_norm: bool = False,
-                 spk_emb_dim: int = 256):
+                 spk_emb_dim: int = 256, variant: str = "mle"):
         super().__init__()
+        if variant not in VARIANTS:
+            raise ValueError(f"variant {variant!r} is not one of {VARIANTS}")
+        if variant == "local" and latent_size != 16:
+            raise ValueError("the local variant's LatentMap adds a 16-channel speaker "
+                             f"projection to the latent: latent_size must be 16, not "
+                             f"{latent_size}")
+        self.variant = variant
+        self.frames_multiple = frames_multiple
         H = hidden_size
         self.pitch_embed = Embedding(300, H, 0)
         self.pitch_encoder = ConvStacks(H, n_layers=3, n_chans=H, odim=H)
@@ -80,8 +100,27 @@ class SVBVAE(nn.Module):
         self.spk_embed_proj = nn.Linear(spk_emb_dim, H)
         self.encoded_embed_proj = nn.Linear(3 * H, H)
         self.vae_model = FVAE(num_mel_bins, fvae_hidden, latent_size, fvae_kernel,
-                              fvae_enc_layers, fvae_dec_layers, H, frames_multiple)
-        self.z_mapping_function = GlobalLatentMap(latent_size, H)
+                              fvae_enc_layers, fvae_dec_layers, H, frames_multiple,
+                              global_latent=variant != "local")
+        if variant in MLE_VARIANTS:
+            self.z_mapping_function = GlobalLatentMap(latent_size, H)
+        else:
+            latent_map = LatentMap if variant == "local" else GlobalLatentMap
+            self.m_mapping_function = latent_map(latent_size, H)
+            self.logs_mapping_function = latent_map(latent_size, H)
+        if variant == "seg_tech_mle":
+            # attention-based PPG alignment (reference: svb_vae.py:402-478)
+            self.k_mel_encoder_0 = nn.Conv1d(num_mel_bins, H, 1)
+            self.k_mel_encoder_bn = BatchNorm1d(H, eps=BN_EPS)
+            self.k_mel_encoder_1 = nn.Conv1d(H, H, 1)
+            self.seg_ref_attn = MultiheadAttention(H, 4)
+
+    @property
+    def mapping_keys(self):
+        """The latent maps' module names: the map step's parameters."""
+        if self.variant in MLE_VARIANTS:
+            return ("z_mapping_function",)
+        return ("m_mapping_function", "logs_mapping_function")
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -117,11 +156,27 @@ class SVBVAE(nn.Module):
         # the strided g_pre_net does not smear padding into valid frames
         return cond * mask
 
-    def normal_vae(self, tgt_mel, conds, generator=None, zero_noise=False):
+    def normal_vae(self, tgt_mel, conds, generator=None, zero_noise=False,
+                   prior_mean=0.0):
         cond = self._cond_sum(conds["h_pitch"], conds["h_content"],
                               conds["h_style"], mask=conds["tgt_nonpadding"])
         return self.vae_model(tgt_mel, conds["tgt_nonpadding"], cond,
-                              generator=generator, zero_noise=zero_noise)
+                              generator=generator, zero_noise=zero_noise,
+                              prior_mean=prior_mean)
+
+    def get_aligned_ppg(self, src_ppg, src_mel, alignment):
+        """The amateur content [B, H, T_a] gathered through the alignment
+        [B, T_p] and refined by attention over the amateur frames, keyed by
+        the amateur mel [B, 80, T_a] (reference: svb_vae.py:413-420) ->
+        ([B, H, T_p], weights [B, 4, T_p, T_a]). No key mask: padded amateur
+        frames take part, as in the JAX package."""
+        idx = alignment[:, None, :].expand(-1, src_ppg.shape[1], -1)
+        gathered = torch.gather(src_ppg, 2, idx)
+        k = self.k_mel_encoder_1(self.k_mel_encoder_bn(
+            torch.relu(self.k_mel_encoder_0(src_mel))))
+        out, weights = self.seg_ref_attn(gathered.transpose(1, 2), k.transpose(1, 2),
+                                         src_ppg.transpose(1, 2))
+        return out.transpose(1, 2), weights
 
     def forward(self, amateur_mel, prof_mel, amateur_pitch, prof_pitch, spk_emb,
                 a2p_alignment, disable_map: bool = False,
@@ -145,39 +200,85 @@ class SVBVAE(nn.Module):
                                          exact_lengths, ppg_a)
         conds_p = self.prepare_condition(mel_p, prof_pitch, spk_emb,
                                          exact_lengths, ppg_p)
+        # the technique prior N(tech_id, 1): amateur 0, professional 1
+        # (reference: vae_models.py:196-200 TechPriorGlobalFVAE)
+        prior_a, prior_p = (0.0, 1.0) if self.variant in ("tech_mle", "seg_tech_mle") \
+            else (0.0, 0.0)
         ret: Dict[str, Dict[str, torch.Tensor]] = {}
         if "a2a" in ways:
-            ret["a2a"] = self.normal_vae(mel_a, conds_a, generator, zero_noise)
+            ret["a2a"] = self.normal_vae(mel_a, conds_a, generator, zero_noise, prior_a)
         if "p2p" in ways:
-            ret["p2p"] = self.normal_vae(mel_p, conds_p, generator, zero_noise)
+            conds = conds_p
+            if self.variant == "seg_tech_mle":
+                aligned, attn = self.get_aligned_ppg(conds_a["h_content"], mel_a,
+                                                     a2p_alignment)
+                conds = dict(conds_p, h_content=aligned)
+                # a2p decodes with the same attention-aligned content
+                conds_a = dict(conds_a, h_content_aligned=aligned)
+            ret["p2p"] = self.normal_vae(mel_p, conds, generator, zero_noise, prior_p)
+            if self.variant == "seg_tech_mle":
+                ret["p2p"]["attn"] = attn
         if "a2p" in ways:
             ret["a2p"] = self._a2p(ret["a2a"], ret["p2p"], conds_a, conds_p,
-                                   a2p_alignment, disable_map)
+                                   a2p_alignment, disable_map, generator, zero_noise)
         for out in ret.values():
-            out["mel_out"] = out["mel_out"].transpose(1, 2)
+            for key in ("mel_out", "a2p_sample_recon"):
+                if key in out:
+                    out[key] = out[key].transpose(1, 2)
         return ret
 
     def _gathered_cond(self, conds_a, conds_p, a2p_alignment):
         """Condition on the professional timeline: prof pitch, amateur PPG
-        gathered through the DTW alignment, amateur style."""
-        h = conds_a["h_content"]
+        gathered through the DTW alignment (or attention-aligned), amateur
+        style."""
         T_p = conds_p["h_pitch"].shape[-1]
-        idx = a2p_alignment[:, None, :].expand(-1, h.shape[1], -1)
-        gathered = torch.gather(h, 2, idx)
+        if "h_content_aligned" in conds_a:
+            gathered = conds_a["h_content_aligned"]
+        else:
+            h = conds_a["h_content"]
+            idx = a2p_alignment[:, None, :].expand(-1, h.shape[1], -1)
+            gathered = torch.gather(h, 2, idx)
         style = conds_a["h_style"][:, :, :1].expand(-1, -1, T_p)
         return self._cond_sum(conds_p["h_pitch"], gathered, style,
                               mask=conds_p["tgt_nonpadding"])
 
     def _a2p(self, a2a_out, p2p_out, conds_a, conds_p, a2p_alignment,
-             disable_map):
+             disable_map, generator=None, zero_noise=False):
         cond_a2p = self._gathered_cond(conds_a, conds_p, a2p_alignment)
-        z_a = a2a_out["z_q"]
-        z_map = z_a if disable_map else self.z_mapping_function(z_a, conds_a["h_style"])
-        logp = normal_log_prob(z_map, p2p_out["m_q"], p2p_out["logs_q"])
+        mask_p, style_a = conds_p["tgt_nonpadding"], conds_a["h_style"]
+        decoder = self.vae_model.decoder
+        if self.variant in MLE_VARIANTS:
+            z_a = a2a_out["z_q"]
+            z_map = z_a if disable_map else self.z_mapping_function(z_a, style_a)
+            logp = normal_log_prob(z_map, p2p_out["m_q"], p2p_out["logs_q"])
+            return {
+                "mle": -logp.sum() / z_map.shape[0] / z_map.shape[1],
+                "mel_out": decoder(z_map, mask_p, cond_a2p),
+                "logs_amateur_zq": z_a,
+                "logs_prof_zq": p2p_out["z_q"],
+            }
+        m_a, logs_a = a2a_out["m_q"], a2a_out["logs_q"]
+        if self.variant == "local":
+            # shrink the frame alignment to the latent rate (svb_vae.py:116-121)
+            fm = self.frames_multiple
+            shrink = (a2p_alignment[:, ::fm] // fm).clamp(0, m_a.shape[-1] - 1)
+            idx = shrink[:, None, :].expand(-1, m_a.shape[1], -1)
+            m_a, logs_a = torch.gather(m_a, 2, idx), torch.gather(logs_a, 2, idx)
+        if disable_map:
+            m_map, logs_map = m_a, logs_a
+        else:
+            m_map = self.m_mapping_function(m_a, style_a)
+            logs_map = self.logs_mapping_function(logs_a, style_a)
+        kl = gaussian_kl(m_map, logs_map, p2p_out["m_q"], p2p_out["logs_q"])
+        if self.variant == "local":
+            msk = p2p_out["x_mask_sqz"]
+            kl = (kl * msk).sum() / msk.sum() / kl.shape[1]
+        else:
+            kl = kl.sum() / kl.shape[0] / kl.shape[1]
+        eps = draw_normal(m_map.shape, m_map, generator, zero_noise)
         return {
-            "mle": -logp.sum() / z_map.shape[0] / z_map.shape[1],
-            "mel_out": self.vae_model.decoder(z_map, conds_p["tgt_nonpadding"],
-                                              cond_a2p),
-            "logs_amateur_zq": z_a,
-            "logs_prof_zq": p2p_out["z_q"],
+            "kl": kl,
+            "mel_out": decoder(m_map, mask_p, cond_a2p),
+            "a2p_sample_recon": decoder(m_map + eps * torch.exp(logs_map), mask_p,
+                                        cond_a2p),
         }

@@ -1,12 +1,19 @@
-"""SVB VAE task: three-optimizer training (generator, multi-window
-discriminator, MLE latent map) and the a2a/p2p/a2p inference path of the
-flagship recipe; port of ``neuralsvb_tpu/tasks/svb_vae_task.py``
-(reference: tasks/singing/svb_vae_task.py:48-726).
+"""SVB VAE tasks: three-optimizer training (generator, multi-window
+discriminator, latent map) and the a2a/p2p/a2p inference path; port of
+``neuralsvb_tpu/tasks/svb_vae_task.py`` (reference:
+tasks/singing/svb_vae_task.py:48-726). ``SVBVAEMleTask`` is the flagship
+recipe; ``SVBVAETechMleTask``, ``SVBVAESegTechMleTask``, ``SVBVAEBoostTask``
+and ``SVBVAETask`` differ only in the model's ``variant`` (see
+``models/svb_vae.py``), in their latent maps and, for the boost task, in
+its validation ways.
 
 Training (``Trainer.fit``): phase 2 runs the generator step on the ways
 ``a2a,p2p`` and the discriminator step on its detached fakes; phase 3
 (after ``phase_2_steps``) runs only the latent-map step, with the model in
-eval mode and ``z_mapping_function`` in training mode. Each optimizer is a
+eval mode and its latent maps in training mode. The map step's a2p term is
+the ``mle`` of the ``mle`` variant and the ``kl`` of every other, as in the
+JAX package: the two technique-prior variants return an ``mle`` and no
+``kl``, so their map trains on the a2p mel and adversarial losses alone. Each optimizer is a
 chain of an optional value clip, a clip by global norm (by hand: optax
 scales by max/norm only when norm > max) and AdamW with the learning rate
 of its schedule at the step. Random draws of a step come from a
@@ -54,6 +61,7 @@ class SVBVAEMleTask(BaseTask):
     (reference: SVBVAEMleTask:543, vae_global_mle_eng.yaml)."""
 
     num_optimizers = 3
+    variant = "mle"
 
     def __init__(self):
         super().__init__()
@@ -101,7 +109,8 @@ class SVBVAEMleTask(BaseTask):
                 frames_multiple=hp["frames_multiple"],
                 mel_strides=tuple(hp["mel_strides"]),
                 asr_enc_layers=hp["asr_enc_layers"],
-                asr_last_norm=hp["asr_last_norm"])
+                asr_last_norm=hp["asr_last_norm"],
+                variant=self.variant)
         self.model = model.to(self.device).eval().requires_grad_(False)
         return self.model
 
@@ -153,10 +162,11 @@ class SVBVAEMleTask(BaseTask):
         self.model.requires_grad_(True)
         self.model.vc_asr.requires_grad_(False)
         self._load_pretrained_asr()
-        skip = ("vc_asr.", "z_mapping_function.")
+        maps = self.model.mapping_keys
+        skip = ("vc_asr.",) + tuple(f"{k}." for k in maps)
         self.gen_params = [p for n, p in self.model.named_parameters()
                            if not n.startswith(skip)]
-        self.map_params = list(self.model.z_mapping_function.parameters())
+        self.map_params = [p for k in maps for p in getattr(self.model, k).parameters()]
         self.disc_params = list(self.mel_disc.parameters())
         b1, b2 = hp["optimizer_adam_beta1"], hp["optimizer_adam_beta2"]
         wd = hp.get("weight_decay", 0.0) or 0.0
@@ -387,12 +397,17 @@ class SVBVAEMleTask(BaseTask):
         return losses
 
     def map_step(self, b, ways, disc_on: bool, lr: float, generator):
-        """Eval-mode model with the mapping in training mode, on padded
-        batches at the collate-length rel-pos (svb_vae_task.py:645-652)."""
+        """Eval-mode model with the maps in training mode, on padded
+        batches at the collate-length rel-pos (svb_vae_task.py:645-652).
+        The a2p term is ``mle`` for the ``mle`` variant and ``kl`` for the
+        others (JAX: ``kl_or_mle``); the adversarial term reads the sampled
+        decode where the way has one."""
         hp = hparams
         all_ways = tuple(dict.fromkeys(("a2a", "p2p") + tuple(ways)))
+        kl_or_mle = "mle" if self.variant == "mle" else "kl"
         self.model.eval()
-        self.model.z_mapping_function.train()
+        for k in self.model.mapping_keys:
+            getattr(self.model, k).train()
         self.mel_disc.eval()
         with no_grad_for(self.gen_params + self.disc_params):
             out = self._run_model(b, all_ways, generator, exact_lengths=False)
@@ -400,10 +415,12 @@ class SVBVAEMleTask(BaseTask):
             for way in ways:
                 if way in ("a2a", "p2p"):
                     continue
-                if "mle" in out[way]:
-                    losses[f"{way}_mle"] = nan_guard(out[way]["mle"]) * hp.get("lambda_mle", 1.0)
+                if kl_or_mle in out[way]:
+                    losses[f"{way}_{kl_or_mle}"] = (nan_guard(out[way][kl_or_mle])
+                                                    * hp.get("lambda_mle", 1.0))
                 if disc_on and not hp["cross_way_no_disc_loss"]:
-                    adv = self._adv_loss(out[way]["mel_out"], generator, 1.0)
+                    fake = out[way].get("a2p_sample_recon", out[way]["mel_out"])
+                    adv = self._adv_loss(fake, generator, 1.0)
                     if adv is not None:
                         losses[f"{way}_a"] = adv * hp["lambda_mel_adv"]
         self.update("map", self.opt_map, self.map_params, sum(losses.values()), lr,
@@ -612,23 +629,35 @@ class SVBVAEMleTask(BaseTask):
                                      use_batch_by_size=False)
 
 
-class _NotPorted(SVBVAEMleTask):
-    def __init__(self):
-        raise NotImplementedError(f"{type(self).__name__} is not ported to PyTorch "
-                                  "yet (ROADMAP.md); the port trains SVBVAEMleTask")
+class SVBVAETask(SVBVAEMleTask):
+    """Frame-level latent, mean and scale maps of k3 convs
+    (reference: SVBVAETask, svb_vae_task.py:48; JAX: ``variant="local"``)."""
+
+    variant = "local"
 
 
-class SVBVAETask(_NotPorted):
-    """Frame-level latent variant (JAX: ``variant="local"``)."""
+class SVBVAEBoostTask(SVBVAEMleTask):
+    """Global latent, mean and scale maps (reference: SVBVAEBoostTask:384;
+    JAX: ``variant="global"``)."""
+
+    variant = "global"
+
+    def _val_ways(self, step: int) -> Tuple[str, ...]:
+        # validates a2p already in phase 2 (reference: svb_vae_task.py:512-517)
+        if step <= hparams["phase_1_steps"]:
+            return ("p2p",)
+        return WAYS
 
 
-class SVBVAEBoostTask(_NotPorted):
-    """Global latent, mean/scale mapping (JAX: ``variant="global"``)."""
+class SVBVAETechMleTask(SVBVAEMleTask):
+    """The MLE variant with the technique prior N(tech_id, 1)
+    (reference model: TechPriorMleSVBVAE, svb_vae.py:315)."""
+
+    variant = "tech_mle"
 
 
-class SVBVAETechMleTask(_NotPorted):
-    """Technique-conditioned prior (JAX: ``variant="tech_mle"``)."""
+class SVBVAESegTechMleTask(SVBVAEMleTask):
+    """The technique prior with the attention-aligned PPG
+    (reference model: SegTechPriorMleSVBVAE, svb_vae.py:402)."""
 
-
-class SVBVAESegTechMleTask(_NotPorted):
-    """Technique prior with attention-aligned PPG (JAX: ``variant="seg_tech_mle"``)."""
+    variant = "seg_tech_mle"

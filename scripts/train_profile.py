@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where a training step of the PyTorch port's flagship goes, on one card.
+"""Where a training step of the PyTorch port's SVB recipes goes, on one card.
 
-Builds ``SVBVAEMleTask`` at the flagship's full widths from seeded weights
-on a synthetic packed train split of 4 pairs (amateur 1034-2412 frames, the
-smoke run's Female1 lengths: one batch of 4, padded to 2560 frames), then:
+For each ``--config`` (the flagship's ``vae_global_mle_eng_torch.yaml``
+unless given; repeat it to compare recipes in one process), builds the
+recipe's task at its full widths from seeded weights on a synthetic packed
+train split of 4 pairs (amateur 1034-2412 frames, the smoke run's Female1
+lengths: one batch of 4, padded to 2560 frames), then:
 
 - times warm phase-2 steps (generator + discriminator) and phase-3 steps
   (latent map), each between two ``torch.cuda.synchronize()`` calls;
@@ -15,14 +17,15 @@ smoke run's Female1 lengths: one batch of 4, padded to 2560 frames), then:
 - reports peak device memory.
 
 TF32 is off, as the training CLI sets it. Run from the repository root on
-a machine with a CUDA card: ``python3 scripts/train_profile.py [--out
-FILE]``. It prints one JSON object and writes it to ``--out`` (default
-``build/train_profile.json``).
+a machine with a CUDA card: ``python3 scripts/train_profile.py [--config
+YAML ...] [--out FILE]``. It prints one JSON object per recipe and writes
+their list to ``--out`` (default ``build/train_profile.json``).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import statistics
@@ -37,29 +40,43 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=os.path.join(REPO, "build", "train_profile.json"))
     ap.add_argument("--warm", type=int, default=4, help="timed steps per phase")
+    ap.add_argument("--config", action="append",
+                    help="recipe yaml (repeatable; default the flagship's)")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     os.chdir(REPO)
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    from chip_smoke import kernel_kind
     from neuralsvb_torch.data.synthetic import write_synthetic_split
-    from neuralsvb_torch.hparams import hparams_scope, set_hparams
-    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
 
     data = os.path.join(REPO, "build", "train_profile_data")
     for prefix, seed in (("train", 1), ("valid", 2)):
         write_synthetic_split(data, FRAMES, prefix=prefix, seed=seed)
-    hp = set_hparams(config="egs/datasets/audio/PopBuTFy/vae_global_mle_eng_torch.yaml",
+    results = []
+    for config in args.config or ["egs/datasets/audio/PopBuTFy/vae_global_mle_eng_torch.yaml"]:
+        res = profile_recipe(config, data, args.warm)
+        print(json.dumps(res), flush=True)
+        results.append(res)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(results, f, indent=1)
+
+
+def profile_recipe(config, data, warm):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import kernel_kind
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    hp = set_hparams(config=config,
                      hparams_str=f"binary_data_dir={data},pretrain_asr_ckpt=,ds_workers=0",
                      print_hparams=False, global_hparams=False)
+    pkg, cls_name = hp["task_cls"].rsplit(".", 1)
     dev = torch.device("cuda")
     with hparams_scope(hp) as h:
-        task = SVBVAEMleTask()
+        task = getattr(importlib.import_module(pkg), cls_name)()
         task.build_model()
         task.build_train()
         batch = next(iter(task.train_dataloader()))
@@ -75,9 +92,9 @@ def main():
 
         torch.cuda.reset_peak_memory_stats(dev)
         first2 = run(0)  # the discriminator starts after step 0
-        times2 = [run(step2) for _ in range(args.warm + 1)]
+        times2 = [run(step2) for _ in range(warm + 1)]
         first3 = run(step3)
-        times3 = [run(step3) for _ in range(args.warm)]
+        times3 = [run(step3) for _ in range(warm)]
         peak = torch.cuda.max_memory_allocated(dev)
 
         torch.cuda.synchronize(dev)
@@ -98,7 +115,8 @@ def main():
             k[0] += ms
             k[1] += n
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
-    res = {
+    return {
+        "config": config, "task_cls": hp["task_cls"],
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "torch": torch.__version__, "batch": [int(batch["nsamples"]), int(batch["mels"].shape[1])],
         "frames": list(FRAMES), "tf32": False,
@@ -116,10 +134,6 @@ def main():
             "top_kernels": [{"name": n[:120], "ms": ms, "launches": c}
                             for n, ms, c in rows[:25]]},
     }
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(res, f, indent=1)
-    print(json.dumps(res))
 
 
 if __name__ == "__main__":

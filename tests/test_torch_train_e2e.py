@@ -224,10 +224,3 @@ def test_training_needs_a_device_it_can_use(root, device, error):
     with hparams_scope(hp), pytest.raises(error):
         SVBVAEMleTask()
 
-
-def test_other_svb_variants_are_refused():
-    from neuralsvb_torch.tasks import svb_vae_task as t
-    for cls in (t.SVBVAETask, t.SVBVAEBoostTask, t.SVBVAETechMleTask,
-                t.SVBVAESegTechMleTask):
-        with pytest.raises(NotImplementedError):
-            cls()

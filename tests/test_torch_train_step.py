@@ -35,7 +35,8 @@ from tests.test_cycle import TINY  # noqa: E402
 from tests.test_torch_support import jax_zero_noise  # noqa: E402
 
 from neuralsvb_tpu.hparams import hparams as jhparams  # noqa: E402
-from neuralsvb_torch.convert.jax2torch import disc_from_jax, svbvae_mle_from_jax  # noqa: E402
+from neuralsvb_torch.convert.jax2torch import (disc_from_jax, svbvae_from_jax,  # noqa: E402
+                                               svbvae_mle_from_jax)
 from neuralsvb_torch.hparams import hparams_scope  # noqa: E402
 from neuralsvb_torch.models import disc as tdisc  # noqa: E402
 
@@ -167,11 +168,11 @@ def _port_names(task):
             "disc": [n for n, _ in task.mel_disc.named_parameters()]}
 
 
-def _to_torch_names(st, params=None, disc_params=None):
-    """A JAX state (or a gradient tree in place of its params) under the
-    port's names."""
+def _to_torch_names(st, params=None, disc_params=None, variant="mle"):
+    """A JAX state (or a gradient tree in place of its params) of the SVB
+    VAE ``variant`` under the port's names."""
     p = dict(st["params"], **(params or {}))
-    out = {k: v.numpy() for k, v in svbvae_mle_from_jax(p, st["batch_stats"]).items()}
+    out = {k: v.numpy() for k, v in svbvae_from_jax(p, st["batch_stats"], variant).items()}
     out.update({f"disc.{k}": v.numpy() for k, v in disc_from_jax(
         disc_params if disc_params is not None else st["disc_params"],
         st["disc_batch_stats"]).items()})
@@ -210,12 +211,12 @@ def _check_losses(got, want, what):
                                    err_msg=f"{what} loss {k}")
 
 
-def _check_state(task, st, lr, settled, what):
+def _check_state(task, st, lr, settled, what, variant="mle"):
     """BatchNorm running statistics within 1e-5; parameters within
     PARAM_TOL x lr (+1e-6) of the JAX update. Adam's first update is about
     lr x sign(g), so an element whose gradient is within the gradient
     tolerance of zero may move either way: it is held to 2 lr."""
-    want = _to_torch_names(st)
+    want = _to_torch_names(st, variant=variant)
     port = {k: v.detach().numpy() for k, v in task.model.state_dict().items()}
     port.update({f"disc.{k}": v.detach().numpy()
                  for k, v in task.mel_disc.state_dict().items()})

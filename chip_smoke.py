@@ -130,14 +130,40 @@ Every phase prints one JSON line; any failure raises.
    (``local`` at latent 16) forward on one test utterance at zero noise:
    ``mel_out`` and the sampled a2p decode within 1e-3, ``kl``/``mle``
    within 1e-4 relative, the seg attention weights within 1e-5; one gen +
-   disc and one map step of the seg task in float64 at phase 9's gates.
+   disc and one map step of the seg task in float64 at phase 9's gates;
+14. PWG: ``python -m neuralsvb_torch.tasks.run --config pwg_torch.yaml``
+   trains the Parallel WaveGAN recipe at full width (30 layers, 64/128/64
+   channels, 5 crops of 25600 samples) on phase 10's split, seeded weights:
+   the split is hop 128, so the upsample scales are 4,4,4,2 and the context
+   window 0 in both the task's and the vocoder loader's keys. 8 steps with
+   the discriminator from step 3 (``disc_start_steps`` 2), validating at 0,
+   3 and 6, then a resume to 10, so that both RAdam optimizers take their
+   rectified steps (from their sixth) on the card. Every logged loss is
+   finite with JAX's keys (``sc``, ``mag``, ``a``; ``r``, ``f``), the
+   discriminator is unchanged in the step-3 checkpoint and changed by the
+   step-6 one, no kernel of the repo launches. Then phase 8's ``--infer``
+   with ``vocoder=PWG`` and ``vocoder_ckpt`` the PWG work dir: 20 wavs of
+   frames x 128 samples, none silent. In this process, warm generator +
+   discriminator steps at the recipe's own shapes (5 x 25600 samples,
+   scales 4,4,4,4, hop 256): first step, median/min/max, peak memory and a
+   ``torch.profiler`` split by kernel kind; then one gen + disc step of the
+   hop-128 model on two crops of 12800 samples in float64, card vs CPU,
+   at phase 9's gates;
+15. a JAX-format checkpoint: seeded full-width HiFiGAN-NSF weights written
+   as a flax ``params.msgpack`` (the encoder and the JAX tree layout live
+   here; a CPU test holds them to flax) and as a port checkpoint; each
+   loaded by ``vocoders/hifigan.py`` vocodes a 2000-frame mel (the 2048
+   bucket) at zero noise through the bf16 ResBlock kernel: bit-identical
+   wavs, 18 x 3 conv launches and 3 pre-passes for the JAX-format one,
+   and the file decodes to the written tree exactly.
 
 The line before the last is the kernel table: per kernel its launches on
 the main path (the bf16 ResBlock kernel's also on the training path's
 validation, ``train_launches``, on the vocoder's training path,
 ``vocoder_train_launches``, with its times at that path's shapes, and on
 the technique-prior recipes' training and ``--infer`` processes,
-``variants_train_launches`` and ``variants_infer_launches``; the χ²
+``variants_train_launches`` and ``variants_infer_launches``, and on phase
+15's JAX-format vocoder call, ``jax_checkpoint_launches``; the χ²
 kernel's also in the vocoder's binarize pass), worst error, time per call (``ms``; for the
 χ² kernel also ``device_ms``), plain time and bound (``bound_ms``,
 ``bound_by``) at the main path's shapes; the last line is
@@ -1021,6 +1047,20 @@ def kernel_kind(name):
     return "other"
 
 
+def kernel_split(prof):
+    """(device ms by kernel kind with launches, device ops) of a profile."""
+    kinds, ops = {}, 0
+    for e in prof.events():  # device ops only; user annotations repeat them
+        if e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False) \
+                or e.name.startswith("Optimizer."):
+            continue
+        k = kinds.setdefault(kernel_kind(e.name), [0.0, 0])
+        k[0] += e.device_time / 1e3
+        k[1] += 1
+        ops += 1
+    return kinds, ops
+
+
 def vocoder_configs(device="cuda", **over):
     """The vocoder's binarize pass (``vocoder_bin_torch.yaml`` over phase
     6's wavs and speaker embeddings, waveforms kept) and its training recipe
@@ -1242,15 +1282,7 @@ def phase_vocoder_step_time(cfg, train_rows, spec):
         peak = torch.cuda.max_memory_allocated()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall = step(2 + VOC_TIMED_STEPS)
-        kinds, ops = {}, 0
-        for e in prof.events():  # device ops only; user annotations repeat them
-            if e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False) \
-                    or e.name.startswith("Optimizer."):
-                continue
-            k = kinds.setdefault(kernel_kind(e.name), [0.0, 0])
-            k[0] += e.device_time / 1e3
-            k[1] += 1
-            ops += 1
+        kinds, ops = kernel_split(prof)
         busy = sum(v[0] for v in kinds.values())
         parts = vocoder_step_parts(task, batch, spec)
     med = statistics.median(warm)
@@ -1586,6 +1618,389 @@ def phase_variants_card_vs_cpu(devices=("cpu", "cuda")):
         raise AssertionError(f"variants card vs CPU: {bad}")
 
 
+# phase 14: the Parallel WaveGAN recipe trained on phase 10's split and served
+PWG_STEPS, PWG_RESUME, PWG_DISC_START, PWG_VAL_EVERY = 8, 10, 2, 3
+PWG_GEN_KEYS = {"sc", "mag", "a", "lr_0"}
+PWG_DISC_KEYS = {"r", "f", "lr_1"}
+PWG_BATCH, PWG_TIMED_STEPS = 5, 5  # the recipe's max_sentences; warm steps timed
+PWG_CARD_VS_CPU_SAMPLES = 12800  # two crops of 100 frames for the float64 steps
+PWG_RECIPE = "egs/egs_bases/tts/vocoder/pwg_torch.yaml"
+
+
+def pwg_config(device="cuda", **over):
+    """``pwg_torch.yaml`` at full width (30 layers in 3 stacks, 64/128/64
+    channels, the recipe's batch of 5 x 25600 samples) on phase 10's packed
+    split. That split is hop 128, so the upsample scales are 4,4,4,2 and the
+    context window 0, each set in both the task's keys and the vocoder
+    loader's (``generator_params.upsample_params``,
+    ``generator_params.aux_context_window``)."""
+    import yaml
+    cfg = os.path.join(WORK, "pwg_train.yaml")
+    scales = [4, 4, 4, 2]
+    with open(cfg, "w") as f:
+        yaml.safe_dump(dict({
+            "base_config": [os.path.join(REPO, PWG_RECIPE)],
+            "binary_data_dir": os.path.join(WORK, "vocoder_binary"), "device": device,
+            "hop_size": 128, "aux_context_window": 0,
+            "generator_params": {"upsample_scales": scales, "aux_context_window": 0,
+                                 "upsample_params": {"upsample_scales": scales}},
+            "max_updates": PWG_STEPS, "disc_start_steps": PWG_DISC_START,
+            "val_check_interval": PWG_VAL_EVERY, "num_sanity_val_steps": 1,
+            "tb_log_interval": 1, "ds_workers": 1}, **over), f)
+    return cfg
+
+
+def phase_pwg_train(device="cuda"):
+    """Train the PWG recipe 8 steps (the discriminator from step 3), resume
+    to 10, then render the SVB test split through it; returns the config."""
+    import math
+    import numpy as np
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.vocoder_task import PWGTask
+    cfg = pwg_config(device)
+    work = os.path.join(WORK, "pwg_work")
+    out, wall = run_train_cli(cfg, work)
+    s = summary_of(out, "train")
+    bad = []
+    steps = {int(m.group(1)): json.loads(m.group(2))
+             for m in re.finditer(r"^\| step (\d+): (\{.*\})$", out, re.M)}
+    for n, logs in steps.items():  # "step n" logs step n - 1
+        want = PWG_GEN_KEYS | (PWG_DISC_KEYS if n - 1 > PWG_DISC_START else set())
+        if set(logs) - {"total_loss_0", "total_loss_1"} != want:
+            bad.append(f"step {n} logs {sorted(logs)}")
+        if not all(math.isfinite(v) for v in logs.values()):
+            bad.append(f"step {n}: non-finite {logs}")
+    if sorted(steps) != list(range(1, PWG_STEPS + 1)):
+        bad.append(f"logged steps {sorted(steps)}")
+    validations = out.count("| Valid results:")
+    valid_keys = re.findall(r"^\| Valid results: (\{.*\})$", out, re.M)
+    if not valid_keys or any("'sc'" not in v or "'mag'" not in v for v in valid_keys):
+        bad.append(f"validation results {valid_keys}")
+    hp = set_hparams(config=cfg, hparams_str="device=cpu", print_hparams=False,
+                     global_hparams=False)
+    with hparams_scope(hp):
+        init = PWGTask()
+        init.build_model()
+
+    def load(step):
+        return torch.load(os.path.join(work, f"model_ckpt_steps_{step}.ckpt"),
+                          map_location="cpu", weights_only=True)
+    # the step-3 checkpoint holds steps 0-2, which leave the discriminator
+    # alone (step <= disc_start_steps); the step-6 one holds three of its steps
+    c3, c6 = load(PWG_VAL_EVERY), load(2 * PWG_VAL_EVERY)
+    invariants = {
+        "generator_changes_by_3": bool(changed(init.model.state_dict(),
+                                               c3["state_dict"]["model_gen"])),
+        "disc_unchanged_by_3": not changed(init.disc.state_dict(), c3["state_dict"]["disc"]),
+        "disc_changes_by_6": bool(changed(c3["state_dict"]["disc"], c6["state_dict"]["disc"]))}
+    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={PWG_RESUME}")
+    rs = summary_of(resumed, "train")
+    if (rs["start_step"], rs["end_step"]) != (PWG_STEPS, PWG_RESUME) \
+            or f"model_ckpt_steps_{PWG_STEPS}.ckpt" not in resumed:
+        bad.append(f"resume: {rs['start_step']} -> {rs['end_step']}")
+    c10 = load(PWG_RESUME)
+    # RAdam's rectified update starts at its sixth step
+    counts = [sorted({st["step"] for st in o["state"].values()})
+              for o in c10["optimizer_states"]]
+    want_counts = [[PWG_RESUME], [PWG_RESUME - PWG_DISC_START - 1]]
+    if counts != want_counts or min(c[0] for c in counts) < 6:
+        bad.append(f"optimizer step counts {counts} != {want_counts}")
+    launches = {k: v for k, v in s.items() if k.endswith("_launches")}
+    if any(launches.values()):  # PWG runs none of the repo's kernels
+        bad.append(f"kernel launches {launches}")
+
+    # the SVB test split rendered through the trained PWG
+    svb_cfg = train_config(os.path.join(WORK, "voc"), device=device)
+    infer, wall_infer = run_train_cli(
+        svb_cfg, os.path.join(WORK, "train_work"), "--infer",
+        hp=f",vocoder=PWG,vocoder_ckpt={work},gen_dir_name=pwg")
+    if f"| Loaded PWG weights from {work}/model_ckpt_steps_{PWG_RESUME}.ckpt" not in infer:
+        bad.append("--infer did not load the trained PWG")
+    gen = os.path.join(WORK, "train_work", f"generated_{TRAIN_RESUME}_pwg")
+    rendered, rms = 0, []
+    for key in ("gt_a", "gt_p", "a2a", "p2p", "a2p"):
+        wavs = sorted(glob.glob(os.path.join(gen, "wavs", f"{key}_wavout", "*.wav")))
+        mels = sorted(glob.glob(os.path.join(gen, "mels", f"{key}_mel", "*.npy")))
+        for wf, mf in zip(wavs, mels):
+            with wave.open(wf) as f:
+                n = f.getnframes()
+            if n != 128 * np.load(mf).shape[0]:
+                bad.append(f"{wf}: {n} samples for {np.load(mf).shape[0]} frames")
+            rms.append(wav_rms(wf))
+            rendered += 1
+    if rendered != 5 * 4 or min(rms or [0]) < 1.0:
+        bad.append(f"{rendered} wavs rendered, rms {rms}")
+    row = dict(ok=not bad and all(invariants.values()), problems=bad, invariants=invariants,
+               wall_s=wall, resume_wall_s=wall_resume, infer_wall_s=wall_infer, summary=s,
+               resume_summary=rs, validations=validations, optimizer_step_counts=counts,
+               rendered_wavs=rendered, min_rms_int16=min(rms or [0]),
+               infer_rtf=summary_of(infer, "infer")["rtf"],
+               last_step_losses=steps.get(PWG_STEPS))
+    emit("pwg_train", **row)
+    print(f"| train summary: {json.dumps(s)}", flush=True)
+    if not row["ok"]:
+        raise AssertionError(f"PWG train phase failed: {bad} {invariants}")
+    return cfg
+
+
+def phase_pwg_step_time():
+    """Warm generator + discriminator steps of the PWG recipe at its own
+    shapes (B = 5 x 25600 samples, scales 4,4,4,4, hop 256) on synthetic
+    crops, in this process: first step, median/min/max of the warm ones,
+    peak memory and one step under ``torch.profiler`` (kernel time by kind,
+    busy share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.vocoder_task import PWGTask
+    hp = set_hparams(config=os.path.join(REPO, PWG_RECIPE), print_hparams=False,
+                     global_hparams=False)
+    with hparams_scope(hp, disc_start_steps=0, binary_data_dir="") as h:
+        task = PWGTask()
+        task.build_model()
+        task.build_train()
+        batch = synthetic_crops(PWG_BATCH, h)
+        shape = dict(batch=[PWG_BATCH, h["max_samples"]], hop=h["hop_size"],
+                     upsample_scales=list(task.model.upsample_scales))
+
+        def step(i):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            task.training_step(batch, i, 0)
+            task.training_step(batch, i, 1)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        torch.cuda.reset_peak_memory_stats()
+        first = step(1)
+        warm = [step(2 + i) for i in range(PWG_TIMED_STEPS)]
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = step(2 + PWG_TIMED_STEPS)
+        kinds, ops = kernel_split(prof)
+    busy = sum(v[0] for v in kinds.values())
+    med = statistics.median(warm)
+    row = dict(shape, first_step_s=first,
+               warm_steps_s=warm, median_s=med, min_s=min(warm), max_s=max(warm),
+               max_memory_allocated=peak,
+               profiled_step={"wall_ms": wall * 1e3, "kernel_ms": busy, "device_ops": ops,
+                              "busy_share_of_wall": busy / (wall * 1e3),
+                              "busy_share_of_median": busy / (med * 1e3),
+                              "by_kind_ms": {k: {"ms": v[0], "launches": v[1],
+                                                 "share": v[0] / busy}
+                                             for k, v in sorted(kinds.items(),
+                                                                key=lambda kv: -kv[1][0])}})
+    emit("pwg_step_time", **row)
+    return row
+
+
+def phase_pwg_card_vs_cpu(cfg, devices=("cpu", "cuda")):
+    """One generator + discriminator step of the seeded full-width PWG on
+    two crops of 100 frames of the train split, in float64 on the CPU and
+    on the card (the same z, drawn on the CPU), TF32 off: losses within
+    1e-4 relative, each gradient within 1e-3 of its tensor's scale
+    (max(max|g_cpu|, 1e-3 of the group's largest)), phase 9's gates."""
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.vocoder_task import PWGTask, VocoderDataset
+    t0 = time.perf_counter()
+    f64 = torch.float64
+    runs = {}
+    for side, dev in zip(("cpu", "card"), devices):
+        hp = set_hparams(config=cfg, print_hparams=False, global_hparams=False)
+        with hparams_scope(hp, device=dev, disc_start_steps=0, ds_workers=0,
+                           max_samples=PWG_CARD_VS_CPU_SAMPLES):
+            ds = VocoderDataset("train")
+            batch = ds.collater([ds[0], ds[1]])
+            task = PWGTask()
+            task.build_model()
+            task.model.to(f64)
+            task.disc.to(f64)
+            task.build_train()
+            prep = task._prep_batch  # float32, the training path's; the check runs in float64
+            task._prep_batch = lambda batch, prep=prep: {k: v.to(f64)
+                                                         for k, v in prep(batch).items()}
+            z = torch.randn((2, 1, PWG_CARD_VS_CPU_SAMPLES), dtype=f64,
+                            generator=torch.Generator().manual_seed(5))
+            task.noise = lambda wavs, generator: z.to(wavs.device)
+            grads = {}
+            task.grad_hook = lambda group, params: grads.__setitem__(
+                group, [p.grad.detach().cpu().clone() for p in params])
+            logs = {}
+            for idx in (0, 1):
+                logs.update({k: float(torch.as_tensor(v).detach()) for k, v in
+                             task.training_step(batch, 1, idx)[1].items()})
+            runs[side] = logs, grads
+    rel = loss_rel(runs["card"][0], runs["cpu"][0])
+    ok = runs["card"][0].keys() == runs["cpu"][0].keys() and max(rel.values()) <= 1e-4
+    groups = {}
+    for group in ("gen", "disc"):
+        ref = runs["cpu"][1][group]
+        groups[group] = grads_over_scale(runs["card"][1][group], ref, grad_scales(ref))
+        ok = ok and groups[group] <= 1e-3
+    row = dict(ok=ok, batch=[2, PWG_CARD_VS_CPU_SAMPLES], tol_loss=1e-4, tol_grad_f64=1e-3,
+               loss_rel_err_f64=rel, grads_over_scale_f64=groups, losses_cpu_f64=runs["cpu"][0],
+               seconds=time.perf_counter() - t0)
+    emit("pwg_train_card_vs_cpu", **row)
+    if not ok:
+        raise AssertionError(f"PWG card vs CPU: {rel} {groups}")
+    return row
+
+
+# phase 15: a JAX-format HiFiGAN checkpoint read on the card machine
+def _mp_header(n, fix, fix_max, wide):
+    """A msgpack length header: ``fix | n`` up to ``fix_max``, else the
+    smallest of ``wide`` ((code, struct format, max), ...)."""
+    import struct
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt, top in wide:
+        if n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _mp_str(s):
+    b = s.encode("utf-8")
+    return _mp_header(len(b), 0xA0, 31, ((0xD9, ">B", 0xFF), (0xDA, ">H", 0xFFFF),
+                                          (0xDB, ">I", 0xFFFFFFFF))) + b
+
+
+def _mp_uint(n):
+    import struct
+    if n <= 0x7F:
+        return bytes([n])
+    for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                           (0xCE, ">I", 0xFFFFFFFF), (0xCF, ">Q", 2 ** 64 - 1)):
+        if n <= top:
+            return bytes([code]) + struct.pack(fmt, n)
+
+
+def _mp_ndarray(a):
+    """flax's ndarray: ext type 1 around msgpack ``(shape, dtype name, C bytes)``."""
+    import numpy as np
+    a = np.ascontiguousarray(a)
+    raw = a.tobytes("C")
+    payload = (b"\x93"  # (shape, dtype name, bytes)
+               + _mp_header(a.ndim, 0x90, 15, ((0xDC, ">H", 0xFFFF), (0xDD, ">I", 0xFFFFFFFF)))
+               + b"".join(_mp_uint(int(d)) for d in a.shape) + _mp_str(a.dtype.name)
+               + _mp_header(len(raw), None, 0, ((0xC4, ">B", 0xFF), (0xC5, ">H", 0xFFFF),
+                                                (0xC6, ">I", 0xFFFFFFFF))) + raw)
+    n = len(payload)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = (bytes([fixext[n]]) if n in fixext else
+            _mp_header(n, None, 0, ((0xC7, ">B", 0xFF), (0xC8, ">H", 0xFFFF),
+                                    (0xC9, ">I", 0xFFFFFFFF))))
+    return head + bytes([1]) + payload
+
+
+def flax_msgpack_bytes(tree):
+    """A minimal encoder of ``flax.serialization.to_bytes``'s format for a
+    tree of str-keyed dicts with numpy array leaves (under 2^30 bytes each)."""
+    if isinstance(tree, dict):
+        head = _mp_header(len(tree), 0x80, 15, ((0xDE, ">H", 0xFFFF),
+                                                (0xDF, ">I", 0xFFFFFFFF)))
+        return head + b"".join(_mp_str(k) + flax_msgpack_bytes(v) for k, v in tree.items())
+    return _mp_ndarray(tree)
+
+
+def hifigan_jax_tree(sd):
+    """The port's ResBlock1 HiFiGAN-NSF state_dict in the JAX generator's
+    param tree: the inverse of ``hifigan_from_jax`` (conv kernels
+    [out, in, k] -> [k, in, out], dense [out, in] -> [in, out])."""
+    def conv(prefix):
+        t = {"kernel": sd[f"{prefix}.weight"].numpy().transpose(2, 1, 0)}
+        if f"{prefix}.bias" in sd:
+            t["bias"] = sd[f"{prefix}.bias"].numpy()
+        return t
+    tree = {"conv_pre": conv("conv_pre"), "conv_post": conv("conv_post")}
+    if "m_source.l_linear.weight" in sd:
+        tree["m_source"] = {"l_linear": {"kernel": sd["m_source.l_linear.weight"].numpy().T,
+                                         "bias": sd["m_source.l_linear.bias"].numpy()}}
+    n_up = sum(1 for k in sd if re.fullmatch(r"ups\.\d+\.weight", k))
+    n_blocks = len({k.split(".")[1] for k in sd if k.startswith("resblocks.")})
+    n_k = n_blocks // n_up
+    for i in range(n_up):
+        tree[f"up_{i}"] = conv(f"ups.{i}")
+        if f"noise_convs.{i}.weight" in sd:
+            tree[f"noise_conv_{i}"] = conv(f"noise_convs.{i}")
+        for j in range(n_k):
+            r = i * n_k + j
+            n_c = sum(1 for k in sd if re.fullmatch(rf"resblocks\.{r}\.convs1\.\d+\.weight", k))
+            tree[f"resblock_{i}_{j}"] = {
+                f"conv{s}_{c}": conv(f"resblocks.{r}.convs{s}.{c}")
+                for c in range(n_c) for s in (1, 2)}
+    return tree
+
+
+def _same_tree(a, b):
+    import numpy as np
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_tree(a[k], b[k]) for k in a)
+    return (isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def phase_jax_checkpoint(voc, device="cuda"):
+    """Seeded full-width HiFiGAN-NSF weights written as a JAX
+    ``params.msgpack`` (``flax_msgpack_bytes`` of ``hifigan_jax_tree``) and
+    as a port checkpoint; the vocoder loads each and vocodes one mel of 2000
+    frames (the 2048 bucket) at zero noise through the bf16 ResBlock kernel:
+    the two wavs must be bit-identical and the JAX-format vocoder's call
+    must launch 18 x stages convs and one pre-pass per stage. The file
+    decodes to the written tree exactly. Returns the JAX-format call's
+    launches."""
+    import numpy as np
+    import torch
+    import yaml
+    from neuralsvb_torch.convert import msgpack_ckpt
+    from neuralsvb_torch.ops import fused_resblock as fr
+    from neuralsvb_torch.vocoders.hifigan import HifiGAN, load_hifigan
+    root = os.path.join(WORK, "jax_ckpt")
+    dirs = {k: os.path.join(root, k) for k in ("jax", "port")}
+    seeded, _, _ = load_hifigan("", dict(voc, seed=7), torch.device("cpu"))
+    sd = {k: v.contiguous() for k, v in seeded.state_dict().items()}
+    tree = hifigan_jax_tree(sd)
+    for d in dirs.values():
+        os.makedirs(d)
+        with open(os.path.join(d, "config.yaml"), "w") as f:
+            yaml.safe_dump(voc, f)
+    with open(os.path.join(dirs["jax"], "params.msgpack"), "wb") as f:
+        f.write(flax_msgpack_bytes(tree))
+    torch.save({"state_dict": {"model_gen": sd}},
+               os.path.join(dirs["port"], "model_ckpt_steps_1.ckpt"))
+    decoded = msgpack_ckpt.load(os.path.join(dirs["jax"], "params.msgpack"))
+    T = 2000
+    t = np.arange(T) * 128 / SR
+    f0 = (220.0 * (1 + 0.02 * np.sin(2 * np.pi * 5 * t))).astype(np.float32)
+    mel = (np.random.RandomState(3).randn(T, voc["audio_num_mel_bins"]) - 4).astype(np.float32)
+    wavs, launches = {}, {}
+    for kind, d in dirs.items():
+        vocoder = HifiGAN(dict(voc, vocoder_ckpt=d, device=device, seed=1234,
+                               vocoder_denoise_c=0.0))
+        for c in fr.KERNEL_COUNTERS:
+            c.launches = 0
+        wavs[kind] = vocoder.spec2wav(mel, f0=f0, zero_noise=True).cpu()
+        launches[kind] = {c.__name__: c.launches for c in fr.KERNEL_COUNTERS}
+    stages = len(voc["upsample_rates"])
+    on_card = device == "cuda"  # CPU tensors take the plain cluster
+    want = {"resblock_conv1d_bf16": 18 * stages * on_card, "lrelu_bf16": stages * on_card,
+            "resblock_conv1d": 0}
+    row = dict(decoded_tree_exact=_same_tree(tree, decoded),
+               wav_samples=int(wavs["jax"].numel()), bit_identical=torch.equal(
+                   wavs["jax"], wavs["port"]), finite=bool(torch.isfinite(wavs["jax"]).all()),
+               launches=launches["jax"], expected_launches=want)
+    hop = int(np.prod(voc["upsample_rates"]))
+    row["ok"] = (row["decoded_tree_exact"] and row["bit_identical"] and row["finite"]
+                 and row["wav_samples"] == T * hop and launches["jax"] == want)
+    emit("jax_checkpoint", **row)
+    if not row["ok"]:
+        raise AssertionError(f"JAX checkpoint phase failed: {row}")
+    return launches["jax"]
+
+
 def build_all():
     """nvcc for each CUDA source and g++ for the host library, all started
     together."""
@@ -1661,6 +2076,12 @@ def main():
     # its counts when it starts its loop and reports them in its summary
     var_train_launches, var_infer_launches = phase_variants_train(voc)
     phase_variants_card_vs_cpu()
+    # PWG runs none of the repo's kernels; its summaries' counts are checked at 0
+    pwg_cfg = phase_pwg_train()
+    phase_pwg_step_time()
+    phase_pwg_card_vs_cpu(pwg_cfg)
+    # the counts are zeroed just before the JAX-format vocoder's call
+    jax_ckpt_launches = phase_jax_checkpoint(voc)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -1679,6 +2100,8 @@ def main():
         "variants_train_prepass_launches": var_train_launches["lrelu_bf16_launches"],
         "variants_infer_launches": var_infer_launches["resblock_conv1d_bf16_launches"],
         "variants_infer_prepass_launches": var_infer_launches["lrelu_bf16_launches"],
+        "jax_checkpoint_launches": jax_ckpt_launches["resblock_conv1d_bf16"],
+        "jax_checkpoint_prepass_launches": jax_ckpt_launches["lrelu_bf16"],
         "vocoder_train_shapes_ms": total(train_rows, "kernel_ms"),
         "vocoder_train_shapes_plain_ms": total(train_rows, "plain_ms"),
         "vocoder_train_shapes_bound_ms": total(train_rows, "bound_ms"),

@@ -1,10 +1,12 @@
-"""Reading reference-format PyTorch checkpoints into the port's modules.
+"""Reading checkpoints into the port's modules.
 
-A checkpoint is a ``torch.save`` file in the reference's layout:
+A PyTorch checkpoint is a ``torch.save`` file in the reference's layout:
 ``{"state_dict": {<key>: module state_dict}}`` with ``<key>`` ``model`` (the
-SVB VAE) or ``model_gen`` (the HiFiGAN generator), under the reference's
-parameter names, possibly weight-normed. The JAX package's own msgpack
-checkpoints need flax to read and are refused with a clear error.
+SVB VAE) or ``model_gen`` (a vocoder's generator), under the reference's
+parameter names, possibly weight-normed. A checkpoint of the JAX package
+(``neuralsvb_tpu/training/checkpoint.py``: msgpack ``{epoch, global_step,
+checkpoint_callback_best, state}``) is decoded by ``msgpack_ckpt`` and
+mapped by the matching ``jax2torch`` function of its ``state``.
 """
 
 from __future__ import annotations
@@ -12,9 +14,13 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
+
+from . import msgpack_ckpt
+
+FromJax = Callable[[dict], Dict[str, torch.Tensor]]
 
 
 def newest_checkpoint(directory: str) -> Optional[str]:
@@ -25,7 +31,7 @@ def newest_checkpoint(directory: str) -> Optional[str]:
     return max(ckpts, key=lambda p: int(re.findall(r"steps_(\d+)\.ckpt", p)[0]))
 
 
-def _is_torch_file(path: str) -> bool:
+def is_torch_file(path: str) -> bool:
     # torch saves zip archives (PK..) or legacy pickles (\x80); the JAX
     # package writes msgpack
     with open(path, "rb") as f:
@@ -46,14 +52,26 @@ def fold_weight_norm(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_state_dict(path: str, key: str) -> Dict[str, torch.Tensor]:
+def load_jax_state(path: str) -> dict:
+    """The ``state`` tree of a JAX package checkpoint (numpy leaves)."""
+    raw = msgpack_ckpt.load(path)
+    if not isinstance(raw, dict) or not isinstance(raw.get("state"), dict):
+        raise ValueError(f"{path}: not a neuralsvb_tpu checkpoint (no 'state' map)")
+    return raw["state"]
+
+
+def load_state_dict(path: str, key: str,
+                    from_jax: Optional[FromJax] = None) -> Dict[str, torch.Tensor]:
     """Checkpoint file -> the flat {name: tensor} of ``state_dict[key]`` on
-    the CPU, weight norm folded."""
-    if not _is_torch_file(path):
-        raise ValueError(
-            f"{path} is not a PyTorch checkpoint (a JAX msgpack checkpoint of "
-            "neuralsvb_tpu?). Reading those needs flax and is not ported yet "
-            "(ROADMAP.md); convert with neuralsvb_torch.convert.jax2torch.")
+    the CPU, weight norm folded. A JAX package checkpoint is read when
+    ``from_jax`` is given: it maps the checkpoint's ``state`` tree to the
+    port's names (e.g. ``lambda st: hifigan_from_jax(st["params"])``)."""
+    if not is_torch_file(path):
+        if from_jax is None:
+            raise ValueError(
+                f"{path} is not a PyTorch checkpoint (a JAX msgpack checkpoint of "
+                "neuralsvb_tpu?) and no jax2torch map was given to read it")
+        return from_jax(load_jax_state(path))
     state = torch.load(path, map_location="cpu", weights_only=True)
     try:
         sd = state["state_dict"][key]

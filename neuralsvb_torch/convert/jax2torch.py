@@ -1,10 +1,13 @@
 """JAX (flax) params -> the port's ``state_dict``: the exact inverse of
 ``convert_svbvae_mle_sd``, ``convert_hifigan`` and ``convert_ge2e`` in
-``neuralsvb_tpu/convert/torch2jax.py``, the SVB VAE's other variants (which
-the JAX package has no converter for), and the maps of the mel
-discriminator and of the vocoder's multi-period and multi-scale ones.
+``neuralsvb_tpu/convert/torch2jax.py``, of ``convert_pwg`` and
+``convert_melgan_generator``, the SVB VAE's other variants (which the JAX
+package has no converter for), and the maps of the discriminators: the mel
+discriminator, the vocoders' multi-period and multi-scale ones, PWG's and
+MelGAN's.
 
-The functions take nested dicts of numpy arrays (no JAX needed) and
+The functions take nested dicts of numpy arrays (no JAX needed; what
+``convert/msgpack_ckpt.py`` decodes from a JAX checkpoint) and
 return ``{name: torch.Tensor}`` under the reference parameter names, ready
 for ``load_state_dict``. Layout rules:
 
@@ -26,19 +29,27 @@ import torch
 Tree = Dict[str, Any]
 
 
+def _np(x) -> np.ndarray:
+    """A leaf as numpy; a ``torch.bfloat16`` leaf (how ``msgpack_ckpt``
+    decodes flax's bfloat16 arrays) widens to float32, which is exact."""
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    return np.asarray(x)
+
+
 class _SD(dict):
     def put(self, name: str, arr) -> None:
-        self[name] = torch.from_numpy(np.ascontiguousarray(np.asarray(arr)))
+        self[name] = torch.from_numpy(np.ascontiguousarray(_np(arr)))
 
     def conv(self, prefix: str, p: Tree) -> None:
         """flax Conv kernel [k, in, out] -> torch [out, in, k]."""
-        self.put(f"{prefix}.weight", np.asarray(p["kernel"]).transpose(2, 1, 0))
+        self.put(f"{prefix}.weight", _np(p["kernel"]).transpose(2, 1, 0))
         if "bias" in p:
             self.put(f"{prefix}.bias", p["bias"])
 
     def conv2d(self, prefix: str, p: Tree) -> None:
         """flax 2-D Conv kernel [kh, kw, in, out] -> torch [out, in, kh, kw]."""
-        self.put(f"{prefix}.weight", np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+        self.put(f"{prefix}.weight", _np(p["kernel"]).transpose(3, 2, 0, 1))
         self.put(f"{prefix}.bias", p["bias"])
 
     def convt(self, prefix: str, p: Tree) -> None:
@@ -46,7 +57,7 @@ class _SD(dict):
         self.conv(prefix, p)
 
     def dense(self, prefix: str, p: Tree) -> None:
-        self.put(f"{prefix}.weight", np.asarray(p["kernel"]).T)
+        self.put(f"{prefix}.weight", _np(p["kernel"]).T)
         if "bias" in p:
             self.put(f"{prefix}.bias", p["bias"])
 
@@ -55,8 +66,11 @@ class _SD(dict):
         self.put(f"{prefix}.bias", p["bias"])
 
     def bn(self, prefix: str, p: Tree, s: Tree) -> None:
-        """Our BatchNorm1d wrapper keeps its flax BatchNorm as BatchNorm_0."""
+        """Our BatchNorm1d wrapper keeps its flax BatchNorm as BatchNorm_0;
+        ``s`` None: the scale and bias only (no running statistics)."""
         self.norm(prefix, p["BatchNorm_0"])
+        if s is None:
+            return
         self.put(f"{prefix}.running_mean", s["BatchNorm_0"]["mean"])
         self.put(f"{prefix}.running_var", s["BatchNorm_0"]["var"])
         self[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
@@ -89,7 +103,7 @@ def _conformer(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
         sd.conv(f"{base}.conv_module.depthwise_conv", cp["Conv_1"])
         sd.conv(f"{base}.conv_module.pointwise_conv2", cp["Conv_2"])
         sd.bn(f"{base}.conv_module.norm", cp["BatchNorm1d_0"],
-              s[f"layer_{i}"]["conv_module"]["BatchNorm1d_0"])
+              None if s is None else s[f"layer_{i}"]["conv_module"]["BatchNorm1d_0"])
         for name in ("norm_ff_macaron", "norm_mha", "norm_conv", "norm_ff",
                      "norm_final"):
             sd.norm(f"{base}.{name}", lp[name])
@@ -100,15 +114,25 @@ def _conformer(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
 
 
 def _vcasr(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
-    pn, ps = p["mel_prenet"], s["mel_prenet"]
+    pn = p["mel_prenet"]
     n = sum(1 for k in pn if k.startswith("Conv_"))
     for i in range(n):
         sd.conv(f"{prefix}.mel_prenet.layers.{i}.0", pn[f"Conv_{i}"])
         sd.bn(f"{prefix}.mel_prenet.layers.{i}.2", pn[f"BatchNorm1d_{i}"],
-              ps[f"BatchNorm1d_{i}"])
+              None if s is None else s["mel_prenet"][f"BatchNorm1d_{i}"])
     sd.dense(f"{prefix}.mel_prenet.out_proj", pn["Dense_0"])
     _conformer(sd, f"{prefix}.content_encoder", p["content_encoder"],
-               s["content_encoder"])
+               None if s is None else s["content_encoder"])
+
+
+def vcasr_from_jax(params: Tree, batch_stats: Tree = None) -> Dict[str, torch.Tensor]:
+    """``VCASR`` params (+ batch_stats) -> the port's ``vc_asr`` state_dict
+    (without the ``vc_asr.`` prefix); without batch_stats it holds no
+    BatchNorm running statistics. The transformer decoder is not ported
+    and its parameters are left out."""
+    sd = _SD()
+    _vcasr(sd, "vc_asr", params, batch_stats)
+    return {k[len("vc_asr."):]: v for k, v in sd.items()}
 
 
 def _conv_stacks(sd: _SD, prefix: str, p: Tree) -> None:
@@ -201,7 +225,7 @@ def disc_from_jax(params: Tree, batch_stats: Tree,
         for j in range(3):
             conv = dp[f"conv_{j}"]
             sd.put(f"{base}.model.{j}.0.weight",
-                   np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+                   _np(conv["kernel"]).transpose(3, 2, 0, 1))
             sd.put(f"{base}.model.{j}.0.bias", conv["bias"])
             if f"norm_{j}" in dp:  # disc_norm 'bn'
                 st = s[f"disc_{i}"][f"norm_{j}"]
@@ -209,8 +233,8 @@ def disc_from_jax(params: Tree, batch_stats: Tree,
                 sd.put(f"{base}.model.{j}.3.running_mean", st["mean"])
                 sd.put(f"{base}.model.{j}.3.running_var", st["var"])
                 sd[f"{base}.model.{j}.3.num_batches_tracked"] = torch.tensor(0)
-        C = np.asarray(dp["conv_2"]["bias"]).shape[0]
-        k = np.asarray(dp["adv_layer"]["kernel"])[:, 0]
+        C = _np(dp["conv_2"]["bias"]).shape[0]
+        k = _np(dp["adv_layer"]["kernel"])[:, 0]
         f = freq_length
         for _ in range(3):  # three stride-2 convs with padding 1
             f = (f + 1) // 2
@@ -233,10 +257,10 @@ def ge2e_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
     for layer in range(n):
         cell = params[f"OptimizedLSTMCell_{layer}"]
         sd.put(f"lstm.weight_ih_l{layer}", np.concatenate(
-            [np.asarray(cell[f"i{g}"]["kernel"]).T for g in gates]))
+            [_np(cell[f"i{g}"]["kernel"]).T for g in gates]))
         sd.put(f"lstm.weight_hh_l{layer}", np.concatenate(
-            [np.asarray(cell[f"h{g}"]["kernel"]).T for g in gates]))
-        bias = np.concatenate([np.asarray(cell[f"h{g}"]["bias"]) for g in gates])
+            [_np(cell[f"h{g}"]["kernel"]).T for g in gates]))
+        bias = np.concatenate([_np(cell[f"h{g}"]["bias"]) for g in gates])
         sd.put(f"lstm.bias_ih_l{layer}", bias)
         sd.put(f"lstm.bias_hh_l{layer}", np.zeros_like(bias))
     sd.dense("linear", params["linear"])
@@ -290,4 +314,80 @@ def msd_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
         for j in range(sum(1 for k in dp if k.startswith("conv_") and k != "conv_post")):
             sd.conv(f"discriminators.{i}.convs.{j}", dp[f"conv_{j}"])
         sd.conv(f"discriminators.{i}.conv_post", dp["conv_post"])
+    return dict(sd)
+
+
+def pwg_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """``ParallelWaveGANGenerator`` params -> port state_dict; the inverse
+    of ``convert_pwg`` (and of its upsample kernels' (time, freq) <->
+    (freq, time) swap), plus ``pitch_embed``/``c_proj``."""
+    sd = _SD()
+    sd.conv("first_conv", params["first_conv"])
+    up = params["upsample_net"]
+    sd.conv("upsample_net.conv_in", up["conv_in"])
+    n = sum(1 for k in up["upsample"] if k.startswith("conv_"))
+    for i in range(n):
+        k = _np(up["upsample"][f"conv_{i}"]["kernel"])  # [time, freq, 1, 1]
+        sd.put(f"upsample_net.upsample.up_layers.{2 * i + 1}.weight", k.transpose(3, 2, 1, 0))
+    n = sum(1 for k in params if k.startswith("block_"))
+    for i in range(n):
+        blk, base = params[f"block_{i}"], f"conv_layers.{i}"
+        for name in ("conv", "conv1x1_aux", "conv1x1_skip", "conv1x1_out"):
+            sd.conv(f"{base}.{name}", blk[name])
+    sd.conv("last_conv_layers.1", params["last_conv_0"])
+    sd.conv("last_conv_layers.3", params["last_conv_1"])
+    if "pitch_embed" in params:
+        sd.put("pitch_embed.weight", params["pitch_embed"]["Embed_0"]["embedding"])
+        sd.dense("c_proj", params["c_proj"])
+    return dict(sd)
+
+
+def pwg_disc_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """``ParallelWaveGANDiscriminator`` params (``conv_{i}``, ``conv_out``)
+    -> port state_dict (``conv_layers.{2i}``, the last conv after them)."""
+    sd = _SD()
+    n = sum(1 for k in params if k.startswith("conv_") and k != "conv_out")
+    for i in range(n):
+        sd.conv(f"conv_layers.{2 * i}", params[f"conv_{i}"])
+    sd.conv(f"conv_layers.{2 * n}", params["conv_out"])
+    return dict(sd)
+
+
+def melgan_from_jax(params: Tree, use_causal_conv: bool = False) -> Dict[str, torch.Tensor]:
+    """``MelGANGenerator`` params -> the reference's flat ``melgan.{i}``
+    state_dict; the inverse of ``convert_melgan_generator``."""
+    sd = _SD()
+    n_up = sum(1 for k in params if k.startswith("up_"))
+    stacks = sum(1 for k in params if k.startswith("stack_0_"))
+    conv = "{}.conv" if use_causal_conv else "{}"
+    i = 0 if use_causal_conv else 1  # after the ReflectionPad1d
+    sd.conv(conv.format(f"melgan.{i}"), params["conv_pre"])
+    i += 1
+    for si in range(n_up):
+        i += 1  # the leaky ReLU
+        sd.convt(f"melgan.{i}.deconv" if use_causal_conv else f"melgan.{i}",
+                 params[f"up_{si}"])
+        i += 1
+        for j in range(stacks):
+            st, base = params[f"stack_{si}_{j}"], f"melgan.{i}"
+            dil, one = ("stack.1.conv", "stack.3") if use_causal_conv else ("stack.2", "stack.4")
+            sd.conv(f"{base}.{dil}", st["conv_dilated"])
+            sd.conv(f"{base}.{one}", st["conv_1x1"])
+            sd.conv(f"{base}.skip_layer", st["skip"])
+            i += 1
+    i += 1 if use_causal_conv else 2  # the leaky ReLU (and the ReflectionPad1d)
+    sd.conv(conv.format(f"melgan.{i}"), params["conv_post"])
+    return dict(sd)
+
+
+def melgan_disc_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """``MelGANMultiScaleDiscriminator`` params (``scale_{i}.conv_{j}``,
+    ``conv_post``) -> port state_dict (``discriminators.{i}.layers...``)."""
+    sd = _SD()
+    for i in range(len(params)):
+        dp, base = params[f"scale_{i}"], f"discriminators.{i}.layers"
+        sd.conv(f"{base}.0.1", dp["conv_0"])
+        for j in range(1, 6):
+            sd.conv(f"{base}.{j}.0", dp[f"conv_{j}"])
+        sd.conv(f"{base}.6", dp["conv_post"])
     return dict(sd)

@@ -39,8 +39,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..convert.checkpoint import (_is_torch_file, load_into, load_state_dict,
+from ..convert import msgpack_ckpt
+from ..convert.checkpoint import (is_torch_file, load_into, load_state_dict,
                                   newest_checkpoint)
+from ..convert.jax2torch import svbvae_from_jax, vcasr_from_jax
 from ..data.datasets import MultiSpkEmbDataset
 from ..hparams import hparams, resolve_device
 from ..models.disc import Discriminator
@@ -120,7 +122,7 @@ class SVBVAEMleTask(BaseTask):
             print(f"| WARNING: no checkpoint in '{hparams.get('work_dir')}'; "
                   "running SVBVAE with seeded random init.")
             return 0
-        load_into(self.model, load_state_dict(ckpt, "model"), "SVBVAE")
+        load_into(self.model, load_state_dict(ckpt, "model", self._from_jax), "SVBVAE")
         print(f"| Restored ckpt: {ckpt}")
         self.model.to(self.device)
         return int(ckpt.rsplit("steps_", 1)[1].split(".")[0])
@@ -187,9 +189,31 @@ class SVBVAEMleTask(BaseTask):
         self.sched_map = step_lr_schedule(hp["map_lr"], msp["step_size"], msp["gamma"])
         self.loss_and_lambda = parse_mel_losses(hp["mel_loss"])
 
+    def _from_jax(self, state: dict) -> Dict[str, torch.Tensor]:
+        """A JAX package checkpoint's ``state`` -> the model's state_dict."""
+        return svbvae_from_jax(state["params"], state.get("batch_stats") or {}, self.variant)
+
+    @staticmethod
+    def _copy_parameters(module: torch.nn.Module, sd: Dict[str, torch.Tensor]):
+        """Copy ``sd``'s tensors into ``module``'s parameters of the same
+        name and shape; a parameter whose shape differs, or that ``sd``
+        lacks, keeps its value. Buffers (BatchNorm statistics) are not
+        touched, as the JAX package's ``load_sub_params`` loads params only."""
+        with torch.no_grad():
+            for name, p in module.named_parameters():
+                if name in sd and sd[name].shape == p.shape:
+                    p.copy_(sd[name])
+                elif name in sd:
+                    print(f"| skip mismatched {name}: {tuple(sd[name].shape)} vs "
+                          f"{tuple(p.shape)}")
+
     def _load_pretrained_asr(self):
-        """Warm-start the frozen ASR from the newest ``*.ckpt`` of a
-        reference torch checkpoint directory (reference: svb_vae_task.py:558)."""
+        """Warm-start the frozen ASR (reference: svb_vae_task.py:558) from a
+        reference torch checkpoint directory (the lexicographically last
+        ``*.ckpt``, as the JAX package picks it) or, as the JAX package's
+        ``load_sub_params``, from the ``state.params.vc_asr`` parameters of
+        its own checkpoint (a file, or the newest in a directory); BatchNorm
+        statistics keep their init on that path, as in the JAX package."""
         path = hparams.get("pretrain_asr_ckpt") or ""
         if not path:
             return
@@ -198,9 +222,18 @@ class SVBVAEMleTask(BaseTask):
         if not ckpts:
             print(f"| WARNING: no checkpoint at {path}; keeping the ASR's init.")
             return
-        if not _is_torch_file(ckpts[-1]):
-            raise ValueError(f"{ckpts[-1]} is not a PyTorch checkpoint; JAX msgpack "
-                             "checkpoints are not readable by the port (ROADMAP.md)")
+        if not is_torch_file(ckpts[-1]):
+            ckpt = newest_checkpoint(path) if os.path.isdir(path) else path
+            if ckpt is None:
+                print(f"| WARNING: no model_ckpt_steps_*.ckpt in {path}; keeping the "
+                      "ASR's init.")
+                return
+            node = msgpack_ckpt.load(ckpt)
+            for k in ("state", "params", "vc_asr"):
+                node = node.get(k, node) if isinstance(node, dict) else node
+            self._copy_parameters(self.model.vc_asr, vcasr_from_jax(node))
+            print(f"| Loaded the ASR's parameters from the JAX checkpoint {ckpt}")
+            return
         sd = load_state_dict(ckpts[-1], "model")
         if any(k.startswith("model.") for k in sd):
             sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
@@ -212,21 +245,19 @@ class SVBVAEMleTask(BaseTask):
 
     def warm_start(self, path: str):
         """``load_ckpt``: the SVB model's parameters from another run's
-        checkpoint (a file or the newest in a directory); parameters whose
-        shape differs keep their init."""
+        checkpoint (a file or the newest in a directory), the port's or the
+        JAX package's; parameters whose shape differs keep their init, and
+        so do the BatchNorm statistics (the JAX trainer's warm start loads
+        ``state.params`` only)."""
         ckpt = newest_checkpoint(path) if os.path.isdir(path) else path
         if not ckpt or not os.path.exists(ckpt):
             print(f"| WARNING: no checkpoint at {path}; keeping init.")
             return
-        sd = load_state_dict(ckpt, "model")
-        with torch.no_grad():
-            for name, p in self.model.named_parameters():
-                if name in sd and sd[name].shape == p.shape:
-                    p.copy_(sd[name])
-                elif name in sd:
-                    print(f"| skip mismatched {name}: {tuple(sd[name].shape)} vs "
-                          f"{tuple(p.shape)}")
+        self._copy_parameters(self.model, load_state_dict(ckpt, "model", self._from_jax))
         print(f"| Warm-started params from {ckpt}")
+        if not is_torch_file(ckpt):
+            print("| The JAX checkpoint's optimizer states are not carried over: "
+                  "the optimizers start fresh.")
 
     def checkpoint_state(self) -> dict:
         st = self._np_rng.get_state()

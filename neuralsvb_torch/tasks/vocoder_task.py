@@ -20,6 +20,10 @@ batch. The NSF draws of a step come from a ``torch.Generator`` seeded by
 ``zero_noise`` makes them zero. Checkpoints hold ``state_dict.model_gen``
 (what ``vocoders/hifigan.py`` loads), ``mpd`` and ``msd`` and both
 optimizer states. The JAX mesh and jit step cache are left out.
+
+``PWGTask`` trains the Parallel WaveGAN generator the same way, with the
+multi-resolution STFT loss, one discriminator and RAdam (``PWGTask`` of
+the JAX package).
 """
 
 from __future__ import annotations
@@ -28,15 +32,19 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..data.indexed_dataset import IndexedDataset
 from ..hparams import hparams, resolve_device
 from ..models.hifigan import (HifiGanGenerator, MultiPeriodDiscriminator,
                               MultiScaleDiscriminator, discriminator_loss, feature_loss,
                               generator_loss)
+from ..models.stft_loss import DEFAULT_RESOLUTIONS, multi_resolution_stft_loss
 from ..ops.stft import log_mel_batch
+from ..training.optim import RAdam
 from ..training.schedulers import step_lr_schedule
 from .base_task import BaseTask, no_grad_for, step_generator
+from .losses import mse
 
 
 class VocoderDataset:
@@ -242,3 +250,121 @@ class HifiGanTask(BaseTask):
     def val_dataloader(self):
         ds = VocoderDataset(hparams["valid_set_name"], shuffle=False)
         return self.build_dataloader(ds, False, None, 1, use_batch_by_size=False)
+
+
+class PWGTask(HifiGanTask):
+    """Parallel WaveGAN vocoder training; port of ``PWGTask`` of
+    ``neuralsvb_tpu/tasks/vocoder_task.py``.
+
+    The generator step's loss is the multi-resolution STFT loss
+    (``stft_loss_scales`` or the reference's three resolutions: ``sc``,
+    ``mag``) plus ``lambda_adv * mse(D(y_hat), 1)`` (``a``). As in the JAX
+    package the adversarial term is there from step 0, against a
+    discriminator that trains only once the step exceeds
+    ``disc_start_steps``; its step is ``mse(D(y), 1) + mse(D(y_hat), 0)``
+    (``r``, ``f``). The mel is edge-padded by the top-level
+    ``aux_context_window`` and the noise ``z ~ N(0, 1)`` of the crop's length
+    comes from the step's ``torch.Generator``. Both optimizers are optax's
+    RAdam (``training/optim.py``), or Adam with ``vocoder_optimizer: adam``,
+    betas (0.9, 0.999), behind the optax-style clip by global norm.
+    Checkpoints hold ``state_dict.model_gen`` (what ``vocoders/pwg.py``
+    loads) and ``disc``."""
+
+    @staticmethod
+    def _stft_scales():
+        scales = hparams.get("stft_loss_scales")
+        return [tuple(s) for s in scales] if scales else DEFAULT_RESOLUTIONS
+
+    def build_model(self):
+        """Generator and discriminator from the seed, on the device. The
+        generator reads ``generator_params.upsample_scales`` and the
+        top-level ``aux_context_window``, the keys of the JAX ``PWGTask``."""
+        from ..models.pwg import ParallelWaveGANDiscriminator, ParallelWaveGANGenerator
+        hp = hparams
+        gp = hp.get("generator_params") or {}
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(self.seed)
+            self.model = ParallelWaveGANGenerator(
+                layers=gp.get("layers", 30), stacks=gp.get("stacks", 3),
+                residual_channels=gp.get("residual_channels", 64),
+                gate_channels=gp.get("gate_channels", 128),
+                skip_channels=gp.get("skip_channels", 64),
+                aux_channels=hp["audio_num_mel_bins"],
+                aux_context_window=hp.get("aux_context_window", 2),
+                upsample_scales=tuple(gp.get("upsample_scales", (4, 4, 4, 2))))
+            self.disc = ParallelWaveGANDiscriminator()
+        if self.model.hop != hp["hop_size"]:
+            raise ValueError(f"upsample_scales give hop {self.model.hop}, "
+                             f"hop_size is {hp['hop_size']}")
+        self.model.to(self.device)
+        self.disc.to(self.device)
+        return self.model
+
+    def build_train(self):
+        hp = hparams
+        self.gen_params = list(self.model.parameters())
+        self.disc_params = list(self.disc.parameters())
+        opt = (torch.optim.Adam if hp.get("vocoder_optimizer", "radam") == "adam"
+               else RAdam)
+        self.opt_gen = opt(self.gen_params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+        self.opt_disc = opt(self.disc_params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
+        gsp = hp.get("generator_scheduler_params") or {"step_size": 200000, "gamma": 0.5}
+        dsp = hp.get("discriminator_scheduler_params") or gsp
+        self.sched_gen = step_lr_schedule(
+            (hp.get("generator_optimizer_params") or {}).get("lr", 1e-4),
+            gsp["step_size"], gsp["gamma"])
+        self.sched_disc = step_lr_schedule(
+            (hp.get("discriminator_optimizer_params") or {}).get("lr", 5e-5),
+            dsp["step_size"], dsp["gamma"])
+
+    def checkpoint_state(self) -> dict:
+        return {"state_dict": {"model_gen": self.model.state_dict(),
+                               "disc": self.disc.state_dict()},
+                "optimizer_states": [self.opt_gen.state_dict(), self.opt_disc.state_dict()]}
+
+    def load_checkpoint_state(self, ckpt: dict):
+        sd = ckpt["state_dict"]
+        self.model.load_state_dict(sd["model_gen"])
+        self.disc.load_state_dict(sd["disc"])
+        for opt, st in zip((self.opt_gen, self.opt_disc), ckpt.get("optimizer_states") or []):
+            opt.load_state_dict(st)
+
+    # ------------------------------------------------------------------
+    def noise(self, wavs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        """z ~ N(0, 1) [B, 1, N] for the crops ``wavs`` [B, N]."""
+        return torch.randn((wavs.shape[0], 1, wavs.shape[1]), generator=generator,
+                           device=self.device, dtype=wavs.dtype)
+
+    def _generate(self, b, generator):
+        self.vocoder_calls += 1
+        ctx = self.model.aux_context_window
+        c = F.pad(b["mels"].transpose(1, 2), (ctx, ctx), mode="replicate")
+        return self.model(self.noise(b["wavs"], generator), c)
+
+    def gen_step(self, b, lr: float, generator):
+        hp = hparams
+        self.model.train()
+        y_hat = self._generate(b, generator)
+        sc, mag = multi_resolution_stft_loss(y_hat, b["wavs"], self._stft_scales())
+        losses = {"sc": sc, "mag": mag}
+        with no_grad_for(self.disc_params):
+            losses["a"] = mse(self.disc(y_hat), 1.0) * hp.get("lambda_adv", 4.0)
+        self.update("gen", self.opt_gen, self.gen_params, sum(losses.values()), lr,
+                    hp.get("generator_grad_norm", 10))
+        return losses, y_hat.detach()
+
+    def disc_step(self, b, y_hat, lr: float):
+        losses = {"r": mse(self.disc(b["wavs"]), 1.0), "f": mse(self.disc(y_hat), 0.0)}
+        self.update("disc", self.opt_disc, self.disc_params, sum(losses.values()), lr,
+                    hparams.get("discriminator_grad_norm", 1))
+        return losses
+
+    @torch.no_grad()
+    def validation_step(self, batch, batch_idx: int):
+        self.model.eval()
+        b = self._prep_batch(batch)
+        y_hat = self._generate(b, self.generator)
+        sc, mag = multi_resolution_stft_loss(y_hat, b["wavs"], self._stft_scales())
+        losses = {"sc": float(sc), "mag": float(mag)}
+        return {"losses": losses, "total_loss": sum(losses.values()),
+                "nsamples": batch["nsamples"]}

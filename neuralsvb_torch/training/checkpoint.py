@@ -20,6 +20,8 @@ from typing import List, Optional
 
 import torch
 
+from ..convert.checkpoint import is_torch_file
+
 
 def get_all_ckpts(work_dir: str, steps: Optional[int] = None) -> List[str]:
     """The step checkpoints of ``work_dir``, newest first."""
@@ -50,4 +52,11 @@ def save_checkpoint(payload: dict, work_dir: str, global_step: int,
 
 
 def load_checkpoint(path: str) -> dict:
+    """A checkpoint of the port's own to resume from. A JAX package
+    checkpoint holds no PyTorch optimizer state and is refused here; warm
+    start from it with ``load_ckpt`` (or serve it) instead."""
+    if not is_torch_file(path):
+        raise ValueError(f"{path} is not a checkpoint of the port (a JAX msgpack "
+                         "checkpoint?): resume reads only the port's own; pass a JAX "
+                         "checkpoint as load_ckpt, from a work_dir without checkpoints")
     return torch.load(path, map_location="cpu", weights_only=True)

@@ -6,10 +6,12 @@ does, so outputs match it; on the card it keeps the set of kernel shapes
 small) and runs the generator on the vocoder's device; the NSF source and
 the ResBlock cluster kernel run there too.
 
-Loading order:
-1. ``<vocoder_ckpt>/config.yaml`` overrides the generator keys;
-2. the newest ``<vocoder_ckpt>/model_ckpt_steps_*.ckpt`` PyTorch checkpoint
-   under the reference names;
+Loading order (``<vocoder_ckpt>/config.yaml`` overrides the generator keys):
+1. ``<vocoder_ckpt>/params.msgpack``, the JAX package's flax params, through
+   ``convert/msgpack_ckpt.py`` and ``hifigan_from_jax``;
+2. the newest ``<vocoder_ckpt>/model_ckpt_steps_*.ckpt``: a PyTorch
+   checkpoint under the reference names, or a JAX package checkpoint (its
+   ``state.params``);
 3. otherwise seeded random init with a loud warning.
 """
 
@@ -21,7 +23,9 @@ from typing import Optional
 import torch
 import yaml
 
+from ..convert import msgpack_ckpt
 from ..convert.checkpoint import load_into, load_state_dict, newest_checkpoint
+from ..convert.jax2torch import hifigan_from_jax
 from ..hparams import hparams as global_hparams
 from ..hparams import resolve_device
 from ..models.hifigan import HifiGanGenerator
@@ -44,9 +48,6 @@ def load_hifigan(base_dir: str, hp: dict, device: torch.device):
     if os.path.exists(cfg_path):
         with open(cfg_path) as f:
             config.update(yaml.safe_load(f) or {})
-    if os.path.exists(os.path.join(base_dir, "params.msgpack")):
-        raise ValueError(f"{base_dir} holds a JAX params.msgpack; reading it "
-                         "needs flax and is not ported yet (ROADMAP.md)")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(int(hp.get("seed", 1234)))
         model = HifiGanGenerator(
@@ -61,9 +62,13 @@ def load_hifigan(base_dir: str, hp: dict, device: torch.device):
             use_pitch_embed=config.get("use_pitch_embed", True),
             audio_sample_rate=config.get("audio_sample_rate", 22050),
             num_mels=config.get("audio_num_mel_bins", 80))
-    ckpt = newest_checkpoint(base_dir) if base_dir else None
+    ckpt = None
+    if base_dir and os.path.exists(native := os.path.join(base_dir, "params.msgpack")):
+        ckpt, sd = native, hifigan_from_jax(msgpack_ckpt.load(native))
+    elif base_dir and (ckpt := newest_checkpoint(base_dir)) is not None:
+        sd = load_state_dict(ckpt, "model_gen", lambda st: hifigan_from_jax(st["params"]))
     if ckpt is not None:
-        load_into(model, load_state_dict(ckpt, "model_gen"), "HifiGAN")
+        load_into(model, sd, "HifiGAN")
         print(f"| Loaded HifiGAN weights from {ckpt}")
     model = model.to(device).eval()
     model.requires_grad_(False)

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Where a training step of the PyTorch port's SVB recipes goes, on one card.
+"""Where a training step of the PyTorch port's recipes goes, on one card.
 
 For each ``--config`` (the flagship's ``vae_global_mle_eng_torch.yaml``
 unless given; repeat it to compare recipes in one process), builds the
-recipe's task at its full widths from seeded weights on a synthetic packed
-train split of 4 pairs (amateur 1034-2412 frames, the smoke run's Female1
-lengths: one batch of 4, padded to 2560 frames), then:
+recipe's task at its full widths from seeded weights. An SVB recipe trains
+on a synthetic packed train split of 4 pairs (amateur 1034-2412 frames, the
+smoke run's Female1 lengths: one batch of 4, padded to 2560 frames); a
+vocoder recipe (``PWGTask``, e.g. ``egs/egs_bases/tts/vocoder/pwg_torch.yaml``,
+or ``HifiGanTask``) on ``max_sentences`` synthetic crops of ``max_samples``
+(``chip_smoke.synthetic_crops``), its discriminator from step 0, and
+reports its generator + discriminator step as phase 2. Then:
 
-- times warm phase-2 steps (generator + discriminator) and phase-3 steps
-  (latent map), each between two ``torch.cuda.synchronize()`` calls;
+- times warm phase-2 steps (generator + discriminator) and, for an SVB
+  recipe, phase-3 steps (latent map), each between two
+  ``torch.cuda.synchronize()`` calls;
 - runs one warm phase-2 step under ``torch.profiler`` and sums the device
   time of its kernels and copies by name and by kind (user annotations such
   as ``Optimizer.step`` left out: they repeat their kernels), against the
@@ -68,33 +73,42 @@ def main():
 def profile_recipe(config, data, warm):
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import kernel_kind
+    from chip_smoke import kernel_kind, synthetic_crops
     from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.vocoder_task import HifiGanTask
     hp = set_hparams(config=config,
                      hparams_str=f"binary_data_dir={data},pretrain_asr_ckpt=,ds_workers=0",
                      print_hparams=False, global_hparams=False)
     pkg, cls_name = hp["task_cls"].rsplit(".", 1)
+    task_cls = getattr(importlib.import_module(pkg), cls_name)
+    vocoder = issubclass(task_cls, HifiGanTask)
     dev = torch.device("cuda")
-    with hparams_scope(hp) as h:
-        task = getattr(importlib.import_module(pkg), cls_name)()
+    with hparams_scope(hp, **({"disc_start_steps": 0} if vocoder else {})) as h:
+        task = task_cls()
         task.build_model()
         task.build_train()
-        batch = next(iter(task.train_dataloader()))
-        step2, step3 = 1, int(h["phase_2_steps"]) + 1
+        if vocoder:
+            batch = synthetic_crops(int(h["max_sentences"]), h)
+            step2 = 1
+        else:
+            batch = next(iter(task.train_dataloader()))
+            step2, step3 = 1, int(h["phase_2_steps"]) + 1
 
         def run(step):
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
-            for idx in range(3):
+            for idx in range(task.num_optimizers):
                 task.training_step(batch, step, idx)
             torch.cuda.synchronize(dev)
             return time.perf_counter() - t0
 
         torch.cuda.reset_peak_memory_stats(dev)
-        first2 = run(0)  # the discriminator starts after step 0
+        first2 = run(step2 if vocoder else 0)  # the SVB disc starts after step 0
         times2 = [run(step2) for _ in range(warm + 1)]
-        first3 = run(step3)
-        times3 = [run(step3) for _ in range(warm)]
+        first3 = times3 = None
+        if not vocoder:
+            first3 = run(step3)
+            times3 = [run(step3) for _ in range(warm)]
         peak = torch.cuda.max_memory_allocated(dev)
 
         torch.cuda.synchronize(dev)
@@ -119,11 +133,12 @@ def profile_recipe(config, data, warm):
         "config": config, "task_cls": hp["task_cls"],
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "torch": torch.__version__, "batch": [int(batch["nsamples"]), int(batch["mels"].shape[1])],
-        "frames": list(FRAMES), "tf32": False,
+        "samples": int(batch["wavs"].shape[1]) if vocoder else None,
+        "frames": None if vocoder else list(FRAMES), "tf32": False,
         "phase2_first_step_s": first2, "phase2_warm_steps_s": times2[1:],
         "phase2_median_s": statistics.median(times2[1:]),
         "phase3_first_step_s": first3, "phase3_warm_steps_s": times3,
-        "phase3_median_s": statistics.median(times3),
+        "phase3_median_s": statistics.median(times3) if times3 else None,
         "max_memory_allocated": peak,
         "profiled_phase2_step": {
             "wall_ms": wall * 1e3, "kernel_ms": busy, "busy_share": busy / (wall * 1e3),

@@ -76,7 +76,8 @@ def test_log_mel_matches_numpy(n, seed):
 
 def test_wav2spec_length_contract(tmp_path):
     """``wav2spec`` of the registry's ``pwg`` entry (the binarize configs'
-    vocoder): wav = frames x hop samples, and the same (wav, mel) as JAX."""
+    vocoder): wav = frames x hop samples, and the same (wav, mel) as JAX;
+    its ``spec2wav`` returns frames x hop samples."""
     wav = _rand_wav(10000, 3)
     fn = str(tmp_path / "x.wav")
     save_wav(wav, fn, SR)
@@ -89,8 +90,12 @@ def test_wav2spec_length_contract(tmp_path):
         jw, jmel = JPWG.wav2spec(fn)
     np.testing.assert_array_equal(w, jw)
     np.testing.assert_allclose(mel, jmel, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cls().spec2wav(mel)
+    # the registry's PWG serves too: hop-128 scales in the vocoder loader's keys
+    gen = {"layers": 2, "stacks": 1, "residual_channels": 8, "gate_channels": 16,
+           "skip_channels": 8, "upsample_params": {"upsample_scales": [4, 4, 8]}}
+    with hparams_scope(dict(HP, vocoder="pwg", device="cpu", generator_params=gen)):
+        out = cls().spec2wav(mel)
+    assert out.shape == (mel.shape[0] * HOP,) and bool(torch.isfinite(out).all())
     with hparams_scope(dict(HP, vocoder="pwg")):
         with pytest.raises(ValueError, match="device"):
             cls.wav2spec(fn)

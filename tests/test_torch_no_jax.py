@@ -1,6 +1,7 @@
 """The PyTorch port imports neither jax nor flax, directly or through
-neuralsvb_tpu (whose package import pulls in jax), and builds or reads no
-file of neuralsvb_tpu."""
+neuralsvb_tpu (whose package import pulls in jax), nor the msgpack package
+(it reads flax's msgpack files with its own decoder), and builds or reads
+no file of neuralsvb_tpu."""
 
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ names = [m.name for m in pkgutil.walk_packages(neuralsvb_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "neuralsvb_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "neuralsvb_tpu", "msgpack"))
 print(json.dumps({"names": names, "bad": bad}))
 """
 

@@ -155,7 +155,34 @@ Every phase prints one JSON line; any failure raises.
    loaded by ``vocoders/hifigan.py`` vocodes a 2000-frame mel (the 2048
    bucket) at zero noise through the bf16 ResBlock kernel: bit-identical
    wavs, 18 x 3 conv launches and 3 pre-passes for the JAX-format one,
-   and the file decodes to the written tree exactly.
+   and the file decodes to the written tree exactly;
+16. ASR pre-training, binarize: 2 speakers x 24 utterances of 2-6 s of a
+   voiced harmonic tone (22050 Hz) with an English sentence each in a
+   ``text_labels/`` mirror, through ``python -m
+   neuralsvb_torch.data.binarize --config vc_ppg_torch.yaml`` on the card
+   (``test_num`` 4): 44/4/4 items, each with phone tokens that spell its
+   ``ph`` through ``phone_set.json``, mostly voiced f0, a transcript; the
+   item counts and the phone-set size are printed;
+17. ASR pre-training, train: ``python -m neuralsvb_torch.tasks.run --config
+   vc_ppg_torch.yaml`` at the recipe's full width (hidden 256, conformer ASR
+   2 + 2 layers, 4 conv decoder layers, discriminator 3 windows x 128) from
+   seeded weights, 4 steps with the discriminator from step 1, validating
+   at 0, 2 and 4, then a resume to 6. Every logged loss is finite with
+   JAX's keys (``l1``, ``ssim``, ``asr``, ``a``; ``r``, ``f``); the ASR's
+   encoder and decoder head change while its BatchNorm statistics do not;
+   the mel decoder and the discriminator change; no kernel of the repo
+   launches (this path computes nothing in Pallas in the JAX package);
+18. ASR pre-training, step time: ``scripts/train_profile.py --config
+   vc_ppg_torch.yaml``, warm generator + discriminator steps at the
+   recipe's token budget (40 x 750 frames, synthetic) in float32 without
+   TF32: first step, median/min/max, peak memory and a ``torch.profiler``
+   split by kernel kind with the busy share;
+19. ASR pre-training, card vs CPU: see ``phase_vcppg_card_vs_cpu``;
+20. warm start: the flagship recipe with ``pretrain_asr_ckpt`` at phase
+   17's work dir trains one step on phase 6's splits; its frozen ASR equals
+   the pre-training checkpoint's bit for bit (the decoder head's tensors
+   skipped) and its step-0 validation vocodes through HiFiGAN-NSF with 54 +
+   3 bf16 launches per vocoder call.
 
 The line before the last is the kernel table: per kernel its launches on
 the main path (the bf16 ResBlock kernel's also on the training path's
@@ -163,7 +190,8 @@ validation, ``train_launches``, on the vocoder's training path,
 ``vocoder_train_launches``, with its times at that path's shapes, and on
 the technique-prior recipes' training and ``--infer`` processes,
 ``variants_train_launches`` and ``variants_infer_launches``, and on phase
-15's JAX-format vocoder call, ``jax_checkpoint_launches``; the χ²
+15's JAX-format vocoder call, ``jax_checkpoint_launches``, and on
+phase 20's warm-started flagship, ``vcppg_warm_start_launches``; the χ²
 kernel's also in the vocoder's binarize pass), worst error, time per call (``ms``; for the
 χ² kernel also ``device_ms``), plain time and bound (``bound_ms``,
 ``bound_by``) at the main path's shapes; the last line is
@@ -183,6 +211,7 @@ import wave
 from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 WORK = os.path.join(REPO, "build", "chip_smoke")
 UTT_FRAMES = (1040, 1300, 1560, 1780)  # 6.0 - 10.3 s at hop 128, 22050 Hz
 STAGE_SHAPES = ((1, 256, 8192), (1, 128, 65536), (1, 64, 131072))  # T_mel 1024
@@ -210,7 +239,8 @@ SR = 22050
 
 
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line per phase; ``t_s``: seconds since the run started."""
+    print(json.dumps({"phase": phase, "t_s": time.perf_counter() - T0, **kw}), flush=True)
 
 
 def tf32(on):
@@ -2001,6 +2031,256 @@ def phase_jax_checkpoint(voc, device="cuda"):
     return launches["jax"]
 
 
+VC_RECIPE = "egs/egs_bases/vc/vc_ppg_torch.yaml"
+VC_SPEAKERS, VC_UTTS, VC_TEST_NUM = 2, 24, 4
+VC_STEPS, VC_RESUME, VC_VAL_EVERY = 4, 6, 2
+VC_GEN_KEYS, VC_DISC_KEYS = {"l1", "ssim", "asr", "a", "lr_0"}, {"r", "f", "lr_1"}
+VC_CARD_VS_CPU = dict(items=3, frames=320, starts=[40, 80, 120])
+def vcppg_config(device="cuda", name="vcppg.yaml", **over):
+    """The ASR pre-training recipe at its full width (hidden 256, conformer
+    ASR 2 + 2 layers, 4 decoder conv layers, discriminator 3 windows x 128
+    channels) on phase 16's corpus."""
+    import yaml
+    root = os.path.join(WORK, "vcppg")
+    cfg = os.path.join(WORK, name)
+    with open(cfg, "w") as f:
+        yaml.safe_dump(dict({
+            "base_config": [os.path.join(REPO, VC_RECIPE)],
+            "processed_data_dir": os.path.join(root, "processed"),
+            "binary_data_dir": os.path.join(root, "binary"), "device": device,
+            "test_num": VC_TEST_NUM, "ds_workers": 1, "max_updates": VC_STEPS,
+            "val_check_interval": VC_VAL_EVERY, "num_sanity_val_steps": 1,
+            "tb_log_interval": 1}, **over), f)
+    return cfg
+
+
+def phase_vcppg_binarize(device="cuda"):
+    """The speech corpus through ``python -m neuralsvb_torch.data.binarize``
+    with the ASR pre-training recipe; returns its config."""
+    import numpy as np
+    from neuralsvb_torch.data.synthetic import write_synthetic_speech_corpus
+    write_synthetic_speech_corpus(os.path.join(WORK, "vcppg", "processed"), VC_SPEAKERS,
+                                  VC_UTTS)
+    cfg = vcppg_config(device)
+    wall, summary = run_binarize(cfg, device)
+    binary = os.path.join(WORK, "vcppg", "binary")
+    with open(os.path.join(binary, "phone_set.json")) as f:
+        phones = json.load(f)
+    bad = []
+    n_items = {}
+    for prefix in ("train", "valid", "test"):
+        items = read_split(binary, prefix)
+        n_items[prefix] = len(items)
+        for it in items:
+            ids = np.asarray(it["phone"])
+            if it["ph"].split(" ") != [phones[i - 4] for i in ids] or it["ph_len"] != len(ids):
+                bad.append(f"{it['item_name']}: phones {it['ph'][:40]} vs {ids[:8]}")
+            if not (np.isfinite(it["mel"]).all() and (it["f0"] > 0).mean() > 0.5
+                    and len(it["f0"]) == len(it["mel"]) and it["txt"]):
+                bad.append(f"{it['item_name']}: mel/f0/txt")
+    want = {"train": VC_SPEAKERS * VC_UTTS - VC_TEST_NUM, "valid": VC_TEST_NUM,
+            "test": VC_TEST_NUM}
+    if n_items != want or summary["items"] != want:
+        bad.append(f"items {n_items} {summary['items']} != {want}")
+    row = dict(ok=not bad, problems=bad, wall_s=wall, items=n_items,
+               phone_set_size=len(phones), summary=summary)
+    emit("vcppg_binarize", **row)
+    if bad:
+        raise AssertionError(f"vcppg binarize: {bad}")
+    return cfg
+
+
+def phase_vcppg_train(cfg):
+    """``VCPPGTask`` at full width: 4 steps (the discriminator from step 1,
+    validating at 0, 2 and 4), then a resume to 6; returns the work dir."""
+    import math
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.vc_ppg import VCPPGTask
+    work = os.path.join(WORK, "vcppg_work")
+    out, wall = run_train_cli(cfg, work)
+    s = summary_of(out, "train")
+    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={VC_RESUME}")
+    rs = summary_of(resumed, "train")
+    bad = []
+    steps = {int(m.group(1)): json.loads(m.group(2))
+             for m in re.finditer(r"^\| step (\d+): (\{.*\})$", out + resumed, re.M)}
+    for n, logs in steps.items():  # "step n" logs step n - 1
+        want = VC_GEN_KEYS | VC_DISC_KEYS if n > 1 else VC_GEN_KEYS - {"a"}
+        if set(logs) - {"total_loss_0", "total_loss_1"} != want:
+            bad.append(f"step {n} logs {sorted(logs)}")
+        if not all(math.isfinite(v) for v in logs.values()):
+            bad.append(f"step {n}: non-finite {logs}")
+    if sorted(steps) != list(range(1, VC_RESUME + 1)):
+        bad.append(f"logged steps {sorted(steps)}")
+    valid = re.findall(r"^\| Valid results: (\{.*\})$", out, re.M)
+    if len(valid) != VC_STEPS // VC_VAL_EVERY + 1 or any("'asr'" not in v for v in valid):
+        bad.append(f"validations {valid}")
+    if (rs["start_step"], rs["end_step"]) != (VC_STEPS, VC_RESUME):
+        bad.append(f"resume {rs['start_step']} -> {rs['end_step']}")
+    if any(v for k, v in {**s, **rs}.items() if k.endswith("_launches")):
+        bad.append("a kernel of the repo launched")  # this path computes none
+    hp = set_hparams(config=cfg, hparams_str="device=cpu", print_hparams=False,
+                     global_hparams=False)
+    with hparams_scope(hp):
+        init = VCPPGTask()
+        init.build_model()
+        init.build_train()
+
+    def load(step):
+        return torch.load(os.path.join(work, f"model_ckpt_steps_{step}.ckpt"),
+                          map_location="cpu", weights_only=True)["state_dict"]
+    c4, c6 = load(VC_STEPS), load(VC_RESUME)
+    moved = changed(init.model.state_dict(), c4["model"])
+    invariants = {
+        "asr_decoder_trains": any(k.startswith("vc_asr.asr_decoder.") for k in moved),
+        "asr_encoder_trains": any(k.startswith("vc_asr.content_encoder.") for k in moved),
+        "asr_statistics_stay": not any(k.startswith("vc_asr.") and "running" in k
+                                       for k in changed(init.model.state_dict(), c6["model"])),
+        "mel_decoder_trains": any(k.startswith("decoder.") for k in moved),
+        "disc_trains": bool(changed(init.mel_disc.state_dict(), c4["mel_disc"]))}
+    row = dict(ok=not bad and all(invariants.values()), problems=bad, invariants=invariants,
+               wall_s=wall, resume_wall_s=wall_resume, summary=s, resume_summary=rs,
+               validations=valid, last_step_losses=steps.get(VC_RESUME))
+    emit("vcppg_train", **row)
+    print(f"| train summary: {json.dumps(s)}", flush=True)
+    if not row["ok"]:
+        raise AssertionError(f"vcppg train: {bad} {invariants}")
+    return work
+
+
+def phase_vcppg_step_time():
+    """``scripts/train_profile.py`` on the ASR pre-training recipe: warm
+    generator + discriminator steps at its token budget (40 x 750 frames)."""
+    out = os.path.join(WORK, "vcppg_profile.json")
+    proc = subprocess.run([sys.executable, "scripts/train_profile.py", "--config", VC_RECIPE,
+                           "--out", out, "--warm", "5"], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"train_profile failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)[0]
+    warm, prof = res["phase2_warm_steps_s"], res["profiled_phase2_step"]
+    row = dict(batch=res["batch"], first_step_s=res["phase2_first_step_s"], warm_steps_s=warm,
+               median_s=res["phase2_median_s"], min_s=min(warm), max_s=max(warm),
+               max_memory_allocated=res["max_memory_allocated"],
+               profiled_step={k: prof[k] for k in ("wall_ms", "kernel_ms", "busy_share",
+                                                   "busy_share_of_unprofiled_median",
+                                                   "launches", "by_kind_ms")},
+               top_kernels=prof["top_kernels"][:10], nvidia_smi=res["nvidia_smi"])
+    emit("vcppg_step_time", **row)
+    return row
+
+
+def phase_vcppg_card_vs_cpu(cfg, devices=("cpu", "cuda")):
+    """One generator and one discriminator step of the seeded full-width
+    ``VCPPGTask`` on the card and on the CPU, from the same float32 weights,
+    in float32 (the training path) and float64, on three train items cropped
+    to 320 frames, with pinned discriminator windows and the same dropout
+    masks (drawn on the CPU), TF32 off. Gates: losses within 1e-4 relative in
+    both dtypes; gradients, per tensor, card against CPU in float64 within
+    1e-3 of the tensor's scale (max(max|g|, 1e-3 of the group's largest));
+    the float32 differences are printed beside them."""
+    import torch
+    from neuralsvb_torch.data.datasets import FastSpeechDataset
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.vc_ppg import VCPPGTask
+    t0 = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    runs = {}
+    for dtype in (f32, f64):
+        for side, dev in zip(("cpu", "card"), devices):
+            hp = set_hparams(config=cfg, hparams_str=f"device={dev},max_frames="
+                             f"{VC_CARD_VS_CPU['frames']}", print_hparams=False,
+                             global_hparams=False)
+            with hparams_scope(hp):
+                task = VCPPGTask()
+                task.build_model()
+                task.build_train()
+                task.model.to(dtype)
+                task.mel_disc.to(dtype)
+                task.rand_device = torch.device("cpu")
+                task.disc_start_frames_wins = VC_CARD_VS_CPU["starts"]
+                grads = {}
+                task.grad_hook = lambda group, params: grads.__setitem__(
+                    group, [p.grad.detach().cpu().double().clone() for p in params])
+                names = {"gen": [n for n, _ in task.model.named_parameters()],
+                         "disc": [n for n, _ in task.mel_disc.named_parameters()]}
+                ds = FastSpeechDataset("train")
+                batch = ds.collater([ds[i] for i in range(VC_CARD_VS_CPU["items"])])
+                torch.set_default_dtype(dtype)
+                try:
+                    logs = {}
+                    for idx in (0, 1):
+                        logs.update({f"{idx}/{k}": float(torch.as_tensor(v).detach())
+                                     for k, v in task.training_step(batch, 1, idx)[1].items()})
+                finally:
+                    torch.set_default_dtype(f32)
+                runs[side, dtype] = logs, grads
+    rel32 = loss_rel(runs["card", f32][0], runs["cpu", f32][0])
+    rel64 = loss_rel(runs["card", f64][0], runs["cpu", f64][0])
+    ok = max(rel32.values()) <= 1e-4 and max(rel64.values()) <= 1e-4
+    groups = {}
+    for group in ("gen", "disc"):
+        scales = grad_scales(runs["cpu", f64][1][group])
+        g = {(side, dt): runs[side, dt][1][group] for side in ("cpu", "card") for dt in (f32, f64)}
+        off = [float((x - y).abs().max()) / sc
+               for x, y, sc in zip(g["card", f32], g["cpu", f64], scales)]
+        groups[group] = dict(
+            card_vs_cpu_f64=grads_over_scale(g["card", f64], g["cpu", f64], scales),
+            card_vs_cpu_f32=grads_over_scale(g["card", f32], g["cpu", f32], scales),
+            card_f32_vs_f64=grads_over_scale(g["card", f32], g["cpu", f64], scales),
+            cpu_f32_vs_f64=grads_over_scale(g["cpu", f32], g["cpu", f64], scales),
+            card_f32_worst_tensor=names[group][off.index(max(off))])
+        ok = ok and groups[group]["card_vs_cpu_f64"] <= 1e-3
+    row = dict(ok=ok, items=VC_CARD_VS_CPU["items"], frames=VC_CARD_VS_CPU["frames"],
+               max_loss_rel_err_f32=max(rel32.values()), max_loss_rel_err_f64=max(rel64.values()),
+               tol_loss=1e-4, tol_grad_f64=1e-3, grads_over_scale=groups,
+               losses_cpu_f32=runs["cpu", f32][0], seconds=time.perf_counter() - t0)
+    emit("vcppg_card_vs_cpu", **row)
+    if not ok:
+        raise AssertionError(f"vcppg card vs CPU: {rel32} {rel64} {groups}")
+    return row
+
+
+def phase_vcppg_warm_start(voc, vc_work, device="cuda"):
+    """The flagship recipe with ``pretrain_asr_ckpt`` at phase 17's work dir:
+    one training step on phase 6's splits, whose step-0 validation vocodes
+    its first batch through HiFiGAN-NSF. Its frozen ASR must equal the
+    ASR pre-training checkpoint's bit for bit (parameters and statistics),
+    and the bf16 ResBlock kernel launches 54 convs + 3 pre-passes per
+    vocoder call. Returns the run's launches."""
+    import torch
+    from neuralsvb_torch.convert.checkpoint import newest_checkpoint
+    cfg = train_config(os.path.join(WORK, "voc"), device=device, name="warm_start.yaml",
+                       pretrain_asr_ckpt=vc_work, max_updates=1)
+    work = os.path.join(WORK, "warm_start_work")
+    out, wall = run_train_cli(cfg, work)
+    s = summary_of(out, "train")
+    source = newest_checkpoint(vc_work)
+    vc = torch.load(source, map_location="cpu", weights_only=True)["state_dict"]["model"]
+    flagship = torch.load(os.path.join(work, "model_ckpt_steps_1.ckpt"), map_location="cpu",
+                          weights_only=True)["state_dict"]["model"]
+    asr = {k: v for k, v in flagship.items() if k.startswith("vc_asr.")}
+    differ = sorted(k for k, v in asr.items() if not torch.equal(v, vc[k]))
+    calls = s["vocoder_calls"]
+    stages = len(voc["upsample_rates"])
+    on_card = device == "cuda"
+    want = {"resblock_conv1d_bf16_launches": 18 * stages * calls * on_card,
+            "lrelu_bf16_launches": stages * calls * on_card, "resblock_conv1d_launches": 0}
+    launches = {k: s[k] for k in want}
+    loaded = re.findall(r"^\| Loaded the ASR from (.*)$", out, re.M)
+    ok = (not differ and bool(asr) and loaded == [source] and calls == 3 and launches == want)
+    emit("vcppg_warm_start", ok=ok, wall_s=wall, source=os.path.relpath(source, REPO),
+         asr_tensors=len(asr), asr_tensors_differing=differ,
+         skipped_decoder_tensors=len([k for k in vc if k.startswith("vc_asr.asr_decoder.")
+                                      or k.startswith("vc_asr.token_embed.")]),
+         vocoder_calls=calls, launches=launches, expected_launches=want, summary=s)
+    if not ok:
+        raise AssertionError(f"warm start: {differ} {loaded} {calls} {launches} {want}")
+    return launches
+
+
 def build_all():
     """nvcc for each CUDA source and g++ for the host library, all started
     together."""
@@ -2082,6 +2362,14 @@ def main():
     phase_pwg_card_vs_cpu(pwg_cfg)
     # the counts are zeroed just before the JAX-format vocoder's call
     jax_ckpt_launches = phase_jax_checkpoint(voc)
+    # ASR pre-training runs none of the repo's kernels (its summaries' counts
+    # are checked at 0); the flagship warm-started from its checkpoint zeroes
+    # its counts when fit starts and reports them in its summary
+    vc_cfg = phase_vcppg_binarize()
+    vc_work = phase_vcppg_train(vc_cfg)
+    phase_vcppg_step_time()
+    phase_vcppg_card_vs_cpu(vc_cfg)
+    warm_launches = phase_vcppg_warm_start(voc, vc_work)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -2102,6 +2390,8 @@ def main():
         "variants_infer_prepass_launches": var_infer_launches["lrelu_bf16_launches"],
         "jax_checkpoint_launches": jax_ckpt_launches["resblock_conv1d_bf16"],
         "jax_checkpoint_prepass_launches": jax_ckpt_launches["lrelu_bf16"],
+        "vcppg_warm_start_launches": warm_launches["resblock_conv1d_bf16_launches"],
+        "vcppg_warm_start_prepass_launches": warm_launches["lrelu_bf16_launches"],
         "vocoder_train_shapes_ms": total(train_rows, "kernel_ms"),
         "vocoder_train_shapes_plain_ms": total(train_rows, "plain_ms"),
         "vocoder_train_shapes_bound_ms": total(train_rows, "bound_ms"),

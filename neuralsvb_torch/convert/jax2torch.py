@@ -1,10 +1,11 @@
 """JAX (flax) params -> the port's ``state_dict``: the exact inverse of
-``convert_svbvae_mle_sd``, ``convert_hifigan`` and ``convert_ge2e`` in
-``neuralsvb_tpu/convert/torch2jax.py``, of ``convert_pwg`` and
-``convert_melgan_generator``, the SVB VAE's other variants (which the JAX
-package has no converter for), and the maps of the discriminators: the mel
-discriminator, the vocoders' multi-period and multi-scale ones, PWG's and
-MelGAN's.
+``convert_svbvae_mle_sd``, ``convert_hifigan``, ``convert_ge2e`` and
+``convert_vcasr`` in ``neuralsvb_tpu/convert/torch2jax.py``, of
+``convert_pwg`` and ``convert_melgan_generator``, the SVB VAE's other
+variants and the PPG models (``VCPPG``, ``SVBPPG``, ``ParaSVBPPG``; the JAX
+package has no converter for these), and the maps of the discriminators:
+the mel discriminator, the vocoders' multi-period and multi-scale ones,
+PWG's and MelGAN's.
 
 The functions take nested dicts of numpy arrays (no JAX needed; what
 ``convert/msgpack_ckpt.py`` decodes from a JAX checkpoint) and
@@ -113,6 +114,28 @@ def _conformer(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
         sd.dense(f"{prefix}.layer_norm", p["last_proj"])
 
 
+def _mha(sd: _SD, prefix: str, p: Tree) -> None:
+    """Separate q/k/v/out Dense -> the fused ``in_proj_weight`` [3C, C] of
+    the reference (the inverse of torch2jax's ``_mha_split``)."""
+    sd.put(f"{prefix}.in_proj_weight", np.concatenate(
+        [_np(p[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")]))
+    sd.dense(f"{prefix}.out_proj", p["out_proj"])
+
+
+def _asr_decoder(sd: _SD, prefix: str, p: Tree) -> None:
+    n = sum(1 for k in p if k.startswith("layer_") and k[len("layer_"):].isdigit())
+    for i in range(n):
+        lp, base = p[f"layer_{i}"], f"{prefix}.layers.{i}.op"
+        for j in range(3):
+            sd.norm(f"{base}.layer_norm{j + 1}", lp[f"LayerNorm_{j}"])
+        _mha(sd, f"{base}.self_attn", lp["MultiheadAttention_0"])
+        _mha(sd, f"{base}.encoder_attn", lp["MultiheadAttention_1"])
+        sd.conv(f"{base}.ffn.ffn_1.1", lp["TransformerFFNLayer_0"]["Conv_0"])
+        sd.dense(f"{base}.ffn.ffn_2", lp["TransformerFFNLayer_0"]["Dense_0"])
+    sd.norm(f"{prefix}.layer_norm", p["layer_norm"])
+    sd.dense(f"{prefix}.project_out_dim", p["project_out"])
+
+
 def _vcasr(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
     pn = p["mel_prenet"]
     n = sum(1 for k in pn if k.startswith("Conv_"))
@@ -123,13 +146,17 @@ def _vcasr(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
     sd.dense(f"{prefix}.mel_prenet.out_proj", pn["Dense_0"])
     _conformer(sd, f"{prefix}.content_encoder", p["content_encoder"],
                None if s is None else s["content_encoder"])
+    if "asr_decoder" in p:
+        sd.put(f"{prefix}.token_embed.weight", p["token_embed"]["Embed_0"]["embedding"])
+        _asr_decoder(sd, f"{prefix}.asr_decoder", p["asr_decoder"])
 
 
 def vcasr_from_jax(params: Tree, batch_stats: Tree = None) -> Dict[str, torch.Tensor]:
     """``VCASR`` params (+ batch_stats) -> the port's ``vc_asr`` state_dict
     (without the ``vc_asr.`` prefix); without batch_stats it holds no
-    BatchNorm running statistics. The transformer decoder is not ported
-    and its parameters are left out."""
+    BatchNorm running statistics. A tree with the transformer decoder gives
+    its keys too (``token_embed``, ``asr_decoder.layers.{i}.op...``, the
+    reference's names)."""
     sd = _SD()
     _vcasr(sd, "vc_asr", params, batch_stats)
     return {k[len("vc_asr."):]: v for k, v in sd.items()}
@@ -202,6 +229,29 @@ def svbvae_from_jax(params: Tree, batch_stats: Tree,
         sd.conv("k_mel_encoder_1", params["k_mel_encoder_1"])
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
             sd.dense(f"seg_ref_attn.{name}", params["seg_ref_attn"][name])
+    return dict(sd)
+
+
+def vcppg_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+    """``VCPPG``/``SVBPPG``/``ParaSVBPPG`` params + batch_stats (the JAX
+    ``SVBParaTask`` generator tree) -> the port's state_dict."""
+    sd = _SD()
+    for name in ("pitch_embed", "energy_embed", "spk_embed", "tech_embed"):
+        if name in params:
+            sd.put(f"{name}.weight", params[name]["Embed_0"]["embedding"])
+    _conv_stacks(sd, "pitch_encoder", params["pitch_encoder"])
+    _vcasr(sd, "vc_asr", params["vc_asr"], batch_stats["vc_asr"])
+    up, us = params["upsample_layer"], batch_stats["upsample_layer"]
+    n = sum(1 for k in up if k.startswith("conv_") and k != "conv_out")
+    for i in range(n):
+        sd.conv(f"upsample_layer.{i}.1", up[f"conv_{i}"])
+        sd.bn(f"upsample_layer.{i}.3", up[f"bn_{i}"], us[f"bn_{i}"])
+    sd.conv(f"upsample_layer.{n}", up["conv_out"])
+    if "ref_encoder" in params:  # ConvGlobalStacks: the ConvStacks layout
+        _conv_stacks(sd, "ref_encoder", params["ref_encoder"])
+    sd.dense("encoded_embed_proj", params["encoded_embed_proj"])
+    _conv_stacks(sd, "decoder", params["decoder"])
+    sd.dense("mel_out", params["mel_out"])
     return dict(sd)
 
 

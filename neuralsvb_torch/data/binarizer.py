@@ -6,7 +6,13 @@ data_gen/singing/binarize_para.py:25-260).
 
 - ``BaseBinarizer``: glob ``{processed_data_dir}/data/*/*.{mp3,wav}``,
   speaker from ``item_name.split('#')[0] + '#'``, per-split
-  IndexedDatasetBuilder, multiprocess ``process_item`` fan-out.
+  IndexedDatasetBuilder, multiprocess ``process_item`` fan-out. When a
+  ``text_labels/`` mirror of ``data/`` holds one .txt per utterance, the
+  text branch runs: phones from the language's txt_processor and
+  ``phone_set.json`` (``with_txt``), frames aligned from
+  ``mfa_outputs/*.TextGrid`` (``with_align``, reference:
+  base_binarizer.py:185-216) and word packing with ``word_set.json``
+  (``with_word``, reference: base_binarizer.py:255-298).
 - ``SingingBinarizer``: dataset-regex filter + ``test_prefixes`` split.
 - ``SaveSpkEmb``: pass 1, one GE2E embedding per utterance as .npy.
 - ``PopBuTFyENBinarizer``: pairs ``*_Amateur_N`` with ``*_Professional_N``,
@@ -17,8 +23,8 @@ data_gen/singing/binarize_para.py:25-260).
 
 Mel, pitch candidates, the chi-square DTW cost and GE2E run on the
 ``device`` the hparams name (required); the DTW and Viterbi dynamic
-programs run in the host C++ kernel. Not ported yet (ROADMAP.md): the text
-branch (``text_labels/``, TextGrids, words) and ``with_f0cwt``; both raise.
+programs run in the host C++ kernel; the text branch runs on the host. Not
+ported yet (ROADMAP.md): ``with_f0cwt``, which raises.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import random
 import re
 import time
 import traceback
+from collections import Counter
 from copy import deepcopy
 
 import numpy as np
@@ -42,9 +49,12 @@ from ..models.ge2e import SpeakerEncoder
 from ..ops import dtw as dtw_ops
 from ..ops.chi2 import chi2_dist
 from ..ops.pitch import get_pitch
+from ..utils.text_encoder import TokenTextEncoder, build_token_encoder, is_sil_phoneme
 from ..vocoders import get_vocoder_cls
 from .indexed_dataset import IndexedDatasetBuilder
 from .multiprocess import chunked_multiprocess_run
+from .textgrid import get_mel2ph
+from .txt_processors import get_txt_processor_cls
 
 
 class BinarizationError(Exception):
@@ -97,10 +107,14 @@ class BaseBinarizer:
         self.binarization_args = hparams["binarization_args"]
         if self.binarization_args.get("with_f0cwt"):
             raise NotImplementedError("with_f0cwt (ops/cwt.py) is not ported yet "
-                                      "(ROADMAP.md queue 1 item 7)")
+                                      "(ROADMAP.md queue 1 item 5)")
         self.device = resolve_device(hparams.get("device"))
         self.item2wavfn = {}
         self.item2spk = {}
+        self.item2txt = {}
+        self.item2ph = {}
+        self.item2tgfn = {}
+        self.phone_encoder = self.word_encoder = None
         self.num_workers = int(hparams.get("ds_workers", 1)) or 1
         self.items_per_split = {}
         self.stage_seconds = {}
@@ -108,14 +122,11 @@ class BaseBinarizer:
 
     def load_meta_data(self):
         for ds_id, processed_data_dir in enumerate(self.processed_data_dirs):
-            if os.path.isdir(f"{processed_data_dir}/text_labels"):
-                raise NotImplementedError(
-                    f"{processed_data_dir}/text_labels: the text branch of the "
-                    "binarizer is not ported yet (ROADMAP.md queue 1 item 7)")
             wav_fns = sorted(glob.glob(f"{processed_data_dir}/data/*/*.mp3")
                              + glob.glob(f"{processed_data_dir}/data/*/*.wav"))
             for wav_fn in wav_fns:
-                item_name = os.path.splitext(os.path.basename(wav_fn))[0]
+                raw_name = os.path.splitext(os.path.basename(wav_fn))[0]
+                item_name = raw_name
                 if len(self.processed_data_dirs) > 1:
                     item_name = f"ds{ds_id}_{item_name}"
                 self.item2wavfn[item_name] = wav_fn
@@ -123,11 +134,60 @@ class BaseBinarizer:
                 if len(self.processed_data_dirs) > 1:
                     spk = f"ds{ds_id}_{spk}"
                 self.item2spk[item_name] = spk
+                self._load_text_labels(processed_data_dir, wav_fn, raw_name, item_name)
         self.item_names = sorted(self.item2wavfn.keys())
         print("| Total items:", len(self.item_names))
         if self.binarization_args.get("shuffle"):
             random.seed(1234)
             random.shuffle(self.item_names)
+
+    def _load_text_labels(self, processed_data_dir, wav_fn, raw_name, item_name):
+        """The text branch's inputs of one utterance: its transcript in the
+        ``text_labels/`` mirror of ``data/`` (phones through the language's
+        txt_processor, framed by ``<BOS>``/``<EOS>``) and its MFA TextGrid
+        under ``mfa_outputs/`` (reference: base_binarizer.py:43)."""
+        txt_fn = os.path.splitext(wav_fn.replace(f"{os.sep}data{os.sep}",
+                                                 f"{os.sep}text_labels{os.sep}"))[0] + ".txt"
+        if os.path.exists(txt_fn):
+            with open(txt_fn) as f:
+                txt = f.read().strip()
+            self.item2txt[item_name] = txt
+            pre_align_args = hparams.get("pre_align_args", {})
+            phs, _ = get_txt_processor_cls(pre_align_args.get("txt_processor", "en")).process(
+                txt, pre_align_args)
+            self.item2ph[item_name] = " ".join(
+                ["<BOS>"] + [p for p in phs if p.strip()] + ["<EOS>"])
+        tg_fn = f"{processed_data_dir}/mfa_outputs/{raw_name}.TextGrid"
+        if os.path.exists(tg_fn):
+            self.item2tgfn[item_name] = tg_fn
+
+    def _phone_encoder(self):
+        """Build (or read) ``phone_set.json``: the sorted phones of every
+        transcript (reference: data_gen_utils.py build_phone_encoder)."""
+        fn = f"{hparams['binary_data_dir']}/phone_set.json"
+        if self.binarization_args.get("reset_phone_dict") or not os.path.exists(fn):
+            phones = sorted({p for ph in self.item2ph.values()
+                             for p in ph.split(" ") if p.strip()})
+            with open(fn, "w") as f:
+                json.dump(phones, f)
+            print(f"| Build phone set. Size: {len(phones)}")
+        return build_token_encoder(fn)
+
+    def _word_encoder(self):
+        """Build (or read) ``word_set.json``: the ``word_size`` most common
+        words (reference: base_binarizer.py:88-104)."""
+        fn = f"{hparams['binary_data_dir']}/word_set.json"
+        if self.binarization_args.get("reset_word_dict") or not os.path.exists(fn):
+            counts = Counter(w for txt in self.item2txt.values()
+                             for w in txt.split(" ") if w)
+            word_set = [w for w, _ in counts.most_common(hparams.get("word_size", 30000))]
+            with open(fn, "w") as f:
+                json.dump(word_set, f)
+            print(f"| Build word set. Size: {len(word_set)}")
+        else:
+            with open(fn) as f:
+                word_set = json.load(f)
+        return TokenTextEncoder(None, vocab_list=word_set, replace_oov="<UNK>")
 
     @property
     def train_item_names(self):
@@ -164,6 +224,10 @@ class BaseBinarizer:
         print("| spk_map:", self.spk_map)
         with open(f"{hparams['binary_data_dir']}/spk_map.json", "w") as f:
             json.dump(self.spk_map, f)
+        if self.binarization_args.get("with_txt") and self.item2ph:
+            self.phone_encoder = self._phone_encoder()
+            if self.binarization_args.get("with_word"):
+                self.word_encoder = self._word_encoder()
         for prefix in ("valid", "test", "train"):
             self.process_data(prefix)
         self.print_summary()
@@ -197,11 +261,12 @@ class BaseBinarizer:
     def process_data(self, prefix):
         data_dir = hparams["binary_data_dir"]
         builder = IndexedDatasetBuilder(f"{data_dir}/{prefix}")
-        mel_lengths, f0s = [], []
+        mel_lengths, ph_lengths, f0s = [], [], []
         total_sec = 0.0
         voice_encoder = self._speaker_encoder() \
             if self.binarization_args.get("with_spk_embed") else None
-        args = [list(m) + [self.binarization_args] for m in self.meta_data(prefix)]
+        args = [list(m) + self._text_extras(m[0]) + [self.binarization_args]
+                for m in self.meta_data(prefix)]
         for item in self._run_items(prefix, args):
             if voice_encoder is not None:
                 item["spk_embed"] = self._embed(voice_encoder, item["wav"])
@@ -210,6 +275,8 @@ class BaseBinarizer:
                 item.pop("prof_wav", None)
             builder.add_item(item)
             mel_lengths.append(max(item["len"], item.get("prof_len", 0)))
+            if "ph_len" in item:
+                ph_lengths.append(item["ph_len"])
             total_sec += item["sec"]
             if item.get("f0") is not None:
                 f0s.append(item["f0"])
@@ -217,6 +284,8 @@ class BaseBinarizer:
                     f0s.append(item["prof_f0"])
         builder.finalize()
         np.save(f"{data_dir}/{prefix}_lengths.npy", mel_lengths)
+        if ph_lengths:
+            np.save(f"{data_dir}/{prefix}_ph_lengths.npy", ph_lengths)
         if f0s:
             f0s = np.concatenate(f0s, 0)
             f0s = f0s[f0s != 0]
@@ -236,8 +305,18 @@ class BaseBinarizer:
             "max_memory_allocated": (torch.cuda.max_memory_allocated(self.device)
                                      if cuda else None)}), flush=True)
 
+    def _text_extras(self, item_name):
+        """The text branch's part of one item's ``process_item`` arguments:
+        (phones, transcript, TextGrid, (phone encoder, word encoder)), or
+        nothing when the branch is off."""
+        if not (self.binarization_args.get("with_txt") and self.phone_encoder is not None):
+            return []
+        return [self.item2ph.get(item_name), self.item2txt.get(item_name),
+                self.item2tgfn.get(item_name), (self.phone_encoder, self.word_encoder)]
+
     @classmethod
-    def process_item(cls, item_name, wav_fn, spk_id, binarization_args):
+    def process_item(cls, item_name, wav_fn, spk_id, *rest):
+        binarization_args = rest[-1]
         res = {"item_name": item_name, "wav_fn": wav_fn, "spk_id": spk_id}
         wav, mel = _wav2spec(wav_fn)
         res.update({"mel": mel, "wav": wav,
@@ -246,6 +325,18 @@ class BaseBinarizer:
         try:
             if binarization_args.get("with_f0"):
                 cls.get_pitch(res)
+            if len(rest) > 1:
+                ph, txt, tg_fn, (ph_enc, word_enc) = rest[:-1]
+                if ph is None:
+                    raise BinarizationError("Empty phoneme")
+                res.update({"txt": txt, "ph": ph, "phone": np.asarray(ph_enc.encode(ph))})
+                res["ph_len"] = len(res["phone"])
+                if binarization_args.get("with_align"):
+                    cls.get_align(tg_fn, res)
+                    if binarization_args.get("trim_eos_bos"):
+                        cls.trim_eos_bos(res)
+                if binarization_args.get("with_word") and word_enc is not None:
+                    cls.get_word(res, word_enc)
         except BinarizationError as e:
             print(f"| Skip item ({e}). item_name: {item_name}")
             return None
@@ -254,6 +345,73 @@ class BaseBinarizer:
             print(f"| Skip item. item_name: {item_name}, wav_fn: {wav_fn}")
             return None
         return res
+
+    @staticmethod
+    def get_align(tg_fn, res):
+        """TextGrid -> ``mel2ph``/``dur`` (reference: base_binarizer.py:216-229)."""
+        if tg_fn is None or not os.path.exists(tg_fn):
+            raise BinarizationError("Align not found")
+        mel2ph, dur = get_mel2ph(tg_fn, res["ph"], res["mel"], hparams)
+        if mel2ph.max() - 1 >= len(res["phone"]):
+            raise BinarizationError(f"Align mismatch: mel2ph.max()={mel2ph.max()} "
+                                    f"vs {len(res['phone'])} phones")
+        res["mel2ph"] = mel2ph
+        res["dur"] = dur
+
+    @staticmethod
+    def trim_eos_bos(res):
+        """Drop the aligned ``<BOS>``/``<EOS>`` frames from the mel-rate
+        arrays (reference: base_binarizer.py:195-204)."""
+        bos_dur, eos_dur = int(res["dur"][0]), int(res["dur"][-1])
+        if eos_dur <= 0:
+            return
+        hop = hparams["hop_size"]
+        for k in ("mel", "f0", "pitch", "mel2ph"):
+            if k in res:
+                res[k] = res[k][bos_dur:-eos_dur]
+        res["wav"] = res["wav"][bos_dur * hop: -eos_dur * hop]
+        res["dur"] = res["dur"][1:-1]
+        res["len"] = res["mel"].shape[0]
+
+    @staticmethod
+    def get_word(res, word_encoder):
+        """Phone -> word packing: ``ph_words``, ``ph2word``, ``mel2word``,
+        ``dur_word``, ``words``, ``word_tokens`` (reference:
+        base_binarizer.py:255-298). Word boundaries are the txt_processor's
+        '|' separators and punctuation."""
+        ph_split = res["ph"].split(" ")
+        last_idx = []
+        for i, p in enumerate(ph_split):
+            if p == "|":
+                last_idx.append(i)
+            elif not p[0].isalnum():
+                if p != "<BOS>" and (not last_idx or last_idx[-1] != i - 1):
+                    last_idx.append(i - 1)
+                last_idx.append(i)
+        if not last_idx or last_idx[-1] != len(ph_split) - 1:
+            last_idx.append(len(ph_split) - 1)
+        start_idx = [0] + [i + 1 for i in last_idx[:-1]]
+        ph2word = np.zeros(len(ph_split), np.int64)
+        ph_words = []
+        for w, (s, e) in enumerate(zip(start_idx, last_idx)):
+            ph_words.append("_".join(ph_split[s:e + 1]))
+            ph2word[s:e + 1] = w
+        mel2word = [int(ph2word[m - 1]) + 1 for m in res.get("mel2ph", [])]
+        dur_word = (np.bincount(np.asarray(mel2word, np.int64),
+                                minlength=len(ph_words) + 1)[1:].tolist()
+                    if mel2word else [0] * len(ph_words))
+        res["ph_words"] = ph_words
+        res["ph2word"] = (ph2word + 1).tolist()
+        res["mel2word"] = mel2word
+        res["dur_word"] = dur_word
+        words = [w for w in res.get("txt", "").split(" ") if w]
+        while words and is_sil_phoneme(words[0]):
+            words = words[1:]
+        while words and is_sil_phoneme(words[-1]):
+            words = words[:-1]
+        words = ["<BOS>"] + words + ["<EOS>"]
+        res["words"] = words
+        res["word_tokens"] = word_encoder.encode(" ".join(words))
 
     @staticmethod
     def get_pitch(res, prefix=""):
@@ -333,6 +491,11 @@ class PopBuTFyENBinarizer(SingingBinarizer):
 
     def load_meta_data(self):
         BaseBinarizer.load_meta_data(self)
+        if self.item2ph:
+            # the JAX package's paired process_item takes no text arguments
+            # and fails on them; the reference pairs have no transcripts
+            raise NotImplementedError("the paired binarizer has no text branch: "
+                                      "remove text_labels/ or use BaseBinarizer")
         self.amateur2profwavfn = {}
         new_item_names = []
         unpaired = 0

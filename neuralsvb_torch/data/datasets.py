@@ -1,12 +1,13 @@
 """Datasets over packed IndexedDatasets, producing numpy batches; port of the
-SVB path of ``neuralsvb_tpu/data/datasets.py`` (reference:
+SVB and speech paths of ``neuralsvb_tpu/data/datasets.py`` (reference:
 tasks/tts/dataset_utils.py:15-236, tasks/singing/neural_svb_task.py:10-86,
-tasks/singing/svb_vae_task.py:20-45).
+tasks/singing/svb_vae_task.py:20-45, tasks/singing/svb_para.py:19-49).
 
 Samples are numpy dicts and stay on the host; the task moves a collated
 batch to its device in one step. Mels crop to ``max_frames`` then floor to a
 multiple of ``frames_multiple``; the collater pads time axes up to a
-multiple of ``collate_bucket_quant`` (default ``8 * frames_multiple``).
+multiple of ``collate_bucket_quant`` (default ``8 * frames_multiple``);
+phone tokens pad to the batch's longest.
 """
 
 from __future__ import annotations
@@ -86,21 +87,41 @@ class BaseTTSDataset(BaseDataset):
         return arr[: len(arr) // fm * fm]
 
     def __getitem__(self, index):
+        hp = self.hparams
         item = self._get_item(index)
-        return {"id": index, "item_name": item["item_name"],
-                "mel": self._crop(item["mel"]).astype(np.float32)}
+        sample = {"id": index, "item_name": item["item_name"], "text": item.get("txt"),
+                  "mel": self._crop(item["mel"]).astype(np.float32)}
+        if item.get("phone") is not None:
+            sample["txt_token"] = np.asarray(item["phone"][: hp["max_input_tokens"]],
+                                             np.int64)
+        if hp.get("use_spk_embed"):
+            sample["spk_embed"] = np.asarray(item["spk_embed"], np.float32)
+        if hp.get("use_spk_id"):
+            sample["spk_id"] = item["spk_id"]
+        return sample
 
     def collater(self, samples: List[dict]) -> Dict:
         if not samples:
             return {}
+        hp = self.hparams
         bq = self.bucket_quant
-        return {
+        batch = {
             "id": np.asarray([s["id"] for s in samples], np.int64),
             "item_name": [s["item_name"] for s in samples],
             "nsamples": len(samples),
+            "text": [s["text"] for s in samples],
             "mels": collate_2d([s["mel"] for s in samples], 0.0, bucket_quant=bq),
             "mel_lengths": np.asarray([len(s["mel"]) for s in samples], np.int64),
         }
+        if samples[0].get("txt_token") is not None:
+            batch["txt_tokens"] = collate_1d([s["txt_token"] for s in samples], 0)
+            batch["txt_lengths"] = np.asarray([len(s["txt_token"]) for s in samples],
+                                              np.int64)
+        if hp.get("use_spk_embed"):
+            batch["spk_embed"] = np.stack([s["spk_embed"] for s in samples])
+        if hp.get("use_spk_id"):
+            batch["spk_ids"] = np.asarray([s["spk_id"] for s in samples], np.int64)
+        return batch
 
 
 class FastSpeechDataset(BaseTTSDataset):
@@ -133,7 +154,12 @@ class FastSpeechDataset(BaseTTSDataset):
     def __getitem__(self, index):
         sample = super().__getitem__(index)
         item = self._get_item(index)
-        f0, uv, pitch = self._pitch_sample(item, len(sample["mel"]))
+        spec = sample["mel"]
+        max_frames = len(spec)
+        sample["energy"] = np.sqrt((np.exp(spec) ** 2).sum(-1)).astype(np.float32)
+        sample["mel2ph"] = (np.asarray(item["mel2ph"], np.int64)[:max_frames]
+                            if "mel2ph" in item else None)
+        f0, uv, pitch = self._pitch_sample(item, max_frames)
         sample["f0"], sample["uv"], sample["pitch"] = f0, uv, pitch
         return sample
 
@@ -145,6 +171,9 @@ class FastSpeechDataset(BaseTTSDataset):
         batch["f0"] = collate_1d([s["f0"] for s in samples], 0.0, bucket_quant=bq)
         batch["pitch"] = collate_1d([s["pitch"] for s in samples], 0, bucket_quant=bq)
         batch["uv"] = collate_1d([s["uv"] for s in samples], 0.0, bucket_quant=bq)
+        batch["energy"] = collate_1d([s["energy"] for s in samples], 0.0, bucket_quant=bq)
+        batch["mel2ph"] = (collate_1d([s["mel2ph"] for s in samples], 0, bucket_quant=bq)
+                           if samples[0]["mel2ph"] is not None else None)
         return batch
 
 
@@ -156,8 +185,12 @@ class FastSingingDataset(FastSpeechDataset):
         sample = super().__getitem__(index)
         item = self._get_item(index)
         prof_spec = self._crop(item["prof_mel"]).astype(np.float32)
+        max_frames = len(prof_spec)
         sample["prof_mel"] = prof_spec
-        f0, uv, pitch = self._pitch_sample(item, len(prof_spec), prefix="prof_")
+        sample["prof_energy"] = np.sqrt((np.exp(prof_spec) ** 2).sum(-1)).astype(np.float32)
+        sample["prof_mel2ph"] = (np.asarray(item["prof_mel2ph"], np.int64)[:max_frames]
+                                 if "prof_mel2ph" in item else None)
+        f0, uv, pitch = self._pitch_sample(item, max_frames, prefix="prof_")
         sample["prof_f0"], sample["prof_uv"], sample["prof_pitch"] = f0, uv, pitch
         return sample
 
@@ -172,10 +205,19 @@ class FastSingingDataset(FastSpeechDataset):
                                          bucket_quant=bq)
         batch["prof_uv"] = collate_1d([s["prof_uv"] for s in samples], 0.0,
                                       bucket_quant=bq)
+        batch["prof_energy"] = collate_1d([s["prof_energy"] for s in samples], 0.0,
+                                          bucket_quant=bq)
         batch["prof_mels"] = collate_2d([s["prof_mel"] for s in samples], 0.0,
                                         bucket_quant=bq)
         batch["prof_mel_lengths"] = np.asarray(
             [len(s["prof_mel"]) for s in samples], np.int64)
+        # an item binarized without alignment gives an all-0 row (0 = no
+        # phone), as in the JAX package
+        m2p = [s["prof_mel2ph"] for s in samples]
+        batch["prof_mel2ph"] = (
+            collate_1d([np.zeros(len(s["prof_mel"]), np.int64) if v is None else v
+                        for s, v in zip(samples, m2p)], 0, bucket_quant=bq)
+            if any(v is not None for v in m2p) else None)
         return batch
 
 
@@ -203,4 +245,37 @@ class MultiSpkEmbDataset(FastSingingDataset):
         batch["a2p_f0_alignment"] = collate_1d(
             [s["a2p_f0_alignment"] for s in samples], 0, bucket_quant=self.bucket_quant)
         batch["multi_spk_emb"] = np.stack([s["multi_spk_emb"] for s in samples])
+        return batch
+
+
+class FastSingingF0AlignDataset(FastSingingDataset):
+    """Both alignments for the SVBPara task family (reference:
+    tasks/singing/svb_para.py:19-49): ``a2p_f0_alignment`` and, where
+    packed, ``p2a_f0_alignment`` and ``multi_spk_emb``."""
+
+    def __getitem__(self, index):
+        sample = super().__getitem__(index)
+        item = self._get_item(index)
+        T_p, T_a = len(sample["prof_pitch"]), len(sample["pitch"])
+        sample["a2p_f0_alignment"] = np.asarray(
+            item["a2p_f0_alignment"], np.int64)[:T_p].clip(max=T_a - 1)
+        if "p2a_f0_alignment" in item:
+            sample["p2a_f0_alignment"] = np.asarray(
+                item["p2a_f0_alignment"], np.int64)[:T_a].clip(max=T_p - 1)
+        if "multi_spk_emb" in item:
+            sample["multi_spk_emb"] = np.asarray(item["multi_spk_emb"], np.float32)
+        return sample
+
+    def collater(self, samples):
+        if not samples:
+            return {}
+        batch = super().collater(samples)
+        bq = self.bucket_quant
+        batch["a2p_f0_alignment"] = collate_1d(
+            [s["a2p_f0_alignment"] for s in samples], 0, bucket_quant=bq)
+        if "p2a_f0_alignment" in samples[0]:
+            batch["p2a_f0_alignment"] = collate_1d(
+                [s["p2a_f0_alignment"] for s in samples], 0, bucket_quant=bq)
+        if "multi_spk_emb" in samples[0]:
+            batch["multi_spk_emb"] = np.stack([s["multi_spk_emb"] for s in samples])
         return batch

@@ -1,15 +1,20 @@
-"""A synthetic packed test split in the reference format, for smoke runs
-and tests of the inference path where no binarized PopBuTFy data exists.
+"""Synthetic packed splits in the reference format, for smoke runs, tests
+and step timings where no binarized corpus exists.
 
-Each item is an amateur/professional pair with the keys
-``MultiSpkEmbDataset`` reads: log-mel-like spectrograms, f0 (Hz, with an
-unvoiced stretch) and its coarse pitch, a monotonic professional->amateur
-frame alignment and a table of speaker embeddings. Everything comes from
+``write_synthetic_split``: each item is an amateur/professional pair with
+the keys ``MultiSpkEmbDataset`` reads: log-mel-like spectrograms, f0 (Hz,
+with an unvoiced stretch) and its coarse pitch, a monotonic
+professional->amateur frame alignment and a table of speaker embeddings.
+``write_synthetic_speech_split``: one side per item with phone tokens and
+``phone_set.json``, the keys ``FastSpeechDataset`` reads (the ASR
+pre-training recipe). ``write_synthetic_speech_corpus``: raw wavs with
+transcripts, the ASR pre-training binarizer's input. Everything comes from
 ``numpy.random.RandomState(seed)``.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Sequence
 
@@ -59,3 +64,69 @@ def write_synthetic_split(data_dir: str, frames: Sequence[int], prefix: str = "t
     np.save(f"{data_dir}/{prefix}_lengths.npy", np.asarray(lengths))
     v = np.concatenate(voiced)
     np.save(f"{data_dir}/train_f0s_mean_std.npy", np.asarray([v.mean(), v.std()]))
+
+
+def write_synthetic_speech_split(data_dir: str, frames: Sequence[int], prefix: str = "train",
+                                 seed: int = 1234, num_mels: int = 80, n_phones: int = 40,
+                                 frames_per_phone: int = 8) -> None:
+    """Write ``<data_dir>/<prefix>.{data,idx}``, ``<prefix>_lengths.npy``,
+    ``train_f0s_mean_std.npy`` and ``phone_set.json`` (``n_phones``
+    phones); item i has ``frames[i]`` frames and about one phone token per
+    ``frames_per_phone`` frames between ``<BOS>`` and ``<EOS>``."""
+    os.makedirs(data_dir, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    phones = ["<BOS>", "<EOS>"] + [f"p{i}" for i in range(n_phones - 2)]
+    with open(f"{data_dir}/phone_set.json", "w") as f:
+        json.dump(sorted(phones), f)
+    ids = {p: i + 4 for i, p in enumerate(sorted(phones))}  # after the 4 reserved ids
+    builder = IndexedDatasetBuilder(f"{data_dir}/{prefix}")
+    voiced = []
+    for i, T in enumerate(frames):
+        mel, f0 = _side(rng, T, num_mels)
+        ph = ["<BOS>"] + [f"p{k}" for k in rng.randint(0, n_phones - 2,
+                                                        max(T // frames_per_phone, 1))] + ["<EOS>"]
+        builder.add_item({"item_name": f"Synth#utt{i}", "mel": mel, "f0": f0,
+                          "pitch": f0_to_coarse(f0), "ph": " ".join(ph), "txt": "",
+                          "phone": np.asarray([ids[p] for p in ph])})
+        voiced.append(f0[f0 > 0])
+    builder.finalize()
+    np.save(f"{data_dir}/{prefix}_lengths.npy", np.asarray(frames))
+    v = np.concatenate(voiced)
+    np.save(f"{data_dir}/train_f0s_mean_std.npy", np.asarray([v.mean(), v.std()]))
+
+
+WORDS = ("the a of and to in is it that was he she for on are with as his they be at "
+         "one have this from or had by hot word but what some we can out other were all "
+         "there when up use your how said an each which do their time if will way about "
+         "many then them write would like so these her long make thing see him two has "
+         "look more day could go come did number sound no most people my over know water "
+         "than call first who may down side been now find Mr. Dr. 3 7 12 42 2024").split()
+
+
+def write_synthetic_speech_corpus(processed_dir: str, speakers: int, utterances: int,
+                                  seconds=(2.0, 6.0), seed: int = 9, sr: int = 22050) -> None:
+    """``speakers`` x ``utterances`` wavs of a voiced harmonic tone whose
+    pitch glides and wavers, with syllable-rate loudness and short pauses,
+    as ``<processed_dir>/data/p1/Spk{s}#utt{u}.wav``, and a random English
+    sentence each (numbers and abbreviations among the words) as
+    ``text_labels/p1/Spk{s}#utt{u}.txt``."""
+    from ..ops.audio import save_wav
+    data = os.path.join(processed_dir, "data", "p1")
+    text = os.path.join(processed_dir, "text_labels", "p1")
+    os.makedirs(data)
+    os.makedirs(text)
+    rng = np.random.RandomState(seed)
+    for s in range(speakers):
+        for u in range(utterances):
+            t = np.arange(int(sr * rng.uniform(*seconds))) / sr
+            f0 = 120.0 * (1 + 0.75 * s) * (1 + 0.1 * np.sin(2 * np.pi * 0.3 * t + u)) \
+                * (1 + 0.02 * np.sin(2 * np.pi * 5.5 * t))
+            phase = 2 * np.pi * np.cumsum(f0) / sr
+            wav = sum(np.sin(k * phase) / k for k in range(1, 6))
+            env = 0.5 + 0.5 * np.sin(2 * np.pi * 4.0 * t) ** 2
+            env[np.sin(2 * np.pi * 0.45 * t + u) > 0.93] = 0.0  # pauses
+            name = f"Spk{s}#utt{u:02d}"
+            save_wav(0.15 * wav * env + 0.005 * rng.randn(len(t)),
+                     os.path.join(data, f"{name}.wav"), sr)
+            with open(os.path.join(text, f"{name}.txt"), "w") as f:
+                f.write(" ".join(rng.choice(WORDS, rng.randint(4, 13))).capitalize() + ".")

@@ -11,8 +11,10 @@ tests hold the port to.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -38,6 +40,32 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
     (torch's is the slope). Zero-padded inputs through convs with zero biases
     (flax's init) put values exactly at 0."""
     return torch.where(x >= 0, x, x * slope)
+
+
+def dropout_keep_mask(shape, rate: float, generator: Optional[torch.Generator],
+                      device) -> torch.Tensor:
+    """Elementwise keep-mask (True = keep, probability 1 - rate)."""
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return (u < 1.0 - rate).to(device)
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout whose mask comes from an explicit generator, so a
+    step's draws follow its seed (and a CPU generator gives a run on the
+    card the masks of a CPU run)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = dropout_keep_mask(x.shape, self.rate, generator, x.device)
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
 
 
 class LeakyReLU(nn.Module):
@@ -139,35 +167,66 @@ class ConvNorm(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """conv -> GroupNorm (masked statistics) -> ReLU (reference:
-    common_layers.py:736-772; dropout is inactive at inference)."""
+    """conv -> GroupNorm -> ReLU -> dropout (reference:
+    common_layers.py:736-772). With ``x_mask`` the GroupNorm statistics
+    cover the valid frames only; without, every frame, padding included."""
 
-    def __init__(self, c_in, c_out, kernel_size=3, stride=1):
+    def __init__(self, c_in, c_out, kernel_size=3, stride=1, dropout=0.0):
         super().__init__()
         self.conv = ConvNorm(c_in, c_out, kernel_size, stride)
         self.norm = nn.GroupNorm(c_out // 16, c_out, eps=LN_EPS)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x, x_mask):
-        return F.relu(masked_group_norm(self.conv(x), x_mask, self.norm))
+    def forward(self, x, x_mask=None, generator=None):
+        x = self.conv(x)
+        if x_mask is None:
+            x_mask = torch.ones_like(x[:, :1])
+        return self.dropout(F.relu(masked_group_norm(x, x_mask, self.norm)), generator)
 
 
 class ConvStacks(nn.Module):
     """Residual conv stack (reference: common_layers.py:672-707).
     x [B, idim, T] -> [B, odim, T]; ``x_mask`` [B, 1, T] re-zeroes padded
-    frames after every layer."""
+    frames after every layer (None: no masking, as the JAX package's PPG
+    models call it)."""
 
-    def __init__(self, idim, n_layers=5, n_chans=256, odim=32, kernel_size=5):
+    def __init__(self, idim, n_layers=5, n_chans=256, odim=32, kernel_size=5,
+                 dropout=0.0):
         super().__init__()
         self.in_proj = nn.Linear(idim, n_chans)
         self.conv = nn.ModuleList(
-            [ConvBlock(n_chans, n_chans, kernel_size) for _ in range(n_layers)])
+            [ConvBlock(n_chans, n_chans, kernel_size, dropout=dropout)
+             for _ in range(n_layers)])
         self.out_proj = nn.Linear(n_chans, odim)
 
-    def forward(self, x, x_mask):
-        x = linear_ct(self.in_proj, x) * x_mask
+    def forward(self, x, x_mask=None, generator=None):
+        x = linear_ct(self.in_proj, x)
+        if x_mask is not None:
+            x = x * x_mask
         for blk in self.conv:
-            x = x + blk(x, x_mask) * x_mask
-        return linear_ct(self.out_proj, x) * x_mask
+            h = blk(x, x_mask, generator)
+            x = x + (h if x_mask is None else h * x_mask)
+        x = linear_ct(self.out_proj, x)
+        return x if x_mask is None else x * x_mask
+
+
+class ConvGlobalStacks(nn.Module):
+    """Strided conv stack and a temporal mean: the reference encoder
+    (reference: common_layers.py:710-733). x [B, idim, T] -> [B, odim]; the
+    mean spans the padded length, as in the JAX package and the reference.
+    Five blocks of kernel 5 at stride 2, the JAX package's defaults."""
+
+    def __init__(self, idim, n_chans=256, odim=32):
+        super().__init__()
+        self.in_proj = nn.Linear(idim, n_chans)
+        self.conv = nn.ModuleList([ConvBlock(n_chans, n_chans, 5, 2) for _ in range(5)])
+        self.out_proj = nn.Linear(n_chans, odim)
+
+    def forward(self, x):
+        x = linear_ct(self.in_proj, x)
+        for blk in self.conv:
+            x = blk(x)
+        return self.out_proj(x.mean(-1))
 
 
 class Prenet(nn.Module):
@@ -198,24 +257,47 @@ class Prenet(nn.Module):
 
 
 class MultiheadAttention(nn.Module):
-    """Dot-product attention over ``num_heads`` heads without biases, key
-    mask or k/v cache: the JAX package's ``MultiheadAttention`` as the
-    seg-tech SVB VAE calls it (reference: common_layers.py:167-485). q is
-    scaled by ``Dh**-0.5`` after its projection; logits and softmax run in
-    at least float32. The weights are returned, so the product is written
-    out rather than left to a fused attention call."""
+    """Dot-product attention over ``num_heads`` heads: the JAX package's
+    ``MultiheadAttention`` without its k/v cache (reference:
+    common_layers.py:167-485). q is scaled by ``Dh**-0.5`` after its
+    projection; logits and softmax run in at least float32. An additive
+    ``attn_mask`` is added to the logits, then ``key_padding_mask`` (True =
+    padded key) sets them to the dtype's lowest value, so a query row whose
+    keys are all masked comes out uniform, not NaN; the weights are
+    returned. The product is written out rather than left to a fused
+    attention call, which differs on fully masked rows. No projection has a
+    bias, and no dropout acts on the weights: every caller applies it
+    without (the JAX package runs the ASR with ``train=False``, and the
+    seg-tech attention's rate is 0).
 
-    def __init__(self, channels: int, num_heads: int):
+    ``fused_in_proj`` keeps q/k/v in one ``in_proj_weight`` [3C, C], the
+    reference's fairseq layout that the JAX package's ``convert_vcasr``
+    reads (the ASR decoder head); otherwise ``q_proj``/``k_proj``/
+    ``v_proj`` (the seg-tech SVB VAE's names)."""
+
+    def __init__(self, channels: int, num_heads: int, fused_in_proj: bool = False):
         super().__init__()
         self.num_heads = num_heads
-        self.q_proj = nn.Linear(channels, channels, bias=False)
-        self.k_proj = nn.Linear(channels, channels, bias=False)
-        self.v_proj = nn.Linear(channels, channels, bias=False)
+        self.fused_in_proj = fused_in_proj
+        if fused_in_proj:
+            self.in_proj_weight = nn.Parameter(torch.empty(3 * channels, channels))
+            nn.init.xavier_uniform_(self.in_proj_weight)
+        else:
+            self.q_proj = nn.Linear(channels, channels, bias=False)
+            self.k_proj = nn.Linear(channels, channels, bias=False)
+            self.v_proj = nn.Linear(channels, channels, bias=False)
         self.out_proj = nn.Linear(channels, channels, bias=False)
 
-    def forward(self, query, key, value):
-        """query [B, Tq, C]; key, value [B, Tk, C] -> (out [B, Tq, C],
-        weights [B, heads, Tq, Tk])."""
+    def _proj(self, x, i: int):
+        if not self.fused_in_proj:
+            return (self.q_proj, self.k_proj, self.v_proj)[i](x)
+        C = x.shape[-1]
+        return F.linear(x, self.in_proj_weight[i * C:(i + 1) * C])
+
+    def forward(self, query, key, value, key_padding_mask=None, attn_mask=None):
+        """query [B, Tq, C]; key, value [B, Tk, C]; ``key_padding_mask``
+        [B, Tk] bool; ``attn_mask`` additive, broadcast to [B, heads, Tq, Tk]
+        -> (out [B, Tq, C], weights [B, heads, Tq, Tk])."""
         B, Tq, C = query.shape
         H = self.num_heads
         Dh = C // H
@@ -224,8 +306,98 @@ class MultiheadAttention(nn.Module):
             return x.reshape(B, x.shape[1], H, Dh).transpose(1, 2)
 
         acc = torch.promote_types(query.dtype, torch.float32)
-        q = split(self.q_proj(query) * Dh ** -0.5).to(acc)
-        k, v = split(self.k_proj(key)).to(acc), split(self.v_proj(value))
-        weights = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+        q = split(self._proj(query, 0) * Dh ** -0.5).to(acc)
+        k, v = split(self._proj(key, 1)).to(acc), split(self._proj(value, 2))
+        logits = q @ k.transpose(-1, -2)
+        if attn_mask is not None:
+            logits = logits + attn_mask
+        if key_padding_mask is not None:
+            logits = logits.masked_fill(key_padding_mask[:, None, None, :],
+                                        torch.finfo(logits.dtype).min)
+        weights = torch.softmax(logits, dim=-1)
         out = (weights @ v.to(acc)).to(query.dtype).transpose(1, 2).reshape(B, Tq, C)
         return self.out_proj(out), weights
+
+
+def causal_mask(T: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Additive [T, T] mask: the dtype's lowest value above the diagonal."""
+    return torch.triu(torch.full((T, T), torch.finfo(dtype).min, dtype=dtype,
+                                 device=device), diagonal=1)
+
+
+def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
+    """The fairseq-style table of the JAX package (reference:
+    common_layers.py:89-148) for an even ``dim``: half sin, half cos, row p
+    for position p; row 0 (padding) is not zeroed."""
+    half = dim // 2
+    emb = math.log(10000) / (half - 1)
+    freqs = np.exp(np.arange(half) * -emb)
+    pos = np.arange(length)[:, None] * freqs[None, :]
+    return np.concatenate([np.sin(pos), np.cos(pos)], -1).astype(np.float32)
+
+
+class SinusoidalPositionalEmbedding(nn.Module):
+    """Non-pad steps count from ``padding_idx + 1``, pad steps read row
+    ``padding_idx``: positions ``cumsum(nonpad) * nonpad + padding_idx`` into
+    a table of length ``T + padding_idx + 2`` (JAX: common.py:213-226)."""
+
+    def __init__(self, dim: int, padding_idx: int = 0):
+        super().__init__()
+        self.dim = dim
+        self.padding_idx = padding_idx
+
+    def forward(self, nonpad_mask):
+        """nonpad_mask [B, T] bool -> [B, T, dim] float32."""
+        mask = nonpad_mask.long()
+        positions = torch.cumsum(mask, -1) * mask + self.padding_idx
+        T = nonpad_mask.shape[1]
+        table = torch.from_numpy(sinusoidal_positions(T + self.padding_idx + 2, self.dim))
+        return table.to(nonpad_mask.device)[positions]
+
+
+class TransformerFFNLayer(nn.Module):
+    """The decoder's causal conv FFN (reference: common_layers.py:487-521
+    with ``LEFT`` padding): conv over the last ``kernel_size`` steps, x
+    ``k**-0.5``, gelu (the tanh approximation, as flax's), Linear; the
+    reference's dropout between them never acts, as the ASR runs in eval
+    mode. Parameter names are the reference's: ``ffn_1.1`` behind the pad
+    and ``ffn_2``. The FS2 encoder's ``SAME`` padding and other activations
+    are not ported."""
+
+    def __init__(self, hidden_size: int, filter_size: int, kernel_size: int):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.ffn_1 = nn.Sequential(nn.ConstantPad1d((kernel_size - 1, 0), 0.0),
+                                   nn.Conv1d(hidden_size, filter_size, kernel_size))
+        self.ffn_2 = nn.Linear(filter_size, hidden_size)
+
+    def forward(self, x):
+        """x [B, T, C] -> [B, T, C]."""
+        h = self.ffn_1(x.transpose(1, 2)).transpose(1, 2) * self.kernel_size ** -0.5
+        return self.ffn_2(F.gelu(h, approximate="tanh"))
+
+
+class DecSALayer(nn.Module):
+    """Pre-norm causal self-attention, encoder attention and a LEFT-padded
+    FFN of kernel 9 (reference: common_layers.py:592-669), over [B, T, C];
+    without dropout, as the ASR runs in eval mode."""
+
+    def __init__(self, hidden_size: int, num_heads: int):
+        super().__init__()
+        C = hidden_size
+        self.layer_norm1 = nn.LayerNorm(C, eps=LN_EPS)
+        self.self_attn = MultiheadAttention(C, num_heads, fused_in_proj=True)
+        self.layer_norm2 = nn.LayerNorm(C, eps=LN_EPS)
+        self.encoder_attn = MultiheadAttention(C, num_heads, fused_in_proj=True)
+        self.layer_norm3 = nn.LayerNorm(C, eps=LN_EPS)
+        self.ffn = TransformerFFNLayer(C, 4 * C, 9)
+
+    def forward(self, x, encoder_out, encoder_padding_mask=None, self_attn_mask=None,
+                self_attn_padding_mask=None):
+        """-> (x, the encoder attention's weights)."""
+        h = self.layer_norm1(x)
+        x = x + self.self_attn(h, h, h, self_attn_padding_mask, self_attn_mask)[0]
+        h = self.layer_norm2(x)
+        h, attn = self.encoder_attn(h, encoder_out, encoder_out, encoder_padding_mask)
+        x = x + h
+        return x + self.ffn(self.layer_norm3(x)), attn

@@ -19,36 +19,12 @@ the card the draws of a CPU run.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn as nn
 
-from .common import BatchNorm2d, LeakyReLU
-
-
-def dropout_keep_mask(shape, rate: float, generator: Optional[torch.Generator],
-                      device) -> torch.Tensor:
-    """Elementwise keep-mask (True = keep, probability 1 - rate)."""
-    if generator is None:
-        raise ValueError("discriminator dropout needs a torch.Generator")
-    u = torch.rand(shape, generator=generator, dtype=torch.float32,
-                   device=generator.device)
-    return (u < 1.0 - rate).to(device)
-
-
-class Dropout(nn.Module):
-    """Elementwise dropout whose mask comes from an explicit generator."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = rate
-
-    def forward(self, x, generator=None):
-        if not self.training or self.rate == 0.0:
-            return x
-        keep = dropout_keep_mask(x.shape, self.rate, generator, x.device)
-        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+from .common import BatchNorm2d, Dropout, LeakyReLU
 
 
 class InstanceNorm(nn.Module):

@@ -1,0 +1,163 @@
+"""PPG regression models; port of ``neuralsvb_tpu/models/svb_ppg.py``
+(reference: modules/voice_conversion/vc_ppg.py:7-102, svb_ppg.py:8-114):
+``VCPPG`` (speech voice conversion, the ASR pre-training recipe's model),
+``SVBPPG`` (+ a technique embedding) and ``ParaSVBPPG`` (+ the PPG gathered
+through the DTW alignment).
+
+Conditions: pitch embedding -> ConvStacks, the ASR's PPG upsampled x2, the
+quantised energy's embedding, a style vector (the reference encoder over
+the timbre mel, a speaker id's embedding, or speaker embedding 0 of the
+parallel task) and the technique embedding, fused by one Linear; then a
+conv decoder and a linear mel head. Mels are ``[B, T, 80]`` at the
+boundary and ``[B, C, T]`` inside.
+
+The ASR runs in eval mode whatever the model's mode, as the JAX package
+applies it with ``train=False`` in every task of this family: no dropout,
+its BatchNorms on their running statistics, which nothing updates. Its PPG
+into the decoder runs without gradients (the exact-length rel-pos in eval,
+the collate-length one in training); only ``train_vc_asr``'s CE loss
+trains it, at exact lengths.
+
+Not ported (they raise, ROADMAP.md queue 1): ``decoder_type: fft`` (the
+FS2 family's ``FastspeechDecoder``), ``ref_attn``, the conv ASR encoder and
+the ``pre_exp``/``aligned_asr`` variants of the SVBPara subclasses.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .asr import VCASR
+from .common import ConvGlobalStacks, ConvStacks, Embedding, linear_ct
+from .svb_vae import CondUpsampler
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1)")
+
+
+class VCPPG(nn.Module):
+    def __init__(self, dict_size: int, hidden_size: int = 256, num_mel_bins: int = 80,
+                 mel_strides: Sequence[int] = (2, 1, 1), asr_enc_layers: int = 2,
+                 asr_dec_layers: int = 2, asr_last_norm: bool = False,
+                 ref_enc_out: int = 256, use_energy: bool = True, use_spk_id: bool = False,
+                 num_spk: int = 100, use_tech: bool = False, num_techs: int = 3,
+                 decoder_type: str = "conv", dec_layers: int = 4, dropout: float = 0.05,
+                 ref_attn: bool = False, asr_enc_type: str = "conformer",
+                 para: bool = False, pre_exp: bool = False, aligned_asr: bool = False,
+                 spk_emb_dim: int = 256):
+        super().__init__()
+        if decoder_type != "conv":
+            _not_ported(f"decoder_type {decoder_type!r} (FastspeechDecoder, the FS2 family)")
+        if ref_attn:
+            _not_ported("ref_attn (banded reference attention)")
+        if asr_enc_type != "conformer":
+            _not_ported(f"asr_enc_type {asr_enc_type!r}")
+        if pre_exp or aligned_asr:
+            _not_ported("the pre_exp/aligned_asr PPG variants (SVBParaTask's subclasses)")
+        H = hidden_size
+        self.use_energy, self.use_spk_id, self.use_tech, self.para = (
+            use_energy, use_spk_id, use_tech, para)
+        self.pitch_embed = Embedding(300, H, 0)
+        self.pitch_encoder = ConvStacks(H, n_layers=3, n_chans=H, odim=H)
+        self.vc_asr = VCASR(dict_size, H, asr_enc_layers, mel_strides,
+                            asr_last_norm=asr_last_norm, num_mels=num_mel_bins,
+                            asr_dec_layers=asr_dec_layers, with_decoder=True)
+        self.upsample_layer = CondUpsampler(H, mel_strides)
+        if use_energy:
+            self.energy_embed = Embedding(256, H, 0)
+        if use_spk_id:
+            self.spk_embed = nn.Embedding(num_spk, ref_enc_out)
+        else:
+            self.ref_encoder = ConvGlobalStacks(num_mel_bins, n_chans=ref_enc_out,
+                                                odim=ref_enc_out)
+        if use_tech:
+            self.tech_embed = nn.Embedding(num_techs, H)
+        # the parallel task's style is speaker embedding 0 of multi_spk_emb
+        style = spk_emb_dim if para and not use_spk_id else ref_enc_out
+        self.encoded_embed_proj = nn.Linear(
+            2 * H + H * use_energy + style + H * use_tech, H)
+        self.decoder = ConvStacks(H, n_layers=dec_layers, n_chans=H, odim=H,
+                                  dropout=dropout)
+        self.mel_out = nn.Linear(H, num_mel_bins)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        self.vc_asr.train(False)  # see the module's docstring
+        return self
+
+    def _ppg(self, mels_content, conversion_alignment, T: int):
+        """The ASR's content rows without gradients, upsampled, optionally
+        gathered onto the target timeline -> [B, H, <= T]."""
+        with torch.no_grad():
+            h = self.vc_asr(mels_content.transpose(1, 2),
+                            exact_lengths=not self.training)["h_content"]
+        h = self.upsample_layer(h)
+        if self.para and conversion_alignment is not None:
+            h = h[:, :, : mels_content.shape[1]]
+            h = torch.gather(h, 2, conversion_alignment[:, None, :].expand(-1, h.shape[1], -1))
+        return h[:, :, :T]
+
+    def forward(self, mels_content, mels_timbre=None, pitch=None, energy=None,
+                spk_ids=None, tech_ids=None, conversion_alignment=None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
+        """mels [B, T, 80]; pitch [B, T] int; energy [B, T]; spk_ids [B] int
+        or, for the parallel model, multi_spk_emb [B, K, 256]; tech_ids [B]
+        int; conversion_alignment [B, T] int -> dict with ``mel_out``
+        [B, T, 80] and the conditions ([B, C, T])."""
+        ret: Dict[str, Any] = {}
+        B, T = pitch.shape
+        h_pitch = self.pitch_encoder(self.pitch_embed(pitch).transpose(1, 2))
+        ret["h_pitch"] = h_pitch
+        embeds = [h_pitch]
+        h_content = self._ppg(mels_content, conversion_alignment, T)
+        if h_content.shape[-1] < T:
+            h_content = F.pad(h_content, (0, T - h_content.shape[-1]))
+        ret["h_content"] = h_content
+        embeds.append(h_content)
+        if self.use_energy and energy is not None:
+            e = torch.div(energy * 256, 4, rounding_mode="floor").long().clamp(0, 255)
+            ret["h_energy"] = h_energy = self.energy_embed(e).transpose(1, 2)
+            embeds.append(h_energy)
+        if self.use_spk_id:
+            style = self.spk_embed(spk_ids)
+        elif self.para and spk_ids is not None and spk_ids.dim() == 3:
+            style = spk_ids[:, 0]
+        else:
+            style = self.ref_encoder(mels_timbre.transpose(1, 2))
+        ret["h_style"] = h_style = style[:, :, None].expand(-1, -1, T)
+        embeds.append(h_style)
+        if self.use_tech and tech_ids is not None:
+            embeds.append(self.tech_embed(tech_ids)[:, :, None].expand(-1, -1, T))
+        ret["dec_inputs"] = dec_inputs = linear_ct(self.encoded_embed_proj,
+                                                   torch.cat(embeds, 1))
+        nonpadding = (pitch > 0).to(dec_inputs.dtype)[:, None, :]
+        x = self.decoder(dec_inputs, None, generator)
+        ret["mel_out"] = (linear_ct(self.mel_out, x) * nonpadding).transpose(1, 2)
+        return ret
+
+    def train_vc_asr(self, mels, tokens):
+        """Teacher-forced token logits [B, L, dict_size] of ``tokens`` [B, L]
+        from mels [B, T, 80] (JAX: svb_ppg.py:162-187), at exact lengths."""
+        prev_tokens = F.pad(tokens[:, :-1], (1, 0))  # shifted right, 0 first
+        return self.vc_asr(mels.transpose(1, 2), exact_lengths=True,
+                           prev_tokens=prev_tokens)["tokens"]
+
+
+class SVBPPG(VCPPG):
+    """+ technique embedding (reference: svb_ppg.py:8-61)."""
+
+    def __init__(self, dict_size: int, **kw):
+        kw.setdefault("use_tech", True)
+        super().__init__(dict_size, **kw)
+
+
+class ParaSVBPPG(SVBPPG):
+    """PPG gathered through the DTW alignment (reference: svb_ppg.py:63-114)."""
+
+    def __init__(self, dict_size: int, **kw):
+        super().__init__(dict_size, para=True, **kw)

@@ -9,6 +9,8 @@ A task owns model construction, its dataloaders and the per-batch steps;
 from __future__ import annotations
 
 import contextlib
+import json
+import os
 import queue
 import threading
 from typing import Dict, Iterator, List
@@ -110,6 +112,39 @@ def clip_gradients(params, max_norm: float, clip_value: float = 0.0) -> None:
         torch._foreach_mul_(grads, scale)
 
 
+def mesh_devices(mesh_shape) -> int:
+    """The device count a ``mesh_shape`` such as ``data:4,model:2`` names."""
+    return int(np.prod([int(p.split(":")[1]) for p in str(mesh_shape or "").split(",")
+                        if ":" in p] or [1]))
+
+
+def np_rng_state(rng: np.random.RandomState) -> dict:
+    """A numpy stream's state as tensors and primitives, which
+    ``torch.load(weights_only=True)`` reads back."""
+    st = rng.get_state()
+    return {"keys": torch.from_numpy(st[1].astype(np.int64)), "pos": int(st[2]),
+            "has_gauss": int(st[3]), "cached_gaussian": float(st[4])}
+
+
+def set_np_rng_state(rng: np.random.RandomState, r: dict) -> None:
+    rng.set_state(("MT19937", r["keys"].numpy().astype(np.uint32), r["pos"],
+                   r["has_gauss"], r["cached_gaussian"]))
+
+
+def copy_parameters(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
+    """Copy ``sd``'s tensors into ``module``'s parameters of the same name
+    and shape; a parameter whose shape differs, or that ``sd`` lacks, keeps
+    its value. Buffers (BatchNorm statistics) are not touched, as the JAX
+    package's ``load_sub_params`` loads params only."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name in sd and sd[name].shape == p.shape:
+                p.copy_(sd[name])
+            elif name in sd:
+                print(f"| skip mismatched {name}: {tuple(sd[name].shape)} vs "
+                      f"{tuple(p.shape)}")
+
+
 class BaseTask:
     def __init__(self):
         self.hparams = hparams
@@ -118,6 +153,15 @@ class BaseTask:
         self.trainer = None
         self.logger = None
         self.grad_hook = None  # (name, params) after backward, before clipping
+
+    def _dict_size(self) -> int:
+        """The ASR's token vocabulary: ``len(phone_set.json) + 10``, else 100."""
+        fn = os.path.join(hparams["binary_data_dir"], "phone_set.json")
+        if os.path.exists(fn):
+            with open(fn) as f:
+                return len(json.load(f)) + 10
+        print(f"| WARNING: {fn} missing; defaulting ASR dict size to 100.")
+        return 100
 
     def train_phase(self, step: int):
         """The label under which the trainer times step ``step``."""

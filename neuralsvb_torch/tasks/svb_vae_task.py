@@ -50,7 +50,8 @@ from ..models.svb_vae import SVBVAE, WAYS
 from ..ops.fused_resblock import KERNEL_COUNTERS
 from ..ops.pitch_utils import denorm_f0
 from ..training.schedulers import rsqrt_schedule, step_lr_schedule
-from .base_task import BaseTask, no_grad_for, step_generator
+from .base_task import (BaseTask, copy_parameters, mesh_devices, no_grad_for,
+                        np_rng_state, set_np_rng_state, step_generator)
 from .losses import add_mel_loss, mse, nan_guard, parse_mel_losses
 
 
@@ -84,14 +85,6 @@ class SVBVAEMleTask(BaseTask):
         self._ppg_cache = None
         self._pending_disc = None
         self.vocoder_calls = 0
-
-    def _dict_size(self):
-        fn = os.path.join(hparams["binary_data_dir"], "phone_set.json")
-        if os.path.exists(fn):
-            with open(fn) as f:
-                return len(json.load(f)) + 10
-        print(f"| WARNING: {fn} missing; defaulting ASR dict size to 100.")
-        return 100
 
     def build_model(self):
         """The SVB VAE from the seed, in eval mode without gradients (the
@@ -140,9 +133,7 @@ class SVBVAEMleTask(BaseTask):
             "use_cond_disc: true": bool(hp.get("use_cond_disc")),
             "binary_data_dirs (multi-dataset training)": bool(hp.get("binary_data_dirs")),
             "a mesh_shape over more than one device (DDP)":
-                int(np.prod([int(p.split(":")[1]) for p in
-                             str(hp.get("mesh_shape") or "").split(",") if ":" in p]
-                            or [1])) > 1,
+                mesh_devices(hp.get("mesh_shape")) > 1,
         }
         for what, on in refused.items():
             if on:
@@ -193,20 +184,6 @@ class SVBVAEMleTask(BaseTask):
         """A JAX package checkpoint's ``state`` -> the model's state_dict."""
         return svbvae_from_jax(state["params"], state.get("batch_stats") or {}, self.variant)
 
-    @staticmethod
-    def _copy_parameters(module: torch.nn.Module, sd: Dict[str, torch.Tensor]):
-        """Copy ``sd``'s tensors into ``module``'s parameters of the same
-        name and shape; a parameter whose shape differs, or that ``sd``
-        lacks, keeps its value. Buffers (BatchNorm statistics) are not
-        touched, as the JAX package's ``load_sub_params`` loads params only."""
-        with torch.no_grad():
-            for name, p in module.named_parameters():
-                if name in sd and sd[name].shape == p.shape:
-                    p.copy_(sd[name])
-                elif name in sd:
-                    print(f"| skip mismatched {name}: {tuple(sd[name].shape)} vs "
-                          f"{tuple(p.shape)}")
-
     def _load_pretrained_asr(self):
         """Warm-start the frozen ASR (reference: svb_vae_task.py:558) from a
         reference torch checkpoint directory (the lexicographically last
@@ -231,7 +208,7 @@ class SVBVAEMleTask(BaseTask):
             node = msgpack_ckpt.load(ckpt)
             for k in ("state", "params", "vc_asr"):
                 node = node.get(k, node) if isinstance(node, dict) else node
-            self._copy_parameters(self.model.vc_asr, vcasr_from_jax(node))
+            copy_parameters(self.model.vc_asr, vcasr_from_jax(node))
             print(f"| Loaded the ASR's parameters from the JAX checkpoint {ckpt}")
             return
         sd = load_state_dict(ckpts[-1], "model")
@@ -253,22 +230,19 @@ class SVBVAEMleTask(BaseTask):
         if not ckpt or not os.path.exists(ckpt):
             print(f"| WARNING: no checkpoint at {path}; keeping init.")
             return
-        self._copy_parameters(self.model, load_state_dict(ckpt, "model", self._from_jax))
+        copy_parameters(self.model, load_state_dict(ckpt, "model", self._from_jax))
         print(f"| Warm-started params from {ckpt}")
         if not is_torch_file(ckpt):
             print("| The JAX checkpoint's optimizer states are not carried over: "
                   "the optimizers start fresh.")
 
     def checkpoint_state(self) -> dict:
-        st = self._np_rng.get_state()
         return {
             "state_dict": {"model": self.model.state_dict(),
                            "mel_disc": self.mel_disc.state_dict()},
             "optimizer_states": [self.opt_gen.state_dict(), self.opt_disc.state_dict(),
                                  self.opt_map.state_dict()],
-            "emb_column_rng": {"keys": torch.from_numpy(st[1].astype(np.int64)),
-                               "pos": int(st[2]), "has_gauss": int(st[3]),
-                               "cached_gaussian": float(st[4])},
+            "emb_column_rng": np_rng_state(self._np_rng),
         }
 
     def load_checkpoint_state(self, ckpt: dict):
@@ -279,9 +253,7 @@ class SVBVAEMleTask(BaseTask):
                            ckpt.get("optimizer_states") or []):
             opt.load_state_dict(st)
         if "emb_column_rng" in ckpt:
-            r = ckpt["emb_column_rng"]
-            self._np_rng.set_state(("MT19937", r["keys"].numpy().astype(np.uint32),
-                                    r["pos"], r["has_gauss"], r["cached_gaussian"]))
+            set_np_rng_state(self._np_rng, ckpt["emb_column_rng"])
         # cached PPG rows came from the ASR weights before the restore
         self._ppg_cache = None
 

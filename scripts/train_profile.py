@@ -9,7 +9,11 @@ smoke run's Female1 lengths: one batch of 4, padded to 2560 frames); a
 vocoder recipe (``PWGTask``, e.g. ``egs/egs_bases/tts/vocoder/pwg_torch.yaml``,
 or ``HifiGanTask``) on ``max_sentences`` synthetic crops of ``max_samples``
 (``chip_smoke.synthetic_crops``), its discriminator from step 0, and
-reports its generator + discriminator step as phase 2. Then:
+reports its generator + discriminator step as phase 2; the ASR
+pre-training recipe (``VCPPGTask``, ``egs/egs_bases/vc/vc_ppg_torch.yaml``)
+on a synthetic speech split with phone tokens at its token budget (40
+utterances of 750 frames: ``max_tokens`` 30000), its generator +
+discriminator step as phase 2. Then:
 
 - times warm phase-2 steps (generator + discriminator) and, for an SVB
   recipe, phase-3 steps (latent map), each between two
@@ -39,6 +43,7 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = (1034, 2412, 1241, 2171)
+SPEECH_FRAMES = (750,) * 40
 
 
 def main():
@@ -74,14 +79,28 @@ def profile_recipe(config, data, warm):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import kernel_kind, synthetic_crops
+    from neuralsvb_torch.data.datasets import FastSpeechDataset
+    from neuralsvb_torch.data.synthetic import write_synthetic_speech_split
     from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.adv_base import AdversarialTaskBase
     from neuralsvb_torch.tasks.vocoder_task import HifiGanTask
-    hp = set_hparams(config=config,
-                     hparams_str=f"binary_data_dir={data},pretrain_asr_ckpt=,ds_workers=0",
-                     print_hparams=False, global_hparams=False)
+    hp = set_hparams(config=config, print_hparams=False, global_hparams=False)
     pkg, cls_name = hp["task_cls"].rsplit(".", 1)
     task_cls = getattr(importlib.import_module(pkg), cls_name)
     vocoder = issubclass(task_cls, HifiGanTask)
+    # the speech split is what FastSpeechDataset reads (VCPPGTask); the
+    # other adversarial tasks read paired singing with ``prof_*`` keys
+    speech = getattr(task_cls, "dataset_cls", None) is FastSpeechDataset
+    if issubclass(task_cls, AdversarialTaskBase) and not speech:
+        raise NotImplementedError(f"{cls_name}: no synthetic split for its paired singing "
+                                  "dataset; the ASR pre-training recipe (VCPPGTask) is the "
+                                  "adversarial task this script profiles")
+    if speech:
+        data = os.path.join(REPO, "build", "train_profile_speech")
+        write_synthetic_speech_split(data, SPEECH_FRAMES)
+    hp = set_hparams(config=config,
+                     hparams_str=f"binary_data_dir={data},pretrain_asr_ckpt=,ds_workers=0",
+                     print_hparams=False, global_hparams=False)
     dev = torch.device("cuda")
     with hparams_scope(hp, **({"disc_start_steps": 0} if vocoder else {})) as h:
         task = task_cls()
@@ -92,7 +111,8 @@ def profile_recipe(config, data, warm):
             step2 = 1
         else:
             batch = next(iter(task.train_dataloader()))
-            step2, step3 = 1, int(h["phase_2_steps"]) + 1
+            step2 = 1
+            step3 = None if speech else int(h["phase_2_steps"]) + 1
 
         def run(step):
             torch.cuda.synchronize(dev)
@@ -106,7 +126,7 @@ def profile_recipe(config, data, warm):
         first2 = run(step2 if vocoder else 0)  # the SVB disc starts after step 0
         times2 = [run(step2) for _ in range(warm + 1)]
         first3 = times3 = None
-        if not vocoder:
+        if not (vocoder or speech):
             first3 = run(step3)
             times3 = [run(step3) for _ in range(warm)]
         peak = torch.cuda.max_memory_allocated(dev)
@@ -134,7 +154,8 @@ def profile_recipe(config, data, warm):
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "torch": torch.__version__, "batch": [int(batch["nsamples"]), int(batch["mels"].shape[1])],
         "samples": int(batch["wavs"].shape[1]) if vocoder else None,
-        "frames": None if vocoder else list(FRAMES), "tf32": False,
+        "frames": None if vocoder else list(SPEECH_FRAMES if speech else FRAMES),
+        "tf32": False,
         "phase2_first_step_s": first2, "phase2_warm_steps_s": times2[1:],
         "phase2_median_s": statistics.median(times2[1:]),
         "phase3_first_step_s": first3, "phase3_warm_steps_s": times3,

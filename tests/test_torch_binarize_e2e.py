@@ -203,7 +203,7 @@ def test_dataset_collates_the_port_split(binarized):
     ({"device": None}, ValueError),                     # device is required
     ({"device": "cuda"}, RuntimeError),                 # and must exist
     ({"binarization_args": {"with_f0cwt": True}}, NotImplementedError),
-    ({"text_labels": True}, NotImplementedError),       # text branch not ported
+    ({"text_labels": True}, NotImplementedError),       # the pairs have no text branch
 ])
 def test_binarizer_refuses(tmp_path, change, error):
     from neuralsvb_torch.data.binarizer import PopBuTFyENSpkEMBinarizer
@@ -212,7 +212,10 @@ def test_binarizer_refuses(tmp_path, change, error):
         pytest.skip("a card is present here")
     (tmp_path / "processed" / "data" / "p1").mkdir(parents=True)
     if change.pop("text_labels", False):
-        (tmp_path / "processed" / "text_labels").mkdir()
+        (tmp_path / "processed" / "data" / "p1" / "A#singing#S_Amateur_0.wav").touch()
+        (tmp_path / "processed" / "text_labels" / "p1").mkdir(parents=True)
+        (tmp_path / "processed" / "text_labels" / "p1" / "A#singing#S_Amateur_0.txt") \
+            .write_text("la la")
     with hparams_scope({**_hp(tmp_path, "out"), "device": "cpu", **change}):
         with pytest.raises(error):
             PopBuTFyENSpkEMBinarizer().process()

@@ -19,6 +19,7 @@ from tests.test_torch_support import agree  # noqa: E402
 
 from neuralsvb_tpu.models import disc as jdisc  # noqa: E402
 from neuralsvb_torch.convert.jax2torch import disc_from_jax  # noqa: E402
+from neuralsvb_torch.models import common as tcommon  # noqa: E402
 from neuralsvb_torch.models import disc as tdisc  # noqa: E402
 
 WINS = (32, 64)
@@ -52,7 +53,7 @@ def all_keep(monkeypatch):
     """Dropout keeps every element on both sides (the scaling stays)."""
     monkeypatch.setattr(jax.random, "bernoulli",
                         lambda key, p=0.5, shape=None: jnp.ones(shape, bool))
-    monkeypatch.setattr(tdisc, "dropout_keep_mask",
+    monkeypatch.setattr(tcommon, "dropout_keep_mask",
                         lambda shape, rate, generator, device:
                         torch.ones(shape, dtype=torch.bool, device=device))
 

@@ -41,7 +41,7 @@ from tests.test_torch_train_step import (B, GEN_STEP, HP, MAP_STEP, T,  # noqa: 
 from neuralsvb_tpu.hparams import hparams as jhparams  # noqa: E402
 from neuralsvb_torch.convert.jax2torch import disc_from_jax, svbvae_from_jax  # noqa: E402
 from neuralsvb_torch.hparams import hparams_scope  # noqa: E402
-from neuralsvb_torch.models import disc as tdisc  # noqa: E402
+from neuralsvb_torch.models import common as tcommon  # noqa: E402
 from neuralsvb_torch.models import svb_vae as tsvb  # noqa: E402
 
 TASKS = {"tech_mle": "SVBVAETechMleTask", "seg_tech_mle": "SVBVAESegTechMleTask",
@@ -112,7 +112,7 @@ def patched(monkeypatch):
     monkeypatch.setattr(jax.random, "uniform",
                         lambda key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0:
                         jnp.zeros(shape, dtype))
-    monkeypatch.setattr(tdisc, "dropout_keep_mask",
+    monkeypatch.setattr(tcommon, "dropout_keep_mask",
                         lambda shape, rate, generator, device:
                         torch.ones(shape, dtype=torch.bool, device=device))
     yield monkeypatch

@@ -38,7 +38,7 @@ from neuralsvb_tpu.hparams import hparams as jhparams  # noqa: E402
 from neuralsvb_torch.convert.jax2torch import (disc_from_jax, svbvae_from_jax,  # noqa: E402
                                                svbvae_mle_from_jax)
 from neuralsvb_torch.hparams import hparams_scope  # noqa: E402
-from neuralsvb_torch.models import disc as tdisc  # noqa: E402
+from neuralsvb_torch.models import common as tcommon  # noqa: E402
 
 HP = dict(TINY, mesh_shape="data:1", wire_dtype="float32", device="cpu",
           zero_noise=True, max_frames=5000)
@@ -107,7 +107,7 @@ def patched(monkeypatch):
     """All-keep dropout on both sides; zero noise on the JAX side."""
     monkeypatch.setattr(jax.random, "bernoulli",
                         lambda key, p=0.5, shape=None: jnp.ones(shape, bool))
-    monkeypatch.setattr(tdisc, "dropout_keep_mask",
+    monkeypatch.setattr(tcommon, "dropout_keep_mask",
                         lambda shape, rate, generator, device:
                         torch.ones(shape, dtype=torch.bool, device=device))
     jhparams.clear()

@@ -182,7 +182,24 @@ Every phase prints one JSON line; any failure raises.
    17's work dir trains one step on phase 6's splits; its frozen ASR equals
    the pre-training checkpoint's bit for bit (the decoder head's tensors
    skipped) and its step-0 validation vocodes through HiFiGAN-NSF with 54 +
-   3 bf16 launches per vocoder call.
+   3 bf16 launches per vocoder call;
+21. bf16 step time: ``scripts/train_profile.py --variant f32: --variant
+   bf16:compute_dtype=bfloat16`` on the flagship at B = 4 x 2560 frames:
+   warm phase-2 and phase-3 medians, peak memory and the profiled split of
+   each, side by side;
+22. bf16 card vs CPU: phase 9's steps with ``compute_dtype: bfloat16`` on
+   the card against phase 9's CPU float64 run (``phase_bf16_card_vs_cpu``:
+   losses, gradients in L2 and the update's sign, at the bounds
+   ``BF16_*``);
+23. accumulation: ``accumulate_grad_batches: 2`` in float64, card vs CPU;
+   parameters move only at even micro-steps (``phase_accum_card_vs_cpu``);
+24. the bf16 vocoder: one ``vocoder_compute_dtype: bfloat16`` call beside
+   the float32 one (wav bound, 54 + 3 launches, times);
+25. data parallelism on the one card, two ranks over gloo on cuda:0:
+   spawned ranks against one process in float64, then ``torchrun
+   --nproc_per_node 2`` through the training CLI with multi-directory
+   training, ``cache_ppg``, ``use_cond_disc`` and accumulation, a
+   validation and a resume (``phase_data_parallel``).
 
 The line before the last is the kernel table: per kernel its launches on
 the main path (the bf16 ResBlock kernel's also on the training path's
@@ -191,7 +208,9 @@ validation, ``train_launches``, on the vocoder's training path,
 the technique-prior recipes' training and ``--infer`` processes,
 ``variants_train_launches`` and ``variants_infer_launches``, and on phase
 15's JAX-format vocoder call, ``jax_checkpoint_launches``, and on
-phase 20's warm-started flagship, ``vcppg_warm_start_launches``; the χ²
+phase 20's warm-started flagship, ``vcppg_warm_start_launches``, on
+phase 24's bf16 vocoder call, ``bf16_vocoder_launches``, and on phase
+25's rank 0 under torchrun, ``data_parallel_train_launches``; the χ²
 kernel's also in the vocoder's binarize pass), worst error, time per call (``ms``; for the
 χ² kernel also ``device_ms``), plain time and bound (``bound_ms``,
 ``bound_by``) at the main path's shapes; the last line is
@@ -200,6 +219,7 @@ kernel's also in the vocoder's binarize pass), worst error, time per call (``ms`
 
 import glob
 import json
+import math
 import os
 import re
 import shutil
@@ -962,17 +982,20 @@ def phase_train(voc, device="cuda"):
     return launches
 
 
-def train_step_runs(task_cls, dtypes, devices=("cpu", "cuda"), **over):
+def train_step_runs(task_cls, dtypes, devices=("cpu", "cuda"), sides=("cpu", "card"),
+                    deltas=None, **over):
     """One gen+disc step and one map step of ``task_cls`` on the CPU and on
     the card, per dtype, from the same seeded float32 weights, at zero noise
     with pinned discriminator windows and the same dropout masks (drawn on
     the CPU); the four train items cropped to 640 frames. Returns ({(side,
-    dtype): (losses, gradients by group)}, the batch)."""
+    dtype): (losses, gradients by group)}, the batch). With a dict
+    ``deltas``, each run's parameter change per group (after its
+    optimizer's step minus before) lands in ``deltas[side, dtype]``."""
     import torch
     from neuralsvb_torch.hparams import hparams_scope, set_hparams
     runs = {}
     for dtype in dtypes:
-        for side, dev in zip(("cpu", "card"), devices):
+        for side, dev in zip(sides, devices):
             cfg = train_config(os.path.join(WORK, "voc"), device=dev, max_frames=640,
                                zero_noise=True, ds_workers=0, **over)
             hp = set_hparams(config=cfg, print_hparams=False, global_hparams=False)
@@ -984,9 +1007,14 @@ def train_step_runs(task_cls, dtypes, devices=("cpu", "cuda"), **over):
                 task.mel_disc.to(dtype)
                 task.rand_device = torch.device("cpu")  # the same dropout masks on all
                 task.disc_start_frames_wins = [100, 200, 300]
-                grads = {}
-                task.grad_hook = lambda group, params: grads.__setitem__(
-                    group, [p.grad.detach().cpu().double().clone() for p in params])
+                grads, before, params = {}, {}, {}
+
+                def hook(group, ps, grads=grads, before=before, params=params):
+                    grads[group] = [p.grad.detach().cpu().double().clone() for p in ps]
+                    if deltas is not None:
+                        before[group] = [p.detach().cpu().double().clone() for p in ps]
+                        params[group] = ps
+                task.grad_hook = hook
                 task.train_dataloader()
                 ds = task._train_ds
                 batch = ds.collater([ds[i] for i in range(len(ds))])
@@ -999,6 +1027,10 @@ def train_step_runs(task_cls, dtypes, devices=("cpu", "cuda"), **over):
                 finally:
                     torch.set_default_dtype(torch.float32)
                 runs[side, dtype] = logs, grads
+                if deltas is not None:
+                    deltas[side, dtype] = {
+                        g: [p.detach().cpu().double() - b for p, b in zip(params[g], before[g])]
+                        for g in params}
     return runs, batch
 
 
@@ -1018,11 +1050,15 @@ def grads_over_scale(a, b, scales):
 
 def phase_train_card_vs_cpu(devices=("cpu", "cuda")):
     """One gen+disc step and one map step on the card and on the CPU, in
-    float32 and in float64 from the same float32 weights; returns the row."""
+    float32 and in float64 from the same float32 weights; returns the row,
+    the runs and the CPU float64 run's parameter changes (phase 22 holds the
+    bf16 step against them)."""
     import torch
     from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
     t0 = time.perf_counter()
-    runs, batch = train_step_runs(SVBVAEMleTask, (torch.float32, torch.float64), devices)
+    deltas = {}
+    runs, batch = train_step_runs(SVBVAEMleTask, (torch.float32, torch.float64), devices,
+                                  deltas=deltas)
     f32, f64 = torch.float32, torch.float64
     rel32 = loss_rel(runs["card", f32][0], runs["cpu", f32][0])
     rel64 = loss_rel(runs["card", f64][0], runs["cpu", f64][0])
@@ -1048,7 +1084,7 @@ def phase_train_card_vs_cpu(devices=("cpu", "cuda")):
     emit("train_card_vs_cpu", **row)
     if not ok:
         raise AssertionError(f"train card vs CPU: {rel32} {rel64} {groups}")
-    return row
+    return row, runs, deltas["cpu", torch.float64]
 
 
 VOC_STEPS, VOC_RESUME, VOC_DISC_START, VOC_VAL_EVERY = 4, 6, 1, 4
@@ -2281,6 +2317,427 @@ def phase_vcppg_warm_start(voc, vc_work, device="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the flagship's training options (phases 21-25)
+# ---------------------------------------------------------------------------
+
+# phase 22: the bf16 step (float32 master weights) on the card against the
+# CPU step in float64. bf16 keeps 8 bits of mantissa (relative rounding
+# 2^-9), and the flagship's gradient in bf16 is far from float64's: the JAX
+# package's own bf16 generator gradient is 0.44 (L2, relative) from its
+# float32 one at tiny widths on the CPU, most of it in the posterior
+# encoder, and the latent map's float32 gradient is already ill-conditioned
+# (PERF.md §5). The gates catch a wrong cast or a lost gradient
+# (errors of order 1 in the generator's and discriminator's direction),
+# not bf16's own rounding (PERF.md §6).
+BF16_LOSS_REL, BF16_LOSS_ABS = 0.1, 1e-4  # per logged loss: |d| <= rel |ref| + abs
+BF16_GRAD_COS = 0.8       # gen and disc: cosine of the gradient to float64's
+BF16_UPDATE_COS = 0.5     # gen and disc: cosine of the parameter change to float64's
+BF16_MAP_GRAD_COS = 0.5   # the map: its gradient's cosine (bf16 norm statistics gave < 0)
+# phase 24: the bf16 vocoder against the float32 one (CPU at full width:
+# 0.0058 and 0.015 of the float32 wav's mean and max magnitude)
+BF16_WAV_MEAN_REL, BF16_WAV_MAX_REL = 0.03, 0.05
+
+
+def phase_bf16_step_time():
+    """``scripts/train_profile.py`` on the flagship at the train cell's B = 4
+    x 2560 frames, float32 then ``compute_dtype: bfloat16`` in one process:
+    warm phase-2 and phase-3 medians, peak memory and the profiled phase-2
+    step's split and busy share, side by side."""
+    out = os.path.join(WORK, "bf16_profile.json")
+    proc = subprocess.run([sys.executable, "scripts/train_profile.py", "--out", out,
+                           "--warm", "4", "--variant", "f32:",
+                           "--variant", "bf16:compute_dtype=bfloat16"], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"train_profile failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(out) as f:
+        res = {r["variant"]: r for r in json.load(f)}
+    row = {}
+    for name, r in res.items():
+        prof = r["profiled_phase2_step"]
+        row[name] = dict(
+            phase2_median_s=r["phase2_median_s"], phase2_warm_steps_s=r["phase2_warm_steps_s"],
+            phase2_first_step_s=r["phase2_first_step_s"], phase3_median_s=r["phase3_median_s"],
+            max_memory_allocated=r["max_memory_allocated"],
+            profiled_step={k: prof[k] for k in ("wall_ms", "kernel_ms", "busy_share",
+                                                "busy_share_of_unprofiled_median",
+                                                "launches", "by_kind_ms")})
+    ok = all(math.isfinite(v["phase2_median_s"]) for v in row.values()) and set(row) == {
+        "f32", "bf16"}
+    emit("bf16_step_time", ok=ok, batch=res["f32"]["batch"], nvidia_smi=res["f32"]["nvidia_smi"],
+         bf16_over_f32=row["bf16"]["phase2_median_s"] / row["f32"]["phase2_median_s"], **row)
+    if not ok:
+        raise AssertionError(f"bf16 step time: {row}")
+    return row
+
+
+def phase_bf16_card_vs_cpu(runs, cpu64_deltas, devices=("cuda",)):
+    """Phase 9's gen+disc and map steps with ``compute_dtype: bfloat16`` on
+    the card (float32 master weights, the same batch, masks and windows)
+    against phase 9's CPU float64 run. Gates: every logged loss within
+    BF16_LOSS_REL x |ref| + BF16_LOSS_ABS; for the generator and the
+    discriminator the gradient's cosine to float64's at least BF16_GRAD_COS
+    and the parameter change's at least BF16_UPDATE_COS; the map's
+    gradient's cosine at least BF16_MAP_GRAD_COS (its float32 gradient is
+    already ill-conditioned); every step finite and moving its parameters."""
+    import torch
+    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
+    f32, f64 = torch.float32, torch.float64
+    t0 = time.perf_counter()
+    deltas = {}
+    bf, _ = train_step_runs(SVBVAEMleTask, (f32,), devices, sides=("bf16",), deltas=deltas,
+                            compute_dtype="bfloat16")
+    ref_logs, ref_grads = runs["cpu", f64]
+    logs, grads = bf["bf16", f32]
+    over = {k: abs(logs[k] - v) / (BF16_LOSS_REL * abs(v) + BF16_LOSS_ABS)
+            for k, v in ref_logs.items() if k in logs}
+
+    def cos(a, b):
+        dot = sum(float((x * y).sum()) for x, y in zip(a, b))
+        na = math.sqrt(sum(float((x * x).sum()) for x in a))
+        nb = math.sqrt(sum(float((y * y).sum()) for y in b))
+        return dot / max(na * nb, 1e-300)
+    groups = {}
+    for group, ref in ref_grads.items():
+        got, d_bf, d_ref = grads[group], deltas["bf16", f32][group], cpu64_deltas[group]
+        groups[group] = dict(
+            grad_cos=cos(got, ref), update_cos=cos(d_bf, d_ref),
+            grad_l2_rel=math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in zip(got, ref))
+                                  / sum(float((b ** 2).sum()) for b in ref)),
+            finite=all(bool(torch.isfinite(x).all()) for x in got + d_bf),
+            moved=any(bool((x != 0).any()) for x in d_bf))
+    gated = ("gen", "disc")
+    ok = (logs.keys() == ref_logs.keys() and max(over.values()) <= 1.0
+          and all(g["finite"] and g["moved"] for g in groups.values())
+          and all(groups[g]["grad_cos"] >= BF16_GRAD_COS
+                  and groups[g]["update_cos"] >= BF16_UPDATE_COS for g in gated)
+          and groups["map"]["grad_cos"] >= BF16_MAP_GRAD_COS)
+    row = dict(ok=ok, frames=640, losses_over_tol=max(over.values()),
+               loss_rel_err=loss_rel(logs, ref_logs), groups=groups,
+               tol=dict(loss_rel=BF16_LOSS_REL, loss_abs=BF16_LOSS_ABS, grad_cos=BF16_GRAD_COS,
+                        update_cos=BF16_UPDATE_COS, map_grad_cos=BF16_MAP_GRAD_COS),
+               seconds=time.perf_counter() - t0)
+    emit("bf16_card_vs_cpu", **row)
+    if not ok:
+        raise AssertionError(f"bf16 card vs CPU float64: {row}")
+    return row
+
+
+def phase_accum_card_vs_cpu(devices=("cpu", "cuda")):
+    """``accumulate_grad_batches: 2`` in float64 on the CPU and on the card
+    from the same weights, phase 9's batch, masks and windows: micro-steps
+    of the generator + discriminator (steps 1-2 on the CPU, 1-4 on the
+    card). The parameters move only at even micro-steps; the card's
+    micro-step gradients are within 1e-3 of each tensor's scale of the
+    CPU's, and after micro-step 2 its parameters are within 1e-3 lr of the
+    CPU's where the averaged gradient is settled (2 lr elsewhere: Adam's
+    first step is about lr x sign(g))."""
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
+    f64 = torch.float64
+    t0 = time.perf_counter()
+    res = {}
+    for side, dev, micro in (("cpu", devices[0], 2), ("card", devices[1], 4)):
+        cfg = train_config(os.path.join(WORK, "voc"), device=dev, max_frames=640,
+                           zero_noise=True, ds_workers=0, accumulate_grad_batches=2)
+        hp = set_hparams(config=cfg, print_hparams=False, global_hparams=False)
+        with hparams_scope(hp):
+            task = SVBVAEMleTask()
+            task.build_model()
+            task.build_train()
+            task.model.to(f64)
+            task.mel_disc.to(f64)
+            task.rand_device = torch.device("cpu")
+            task.disc_start_frames_wins = [100, 200, 300]
+            grads = []
+            task.grad_hook = lambda group, ps: grads.append(
+                (group, [p.grad.detach().cpu().clone() for p in ps]))
+            task.train_dataloader()
+            ds = task._train_ds
+            batch = ds.collater([ds[i] for i in range(len(ds))])
+            params = list(task.gen_params) + list(task.disc_params)
+            moved, lrs, after2 = [], [], None
+            torch.set_default_dtype(f64)
+            try:
+                for step in range(1, micro + 1):
+                    before = [p.detach().clone() for p in params]
+                    logs = {}
+                    for idx in (0, 1):
+                        logs.update(task.training_step(batch, step, idx)[1])
+                    moved.append(any(not torch.equal(p, b) for p, b in zip(params, before)))
+                    lrs.append(max(float(logs["lr_0"]), float(logs["lr_1"])))
+                    if step == 2:
+                        after2 = [p.detach().cpu().clone() for p in params]
+            finally:
+                torch.set_default_dtype(torch.float32)
+            res[side] = dict(moved=moved, grads=grads, after2=after2, lrs=lrs)
+    cpu, card = res["cpu"], res["card"]
+    worst = 0.0
+    for (g1, a), (g2, b) in zip(cpu["grads"], card["grads"]):
+        worst = max(worst, grads_over_scale(b, a, grad_scales(a)))
+    # the averaged gradient of each parameter over the two micro-steps (CPU)
+    n_gen = len(cpu["grads"][0][1])
+    mean = [(x + y) / 2 for x, y in zip(cpu["grads"][0][1] + cpu["grads"][1][1],
+                                          cpu["grads"][2][1] + cpu["grads"][3][1])]
+    scales = grad_scales(mean[:n_gen]) + grad_scales(mean[n_gen:])
+    lr = max(cpu["lrs"][:2])
+    p_worst = 0.0
+    for m, sc, a, b in zip(mean, scales, cpu["after2"], card["after2"]):
+        tol = torch.where(m.abs() > 1e-3 * sc, torch.full_like(m, 1e-3 * lr),
+                          torch.full_like(m, 2 * lr))
+        p_worst = max(p_worst, float(((a - b).abs() / tol).max()))
+    ok = (cpu["moved"] == [False, True] and card["moved"] == [False, True, False, True]
+          and worst <= 1e-3 and p_worst <= 1.0)
+    row = dict(ok=ok, frames=640, moved_cpu=cpu["moved"], moved_card=card["moved"],
+               grads_over_scale=worst, params_over_tol=p_worst, lrs=card["lrs"],
+               seconds=time.perf_counter() - t0)
+    emit("accum_card_vs_cpu", **row)
+    if not ok:
+        raise AssertionError(f"accumulation card vs CPU: {row}")
+    return row
+
+
+def phase_bf16_vocoder(voc, device="cuda"):
+    """One ``vocoder_compute_dtype: bfloat16`` vocoder call (seeded
+    full-width HiFiGAN-NSF, a 2000-frame mel: the 2048 bucket) beside the
+    float32 vocoder's: the bf16 wav within BF16_WAV_MEAN_REL /
+    BF16_WAV_MAX_REL of the float32 wav's mean / max magnitude, its
+    launches (18 x stages convs + one pre-pass per stage, counts zeroed just
+    before the call) and both calls' median times over 5 warm calls."""
+    import numpy as np
+    import torch
+    from neuralsvb_torch.ops import fused_resblock as fr
+    from neuralsvb_torch.vocoders.hifigan import HifiGAN
+    T = 2000
+    t = np.arange(T) * 128 / SR
+    f0 = (220.0 * (1 + 0.02 * np.sin(2 * np.pi * 5 * t))).astype(np.float32)
+    mel = (np.random.RandomState(3).randn(T, voc["audio_num_mel_bins"]) - 4).astype(np.float32)
+    row, wavs = {}, {}
+    for name, cdt in (("f32", ""), ("bf16", "bfloat16")):
+        vocoder = HifiGAN(dict(voc, vocoder_ckpt="", device=device, seed=7,
+                               vocoder_denoise_c=0.0, vocoder_compute_dtype=cdt))
+
+        def call():
+            w = vocoder.spec2wav(mel, f0=f0, zero_noise=True)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            return w
+        for c in fr.KERNEL_COUNTERS:
+            c.launches = 0
+        wavs[name] = call().cpu()
+        row[f"{name}_launches"] = {c.__name__: c.launches for c in fr.KERNEL_COUNTERS}
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            call()
+            times.append(time.perf_counter() - t0)
+        row[f"{name}_call_ms"] = statistics.median(times) * 1e3
+        row[f"{name}_call_ms_min_max"] = [min(times) * 1e3, max(times) * 1e3]
+    d = (wavs["bf16"] - wavs["f32"]).abs()
+    ref = wavs["f32"].abs()
+    stages = len(voc["upsample_rates"])
+    on_card = device == "cuda"
+    want = {"resblock_conv1d_bf16": 18 * stages * on_card, "lrelu_bf16": stages * on_card,
+            "resblock_conv1d": 0}
+    row.update(mean_rel=float(d.mean() / ref.mean()), max_rel=float(d.max() / ref.max()),
+               finite=bool(torch.isfinite(wavs["bf16"]).all()), expected_launches=want,
+               frames=T, bucket=2048)
+    row["ok"] = (row["finite"] and row["mean_rel"] <= BF16_WAV_MEAN_REL
+                 and row["max_rel"] <= BF16_WAV_MAX_REL and row["bf16_launches"] == want)
+    emit("bf16_vocoder", **row)
+    if not row["ok"]:
+        raise AssertionError(f"bf16 vocoder: {row}")
+    return row["bf16_launches"]
+
+
+def _dp_worker(rank, world, init_file, cfg, out, device):
+    """A spawned rank of phase 25: one gen+disc and one map step of the
+    flagship at ``mesh_shape: data:2`` in float64 on the card, its rows of
+    phase 9's batch; saves the losses, gradients and parameters."""
+    sys.path.insert(0, REPO)
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.parallel import ddp
+    ddp.init_process_group(device, backend="gloo", init_method=f"file://{init_file}",
+                           world=world, rank_=rank)
+    try:
+        hp = set_hparams(config=cfg, print_hparams=False, global_hparams=False)
+        with hparams_scope(hp):
+            torch.save(dp_steps(), f"{out}.{rank}")
+        ddp.barrier()
+    finally:
+        ddp.destroy_process_group()
+
+
+def dp_steps():
+    """The flagship's gen+disc step (1) and map step (TRAIN_PHASE2 + 1) in
+    float64 from the seed under the current hparams, the step's random
+    draws live (posterior noise, dropout, windows, from the step's
+    generator on the task's device); returns logs, gradients and
+    parameters."""
+    import torch
+    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
+    f64 = torch.float64
+    task = SVBVAEMleTask()
+    task.build_model()
+    task.build_train()
+    task.model.to(f64)
+    task.mel_disc.to(f64)
+    grads = {}
+    task.grad_hook = lambda group, ps: grads.__setitem__(
+        group, [p.grad.detach().cpu().clone() for p in ps])
+    task.train_dataloader()
+    ds = task._train_ds
+    batch = ds.collater([ds[i] for i in range(len(ds))])
+    logs = {}
+    torch.set_default_dtype(f64)
+    try:
+        for step, idx in ((1, 0), (1, 1), (TRAIN_PHASE2 + 1, 2)):
+            logs.update({f"{idx}/{k}": float(torch.as_tensor(v).detach()) for k, v in
+                         task.training_step(batch, step, idx)[1].items()})
+    finally:
+        torch.set_default_dtype(torch.float32)
+    return {"logs": logs, "grads": grads,
+            "params": {k: v.detach().cpu().clone() for m in (task.model, task.mel_disc)
+                       for k, v in m.state_dict().items()}}
+
+
+def phase_data_parallel(voc, device="cuda:0"):
+    """Data parallelism on the one card: two ranks over gloo on cuda:0.
+
+    (a) In process: ``torch.multiprocessing.spawn`` starts two ranks
+    (``_dp_worker``) that take a gen+disc step and a map step of the
+    flagship at ``mesh_shape: data:2`` in float64 on phase 9's batch (four
+    items cropped to 640 frames: two per rank), dropout and windows live;
+    this process takes the same steps at ``data:1``. The ranks must agree
+    bit for bit, and with the one process within 1e-6 relative (losses;
+    gradients and parameters against each tensor's largest magnitude, at
+    least 1e-3 of its group's), as ``tests/test_torch_ddp.py`` holds it on
+    the CPU.
+
+    (b) The user's entry point with every other training option on:
+    ``torchrun --nproc_per_node 2 -m neuralsvb_torch.tasks.run`` at
+    ``mesh_shape=data:2`` (both ranks on cuda:0, so the backend is gloo)
+    over phase 6's packed splits twice (``binary_data_dirs``) with
+    ``cache_ppg``, ``use_cond_disc`` and ``accumulate_grad_batches: 2``:
+    2 steps with a validation at step 2 that rank 0 vocodes, then a resume
+    to 3. Checks: the ranks' ``state_digest``s agree in both runs, every
+    logged loss is finite, the PPG cache streams (the members' ids repeat),
+    the step-2 checkpoint (rank 0's) holds the accumulators and no
+    ``cond_disc`` tensors, the resume restores step 2 and ends at 3, and the
+    validation launches 18 x stages + stages bf16 kernels per vocoder
+    call. NCCL across cards is not tried: the machine has one card.
+    Returns rank 0's launches in the first run."""
+    import torch
+    import torch.multiprocessing as mp
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    t0 = time.perf_counter()
+    root = os.path.join(WORK, "dp")
+    os.makedirs(root, exist_ok=True)
+    cfg2 = train_config(os.path.join(WORK, "voc"), device=device, max_frames=640,
+                        ds_workers=0, mesh_shape="data:2", name="dp2.yaml")
+    cfg1 = train_config(os.path.join(WORK, "voc"), device=device, max_frames=640,
+                        ds_workers=0, mesh_shape="", name="dp1.yaml")
+    if os.path.exists(os.path.join(root, "pg")):
+        os.remove(os.path.join(root, "pg"))
+    mp.spawn(_dp_worker, args=(2, os.path.join(root, "pg"), cfg2, os.path.join(root, "out"),
+                               device), nprocs=2)
+    ranks = [torch.load(os.path.join(root, f"out.{r}"), weights_only=False) for r in (0, 1)]
+    with hparams_scope(set_hparams(config=cfg1, print_hparams=False, global_hparams=False)):
+        one = dp_steps()
+    ranks_equal = all(
+        torch.equal(a, b) for a, b in zip(ranks[0]["params"].values(),
+                                          ranks[1]["params"].values())) and all(
+        torch.equal(a, b) for g in ranks[0]["grads"]
+        for a, b in zip(ranks[0]["grads"][g], ranks[1]["grads"][g]))
+    loss_worst = max(abs(ranks[0]["logs"][k] - v) / max(abs(v), 1e-12)
+                     for k, v in one["logs"].items())
+    worst = {}
+    for what, got, want in (
+            [("params", ranks[0]["params"], one["params"])]
+            + [(f"grad.{g}", dict(enumerate(ranks[0]["grads"][g])), dict(enumerate(one["grads"][g])))
+               for g in one["grads"]]):
+        big = max(float(v.abs().max()) for v in want.values() if v.is_floating_point())
+        w = 0.0
+        for k, v in want.items():
+            if v.is_floating_point():
+                scale = max(float(v.abs().max()), 1e-3 * big, 1e-30)
+                w = max(w, float((got[k] - v).abs().max()) / scale)
+        worst[what] = w
+    in_process_ok = (ranks_equal and loss_worst <= 1e-6 and max(worst.values()) <= 1e-6
+                     and ranks[0]["logs"].keys() == one["logs"].keys())
+
+    # (b) the CLI under torchrun, with every other training option on
+    binary = os.path.join(WORK, "binarize", "binary")
+    cli = train_config(os.path.join(WORK, "voc"), device=device, mesh_shape="data:2",
+                       binary_data_dirs=[binary, binary], cache_ppg=True,
+                       use_cond_disc=True, accumulate_grad_batches=2, max_updates=2,
+                       val_check_interval=2, valid_infer_interval=2, num_sanity_val_steps=0,
+                       name="dp_cli.yaml")
+    work = os.path.join(root, "cli_work")
+    shutil.rmtree(work, ignore_errors=True)
+
+    def torchrun(hp=""):
+        # --standalone: a rendezvous on a free local port
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "2", "-m", "neuralsvb_torch.tasks.run", "--config", cli,
+               "--hparams", f"work_dir={work}{hp}"]
+        t1 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"torchrun failed ({proc.returncode}):\n{proc.stdout[-4000:]}\n"
+                               f"{proc.stderr[-4000:]}")
+        by_rank = {s["rank"]: s for s in (json.loads(m.group(1)) for m in re.finditer(
+            r"^\| train summary: (\{.*\})$", proc.stdout, re.M))}
+        return proc.stdout, by_rank, time.perf_counter() - t1
+    out, by_rank, cli_wall = torchrun()
+    steps = {int(m.group(1)): json.loads(m.group(2))
+             for m in re.finditer(r"^\| step (\d+): (\{.*\})$", out, re.M)}
+    stages = len(voc["upsample_rates"])
+    main = by_rank.get(0, {})
+    calls = main.get("vocoder_calls", -1)
+    on_card = device.startswith("cuda")  # CPU tensors take the plain cluster
+    want = {"resblock_conv1d_bf16_launches": 18 * stages * calls * on_card,
+            "lrelu_bf16_launches": stages * calls * on_card, "resblock_conv1d_launches": 0}
+    launches = {k: main.get(k) for k in want}
+    ckpt = torch.load(os.path.join(work, "model_ckpt_steps_2.ckpt"), map_location="cpu",
+                      weights_only=True)
+    resumed, by_rank3, resume_wall = torchrun(",max_updates=3")
+
+    def ranks_agree(runs):
+        return (set(runs) == {0, 1} and all(r["world"] == 2 for r in runs.values())
+                and runs[0]["state_digest"] == runs[1]["state_digest"])
+    cli = dict(
+        ranks_agree=ranks_agree(by_rank) and ranks_agree(by_rank3),
+        streams="PPG cache: the train items' ids are not global indices" in out,
+        finite=sorted(steps) == [1, 2] and all(math.isfinite(v) for lg in steps.values()
+                                              for v in lg.values()),
+        accumulators={g: a["mini_step"] for g, a in ckpt["accumulators"].items()},
+        cond_disc_tensors=[k for k in ckpt["state_dict"]["mel_disc"]
+                           if k.startswith("cond_disc")],
+        resumed=(by_rank3.get(0, {}).get("start_step"), by_rank3.get(0, {}).get("end_step")),
+        restored="model_ckpt_steps_2.ckpt" in resumed, vocoder_calls=calls,
+        wall_s=cli_wall, resume_wall_s=resume_wall,
+        step_s=main.get("phases"), last_step_losses=steps.get(2))
+    # the discriminator starts after step 0: the step-2 checkpoint holds it
+    # in the middle of its accumulation
+    cli_ok = (cli["ranks_agree"] and cli["streams"] and cli["finite"]
+              and cli["accumulators"] == {"gen": 0, "disc": 1, "map": 0}
+              and not cli["cond_disc_tensors"] and cli["resumed"] == (2, 3)
+              and cli["restored"] and calls > 0 and launches == want)
+    row = dict(ok=in_process_ok and cli_ok, backend="gloo", world=2, device=device,
+               ranks_bit_identical=ranks_equal, loss_rel_worst=loss_worst,
+               over_scale_worst=worst, cli_ok=cli_ok, cli=cli, cli_launches=launches,
+               cli_expected_launches=want, seconds=time.perf_counter() - t0,
+               nccl_multi_card="not tried: one card on this machine")
+    emit("data_parallel", **row)
+    if not row["ok"]:
+        raise AssertionError(f"data parallel: {row}")
+    return launches
+
+
 def build_all():
     """nvcc for each CUDA source and g++ for the host library, all started
     together."""
@@ -2343,7 +2800,7 @@ def main():
     # the training process zeroes its counts when fit starts and reports them
     # in its summary: the counts cover the training path (its validation)
     train_launches = phase_train(voc)
-    phase_train_card_vs_cpu()
+    _, runs9, cpu64_deltas = phase_train_card_vs_cpu()
     # the vocoder's training process zeroes its counts when fit starts and
     # reports them in its summary: the counts cover that training path
     voc_launches, voc_chi2_launches, voc_cfg = phase_vocoder_train()
@@ -2370,6 +2827,17 @@ def main():
     phase_vcppg_step_time()
     phase_vcppg_card_vs_cpu(vc_cfg)
     warm_launches = phase_vcppg_warm_start(voc, vc_work)
+    # the flagship's training options: bf16 (step time, card vs the CPU's
+    # float64 step of phase 9), accumulation, the bf16 vocoder (counts
+    # zeroed just before its call), two ranks on the card with the other
+    # options on (rank 0's training process zeroes its counts when fit
+    # starts and reports its validation's)
+    phase_bf16_step_time()
+    phase_bf16_card_vs_cpu(runs9, cpu64_deltas)
+    del runs9, cpu64_deltas
+    phase_accum_card_vs_cpu()
+    bf16_voc_launches = phase_bf16_vocoder(voc)
+    dp_launches = phase_data_parallel(voc)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -2392,6 +2860,10 @@ def main():
         "jax_checkpoint_prepass_launches": jax_ckpt_launches["lrelu_bf16"],
         "vcppg_warm_start_launches": warm_launches["resblock_conv1d_bf16_launches"],
         "vcppg_warm_start_prepass_launches": warm_launches["lrelu_bf16_launches"],
+        "bf16_vocoder_launches": bf16_voc_launches["resblock_conv1d_bf16"],
+        "bf16_vocoder_prepass_launches": bf16_voc_launches["lrelu_bf16"],
+        "data_parallel_train_launches": dp_launches["resblock_conv1d_bf16_launches"],
+        "data_parallel_train_prepass_launches": dp_launches["lrelu_bf16_launches"],
         "vocoder_train_shapes_ms": total(train_rows, "kernel_ms"),
         "vocoder_train_shapes_plain_ms": total(train_rows, "plain_ms"),
         "vocoder_train_shapes_bound_ms": total(train_rows, "bound_ms"),

@@ -262,36 +262,45 @@ def svbvae_mle_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tens
 
 def disc_from_jax(params: Tree, batch_stats: Tree,
                   freq_length: int = 80) -> Dict[str, torch.Tensor]:
-    """Flax ``Discriminator`` (unconditional) params + batch_stats -> the
-    port's ``mel_disc`` state_dict. Conv2d kernels [kh, kw, in, out] ->
+    """Flax ``Discriminator`` params + batch_stats -> the port's
+    ``mel_disc`` state_dict. Conv2d kernels [kh, kw, in, out] ->
     [out, in, kh, kw]; the head's rows go from the JAX flatten order of the
-    NHWC conv output (t, f, c) to torch's NCHW order (c, t, f)."""
+    NHWC conv output (t, f, c) to torch's NCHW order (c, t, f). A
+    ``cond_disc`` subtree (the conditional branch) converts too, its
+    ``mel_proj_{i}``/``cond_proj_{i}`` Dense layers into
+    ``cond_disc.{mel,cond}_proj_layers.{i}``."""
     sd = _SD()
-    p = params["discriminator"]
-    s = (batch_stats or {}).get("discriminator", {})
-    n = sum(1 for k in p if k.startswith("disc_"))
-    for i in range(n):
-        dp, base = p[f"disc_{i}"], f"discriminator.discriminators.{i}"
-        for j in range(3):
-            conv = dp[f"conv_{j}"]
-            sd.put(f"{base}.model.{j}.0.weight",
-                   _np(conv["kernel"]).transpose(3, 2, 0, 1))
-            sd.put(f"{base}.model.{j}.0.bias", conv["bias"])
-            if f"norm_{j}" in dp:  # disc_norm 'bn'
-                st = s[f"disc_{i}"][f"norm_{j}"]
-                sd.norm(f"{base}.model.{j}.3", dp[f"norm_{j}"])
-                sd.put(f"{base}.model.{j}.3.running_mean", st["mean"])
-                sd.put(f"{base}.model.{j}.3.running_var", st["var"])
-                sd[f"{base}.model.{j}.3.num_batches_tracked"] = torch.tensor(0)
-        C = _np(dp["conv_2"]["bias"]).shape[0]
-        k = _np(dp["adv_layer"]["kernel"])[:, 0]
-        f = freq_length
-        for _ in range(3):  # three stride-2 convs with padding 1
-            f = (f + 1) // 2
-        t = k.shape[0] // (C * f)
-        sd.put(f"{base}.adv_layer.weight",
-               k.reshape(t, f, C).transpose(2, 0, 1).reshape(1, -1))
-        sd.put(f"{base}.adv_layer.bias", dp["adv_layer"]["bias"])
+    for branch in ("discriminator", "cond_disc"):
+        if branch not in params:
+            continue
+        p = params[branch]
+        s = (batch_stats or {}).get(branch, {})
+        n = sum(1 for k in p if k.startswith("disc_"))
+        for i in range(n):
+            dp, base = p[f"disc_{i}"], f"{branch}.discriminators.{i}"
+            for j in range(3):
+                conv = dp[f"conv_{j}"]
+                sd.put(f"{base}.model.{j}.0.weight",
+                       _np(conv["kernel"]).transpose(3, 2, 0, 1))
+                sd.put(f"{base}.model.{j}.0.bias", conv["bias"])
+                if f"norm_{j}" in dp:  # disc_norm 'bn'
+                    st = s[f"disc_{i}"][f"norm_{j}"]
+                    sd.norm(f"{base}.model.{j}.3", dp[f"norm_{j}"])
+                    sd.put(f"{base}.model.{j}.3.running_mean", st["mean"])
+                    sd.put(f"{base}.model.{j}.3.running_var", st["var"])
+                    sd[f"{base}.model.{j}.3.num_batches_tracked"] = torch.tensor(0)
+            C = _np(dp["conv_2"]["bias"]).shape[0]
+            k = _np(dp["adv_layer"]["kernel"])[:, 0]
+            f = freq_length
+            for _ in range(3):  # three stride-2 convs with padding 1
+                f = (f + 1) // 2
+            t = k.shape[0] // (C * f)
+            sd.put(f"{base}.adv_layer.weight",
+                   k.reshape(t, f, C).transpose(2, 0, 1).reshape(1, -1))
+            sd.put(f"{base}.adv_layer.bias", dp["adv_layer"]["bias"])
+            for proj in ("mel_proj", "cond_proj"):
+                if f"{proj}_{i}" in p:
+                    sd.dense(f"{branch}.{proj}_layers.{i}", p[f"{proj}_{i}"])
     return dict(sd)
 
 

@@ -55,6 +55,47 @@ class BaseDataset:
                                     8 * self.hparams.get("frames_multiple", 1)))
 
 
+class BaseConcatDataset(BaseDataset):
+    """Datasets concatenated under the first one's collater: multi-dataset
+    training (JAX: ``BaseConcatDataset``, ``neuralsvb_tpu/data/datasets.py:58-88``;
+    reference: tasks/base_task.py:99-128). The index space is cumulative;
+    ``sizes`` chain the members' and ``ordered_indices`` shuffles (and sorts
+    by length) over the whole, from the concatenation's own stream. Items
+    keep their member-local ``id``."""
+
+    def __init__(self, datasets: List["BaseDataset"]):
+        if not datasets:
+            raise ValueError("need at least one dataset")
+        super().__init__(shuffle=datasets[0].shuffle, hp=datasets[0].hparams)
+        self.datasets = list(datasets)
+        self.sort_by_len = datasets[0].sort_by_len
+        self.cumulative_sizes = np.cumsum([len(d) for d in self.datasets])
+        self.sizes = [s for d in self.datasets for s in d.sizes]
+
+    def _locate(self, index):
+        ds_idx = int(np.searchsorted(self.cumulative_sizes, index, side="right"))
+        prev = 0 if ds_idx == 0 else int(self.cumulative_sizes[ds_idx - 1])
+        return ds_idx, index - prev
+
+    def __getitem__(self, index):
+        ds_idx, local = self._locate(index)
+        return self.datasets[ds_idx][local]
+
+    def collater(self, samples):
+        return self.datasets[0].collater(samples)
+
+
+def maybe_concat_dataset(dataset_cls, prefix: str, shuffle: bool, hp=None):
+    """One ``dataset_cls`` per entry of ``binary_data_dirs``, concatenated,
+    when it is set; otherwise one over ``binary_data_dir`` (JAX:
+    ``maybe_concat_dataset``, ``datasets.py:91-99``)."""
+    hp = hp if hp is not None else global_hparams
+    dirs = hp.get("binary_data_dirs") or []
+    if not dirs:
+        return dataset_cls(prefix, shuffle=shuffle)
+    return BaseConcatDataset([dataset_cls(prefix, shuffle=shuffle, data_dir=d) for d in dirs])
+
+
 class BaseTTSDataset(BaseDataset):
     def __init__(self, prefix: str, shuffle: bool = False, data_dir=None, hp=None):
         super().__init__(shuffle, hp)

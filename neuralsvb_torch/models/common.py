@@ -19,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import ddp
+
 LN_EPS = 1e-6  # flax LayerNorm / GroupNorm default
 BN_EPS = 1e-5
 
@@ -26,13 +28,14 @@ BN_EPS = 1e-5
 def draw_normal(shape, like: torch.Tensor, generator: Optional[torch.Generator],
                 zero_noise: bool) -> torch.Tensor:
     """Standard normal noise on ``like``'s device, drawn from ``generator``;
-    exact zeros when ``zero_noise`` (deterministic mean decoding)."""
+    exact zeros when ``zero_noise`` (deterministic mean decoding). In a
+    data-parallel step, this rank's rows of the global batch's draw."""
     if zero_noise:
         return torch.zeros(shape, dtype=like.dtype, device=like.device)
     if generator is None:
         raise ValueError("pass a torch.Generator, or zero_noise=True")
-    return torch.randn(shape, generator=generator, dtype=like.dtype,
-                       device=like.device)
+    return ddp.draw_rows(lambda s: torch.randn(s, generator=generator, dtype=like.dtype,
+                                               device=like.device), tuple(shape))
 
 
 def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
@@ -44,11 +47,12 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
 
 def dropout_keep_mask(shape, rate: float, generator: Optional[torch.Generator],
                       device) -> torch.Tensor:
-    """Elementwise keep-mask (True = keep, probability 1 - rate)."""
+    """Elementwise keep-mask (True = keep, probability 1 - rate); dim 0 is
+    the batch (a data-parallel step keeps its rows of the global draw)."""
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
-    u = torch.rand(shape, generator=generator, dtype=torch.float32,
-                   device=generator.device)
+    u = ddp.draw_rows(lambda s: torch.rand(s, generator=generator, dtype=torch.float32,
+                                           device=generator.device), tuple(shape))
     return (u < 1.0 - rate).to(device)
 
 
@@ -87,21 +91,39 @@ def _batch_norm(x: torch.Tensor, bn: nn.modules.batchnorm._BatchNorm) -> torch.T
     with flax's fast variance E[x^2] - E[x]^2 clipped at 0, and the running
     variance takes the BIASED batch variance (torch's own BatchNorm takes the
     unbiased one). A single value per channel normalizes to 0, where torch
-    raises. In eval the running statistics apply."""
+    raises. In eval the running statistics apply.
+
+    In a data-parallel step the statistics run over the GLOBAL batch, as the
+    JAX package's ``axis_name=None`` BatchNorm under GSPMD ``jit`` does: the
+    per-channel means of x and x^2 are averaged over the world
+    (differentiably), so every rank normalizes and updates its running
+    statistics as one process would.
+
+    A bf16 ``x`` (``compute_dtype: bfloat16``) takes flax's precision: in
+    training the statistics, the normalization and the running-statistics
+    update run in float32 and the result is cast to bf16; in eval the
+    running statistics (as given) normalize in bf16."""
     shape = [1, -1] + [1] * (x.dim() - 2)
     if not bn.training:
-        mean, var = bn.running_mean.view(shape), bn.running_var.view(shape)
-    else:
-        dims = [0] + list(range(2, x.dim()))
-        mean = x.mean(dims, keepdim=True)
-        var = ((x * x).mean(dims, keepdim=True) - mean * mean).clamp_min(0.0)
-        with torch.no_grad():
-            m = bn.momentum
-            bn.running_mean.mul_(1 - m).add_(mean.detach().flatten(), alpha=m)
-            bn.running_var.mul_(1 - m).add_(var.detach().flatten(), alpha=m)
-            bn.num_batches_tracked.add_(1)
+        mean = bn.running_mean.view(shape).to(x.dtype)
+        var = bn.running_var.view(shape).to(x.dtype)
+        y = (x - mean) * torch.rsqrt(var + bn.eps)
+        return y * bn.weight.view(shape) + bn.bias.view(shape)
+    out_dtype = x.dtype
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
+    dims = [0] + list(range(2, x.dim()))
+    # the world's mean of the ranks' means: every rank holds as many rows
+    # (ddp.local_batch)
+    stats = ddp.all_sum(torch.stack([x.mean(dims), (x * x).mean(dims)])) / ddp.shard_world()
+    mean = stats[0].view(shape)
+    var = (stats[1].view(shape) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean.detach().flatten(), alpha=m)
+        bn.running_var.mul_(1 - m).add_(var.detach().flatten(), alpha=m)
+        bn.num_batches_tracked.add_(1)
     y = (x - mean) * torch.rsqrt(var + bn.eps)
-    return y * bn.weight.view(shape) + bn.bias.view(shape)
+    return (y * bn.weight.view(shape).to(x.dtype) + bn.bias.view(shape).to(x.dtype)).to(out_dtype)
 
 
 class BatchNorm1d(nn.BatchNorm1d):
@@ -141,16 +163,20 @@ class Embedding(nn.Embedding):
 
 def masked_group_norm(x, mask, norm: nn.GroupNorm):
     """GroupNorm over [B, C, T] whose statistics cover valid frames only
-    (flax ``GroupNorm(mask=...)``), so padded batches match unpadded runs."""
+    (flax ``GroupNorm(mask=...)``), so padded batches match unpadded runs.
+    As flax's, it computes in at least float32 and returns ``x.dtype``."""
     B, C, T = x.shape
     G = norm.num_groups
+    out_dtype = x.dtype
+    x = x.to(torch.promote_types(x.dtype, torch.float32))
     xg = x.reshape(B, G, C // G, T)
     m = mask[:, None].to(x.dtype)  # [B, 1, 1, T]
     n = (m.sum((2, 3), keepdim=True) * (C // G)).clamp_min(1.0)
     mean = (xg * m).sum((2, 3), keepdim=True) / n
     var = (((xg - mean) ** 2) * m).sum((2, 3), keepdim=True) / n
     y = ((xg - mean) * torch.rsqrt(var + norm.eps)).reshape(B, C, T)
-    return y * norm.weight[None, :, None] + norm.bias[None, :, None]
+    return (y * norm.weight[None, :, None].to(x.dtype)
+            + norm.bias[None, :, None].to(x.dtype)).to(out_dtype)
 
 
 class ConvNorm(nn.Module):

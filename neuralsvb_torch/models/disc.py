@@ -14,7 +14,20 @@ reference does; ``convert.jax2torch.disc_from_jax`` permutes the JAX head
 Random draws (window starts, dropout masks) come from an explicit
 ``torch.Generator`` on its own device, in float32 whatever the default
 dtype, and move to the input's device, so a CPU generator gives a run on
-the card the draws of a CPU run.
+the card the draws of a CPU run. In a data-parallel step the windows start
+from the global batch's ``max(x_len)``, as under the JAX package's GSPMD
+``jit``.
+
+The conditional branch (``cond_size > 0``, the JAX package's ``cond_disc``):
+per window a linear ``mel_proj_layers.{i}`` of the mel clip plus a linear
+``cond_proj_layers.{i}`` of the condition's clip (``cond`` [B, T,
+cond_size]) feeds its own multi-window stack, at the windows of the
+unconditional branch. Flax creates a submodule's parameters at its first
+call, and no task of the JAX package passes a ``cond``, so
+``use_cond_disc: true`` leaves its discriminator without ``cond_disc``
+parameters. The port builds the branch at the first call that passes a
+``cond`` for the same reason: a task-built discriminator carries exactly the
+JAX one's parameters and optimizer state.
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from ..parallel import ddp
 from .common import BatchNorm2d, Dropout, LeakyReLU
 
 
@@ -77,15 +91,21 @@ class Discriminator2D(nn.Module):
 
 class MultiWindowDiscriminator(nn.Module):
     def __init__(self, time_lengths: Sequence[int] = (32, 64, 128), freq_length: int = 80,
-                 hidden_size: int = 128, norm_type: str = "bn"):
+                 hidden_size: int = 128, norm_type: str = "bn", cond_size: int = 0):
         super().__init__()
         self.time_lengths = tuple(time_lengths)
         self.discriminators = nn.ModuleList(
             [Discriminator2D(w, freq_length, hidden_size, norm_type)
              for w in self.time_lengths])
+        if cond_size > 0:
+            self.mel_proj_layers = nn.ModuleList(
+                [nn.Linear(freq_length, freq_length) for _ in self.time_lengths])
+            self.cond_proj_layers = nn.ModuleList(
+                [nn.Linear(cond_size, freq_length) for _ in self.time_lengths])
 
-    def forward(self, x, x_len, start_frames_wins=None, generator=None):
-        """x [B, T, F]; x_len [B] valid frames. A window starts at
+    def forward(self, x, x_len, start_frames_wins=None, generator=None, cond=None):
+        """x [B, T, F]; x_len [B] valid frames; ``cond`` [B, T, cond_size]
+        for the conditional branch. A window starts at
         ``floor(u * (max(x_len) - win + 1))`` for u from ``generator``, or
         at ``start_frames_wins[i]``. Returns (validity [B, W] or None when
         a window exceeds the padded T, starts, hiddens)."""
@@ -101,11 +121,14 @@ class MultiWindowDiscriminator(nn.Module):
                     raise ValueError("pass a torch.Generator or start_frames_wins")
                 u = torch.rand((), generator=generator, dtype=torch.float32,
                                device=generator.device)
-                t_end = (x_len.max() - win).clamp_min(0)
+                t_end = (ddp.global_max(x_len.max()) - win).clamp_min(0)
                 start = torch.floor(u.to(x.device) * (t_end + 1).float()).long()
             start = start.clamp(0, T - win)
             starts.append(start)
-            clip = x[:, start + torch.arange(win, device=x.device)]  # [B, win, F]
+            frames = start + torch.arange(win, device=x.device)
+            clip = x[:, frames]  # [B, win, F]
+            if cond is not None:
+                clip = self.mel_proj_layers[i](clip) + self.cond_proj_layers[i](cond[:, frames])
             v, hs = disc(clip[:, None], generator)
             validity.append(v[:, 0])
             hiddens.extend(hs)
@@ -117,17 +140,35 @@ class Discriminator(nn.Module):
 
     def __init__(self, time_lengths: Sequence[int] = (32, 64, 128), freq_length: int = 80,
                  hidden_size: int = 128, norm_type: str = "bn",
-                 reduction: str = "stack"):
+                 reduction: str = "stack", cond_size: int = 0):
         super().__init__()
         if reduction != "stack":
             raise NotImplementedError(f"disc_reduction {reduction!r}")
-        self.discriminator = MultiWindowDiscriminator(time_lengths, freq_length,
-                                                      hidden_size, norm_type)
+        self.config = (tuple(time_lengths), freq_length, hidden_size, norm_type)
+        self.cond_size = cond_size
+        self.discriminator = MultiWindowDiscriminator(*self.config)
+        self.cond_disc = None  # built at the first call with a cond (see above)
 
-    def forward(self, x, start_frames_wins=None, generator=None):
-        """x [B, T, 80] (or [B, 1, T, 80]) -> {'y': [B, W] or None, ...}."""
+    def build_cond_disc(self) -> nn.Module:
+        """The conditional branch, on the device and dtype of the rest."""
+        if self.cond_disc is None:
+            p = next(self.discriminator.parameters())
+            self.cond_disc = MultiWindowDiscriminator(
+                *self.config, cond_size=self.cond_size).to(p.device, p.dtype)
+            self.cond_disc.train(self.training)
+        return self.cond_disc
+
+    def forward(self, x, start_frames_wins=None, generator=None, cond=None):
+        """x [B, T, 80] (or [B, 1, T, 80]); ``cond`` [B, T, cond_size] or
+        None -> {'y': [B, W] or None, 'y_c': the conditional branch's or
+        None, ...}."""
         if x.dim() == 4:
             x = x[:, 0]
         x_len = (x.abs().sum(-1) > 0).long().sum(-1)
         y, starts, h = self.discriminator(x, x_len, start_frames_wins, generator)
-        return {"y": y, "start_frames_wins": starts, "h": h}
+        ret = {"y": y, "y_c": None, "start_frames_wins": starts, "h": h}
+        if self.cond_size > 0 and cond is not None:
+            ret["y_c"], starts, ret["h_c"] = self.build_cond_disc()(
+                x, x_len, starts, generator, cond)
+            ret["start_frames_wins"] = starts
+        return ret

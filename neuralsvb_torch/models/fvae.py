@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import ddp
 from .common import BN_EPS, BatchNorm1d, draw_normal
 from .wn import WN
 
@@ -170,7 +171,7 @@ class FVAE(nn.Module):
         kl_elem = gaussian_kl(m_q, logs_q, prior_mean, 0.0)  # [B, L, Tz]
         # length-weighted batch mean, as the reference computes it (a global
         # latent's [B, L, 1] broadcasts against the frame mask)
-        loss_kl = ((kl_elem * x_mask_sqz).sum() / x_mask_sqz.sum()
+        loss_kl = (ddp.all_sum((kl_elem * x_mask_sqz).sum()) / ddp.all_sum(x_mask_sqz.sum())
                    / kl_elem.shape[1])
         return dict(mel_out=x_recon, kl=loss_kl, m_q=m_q, logs_q=logs_q,
                     x_mask_sqz=x_mask_sqz, z_q=z_q)

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from ..ops.fused_resblock import (fused_resblock_cluster, make_spec, pack_tower,
                                   resolve_mm_dtype)
+from ..parallel import ddp
 from .common import leaky_relu
 from .nsf import SourceModuleHnNSF
 
@@ -123,6 +124,8 @@ class HifiGanGenerator(nn.Module):
 
     # -- packed cluster weights --------------------------------------------
     def _mm_dtype(self) -> torch.dtype:
+        if self.conv_pre.weight.dtype == torch.bfloat16:
+            return torch.bfloat16  # a bf16 generator's activations take bf16 operands
         return resolve_mm_dtype(self.mm_dtype, self.conv_pre.weight.device)
 
     def _pack(self, mm_dtype: torch.dtype) -> List[List[torch.Tensor]]:
@@ -276,17 +279,18 @@ class MultiScaleDiscriminator(nn.Module):
         return outs, fmaps
 
 
+# the losses' means run over the global batch in a data-parallel step
 def feature_loss(fmap_r, fmap_g):
-    return 2 * sum(torch.mean(torch.abs(rl - gl))
+    return 2 * sum(ddp.global_mean(torch.abs(rl - gl))
                    for dr, dg in zip(fmap_r, fmap_g) for rl, gl in zip(dr, dg))
 
 
 def discriminator_loss(disc_real_outputs, disc_generated_outputs):
-    r_losses = sum(torch.mean((1 - dr) ** 2) for dr in disc_real_outputs)
-    g_losses = sum(torch.mean(dg ** 2) for dg in disc_generated_outputs)
+    r_losses = sum(ddp.global_mean((1 - dr) ** 2) for dr in disc_real_outputs)
+    g_losses = sum(ddp.global_mean(dg ** 2) for dg in disc_generated_outputs)
     n = len(disc_real_outputs)
     return r_losses / n, g_losses / n
 
 
 def generator_loss(disc_outputs):
-    return sum(torch.mean((1 - dg) ** 2) for dg in disc_outputs) / len(disc_outputs)
+    return sum(ddp.global_mean((1 - dg) ** 2) for dg in disc_outputs) / len(disc_outputs)

@@ -18,8 +18,10 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from .common import draw_normal, linear_ct
+from ..parallel import ddp
+from .common import draw_normal
 
 
 class SineGen(nn.Module):
@@ -51,7 +53,8 @@ class SineGen(nn.Module):
             elif generator is None:
                 raise ValueError("pass a torch.Generator, or zero_noise=True")
             else:
-                rand_ini = torch.rand(B, dim, generator=generator, device=f0.device)
+                rand_ini = ddp.draw_rows(lambda s: torch.rand(s, generator=generator,
+                                                              device=f0.device), (B, dim))
         rand_ini = torch.cat([torch.zeros_like(rand_ini[:, :1]), rand_ini[:, 1:]], 1)
         rad = torch.cat([rad[:, :, :1] + rand_ini[:, :, None], rad[:, :, 1:]], -1)
         # bounded cumulative phase: subtract 1 wherever the running sum
@@ -83,6 +86,10 @@ class SourceModuleHnNSF(nn.Module):
                 noise=None):
         """x: f0 [B, 1, L] -> (sine_merge [B, 1, L], noise [B, 1, L], uv)."""
         sine_wavs, uv, _ = self.l_sin_gen(x, generator, zero_noise, rand_ini, noise)
-        sine_merge = torch.tanh(linear_ct(self.l_linear, sine_wavs))
+        # float32 sines through a bf16 generator's weights: the product runs
+        # in the promoted dtype (float32), as flax's Dense promotes its inputs
+        dt = torch.promote_types(sine_wavs.dtype, self.l_linear.weight.dtype)
+        sine_merge = torch.tanh(F.conv1d(sine_wavs.to(dt), self.l_linear.weight[:, :, None].to(dt),
+                                         self.l_linear.bias.to(dt)))
         noise_b = draw_normal(uv.shape, uv, generator, zero_noise) * self.sine_amp / 3
         return sine_merge, noise_b, uv

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.stft import hann_window
+from ..parallel import ddp
 
 DEFAULT_RESOLUTIONS = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
 
@@ -37,13 +38,14 @@ def stft_magnitude(x: torch.Tensor, fft_size: int, hop: int, win: int) -> torch.
 
 
 def spectral_convergence(mag_hat: torch.Tensor, mag: torch.Tensor) -> torch.Tensor:
-    """One Frobenius norm over the whole batch, as the JAX function takes it."""
-    return (torch.linalg.vector_norm(mag - mag_hat)
-            / torch.clamp(torch.linalg.vector_norm(mag), min=1e-7))
+    """One Frobenius norm over the whole batch, as the JAX function takes it
+    (over the global batch in a data-parallel step)."""
+    return (torch.sqrt(ddp.all_sum((mag - mag_hat).square().sum()))
+            / torch.clamp(torch.sqrt(ddp.all_sum(mag.square().sum())), min=1e-7))
 
 
 def log_stft_magnitude(mag_hat: torch.Tensor, mag: torch.Tensor) -> torch.Tensor:
-    return (torch.log(mag) - torch.log(mag_hat)).abs().mean()
+    return ddp.global_mean((torch.log(mag) - torch.log(mag_hat)).abs())
 
 
 def stft_loss(y_hat, y, fft_size=1024, hop=120, win=600):

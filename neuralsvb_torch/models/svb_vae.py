@@ -33,6 +33,7 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn as nn
 
+from ..parallel import ddp
 from .asr import VCASR
 from .common import (BN_EPS, BatchNorm1d, ConvStacks, Embedding, MultiheadAttention,
                      draw_normal, linear_ct)
@@ -252,7 +253,8 @@ class SVBVAE(nn.Module):
             z_map = z_a if disable_map else self.z_mapping_function(z_a, style_a)
             logp = normal_log_prob(z_map, p2p_out["m_q"], p2p_out["logs_q"])
             return {
-                "mle": -logp.sum() / z_map.shape[0] / z_map.shape[1],
+                "mle": (-ddp.all_sum(logp.sum()) / (z_map.shape[0] * ddp.shard_world())
+                        / z_map.shape[1]),
                 "mel_out": decoder(z_map, mask_p, cond_a2p),
                 "logs_amateur_zq": z_a,
                 "logs_prof_zq": p2p_out["z_q"],
@@ -272,9 +274,9 @@ class SVBVAE(nn.Module):
         kl = gaussian_kl(m_map, logs_map, p2p_out["m_q"], p2p_out["logs_q"])
         if self.variant == "local":
             msk = p2p_out["x_mask_sqz"]
-            kl = (kl * msk).sum() / msk.sum() / kl.shape[1]
+            kl = ddp.all_sum((kl * msk).sum()) / ddp.all_sum(msk.sum()) / kl.shape[1]
         else:
-            kl = kl.sum() / kl.shape[0] / kl.shape[1]
+            kl = ddp.all_sum(kl.sum()) / (kl.shape[0] * ddp.shard_world()) / kl.shape[1]
         eps = draw_normal(m_map.shape, m_map, generator, zero_noise)
         return {
             "kl": kl,

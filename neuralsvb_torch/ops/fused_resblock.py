@@ -378,12 +378,26 @@ class _Cluster(torch.autograd.Function):
 def fused_resblock_cluster(x: torch.Tensor, weights: Sequence[torch.Tensor],
                            spec: ClusterSpec,
                            mm_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """x [B, C, T] f32 -> mean of the ResBlock1 towers [B, C, T] f32.
+    """x [B, C, T] f32 or bf16 -> mean of the ResBlock1 towers [B, C, T] in
+    ``x.dtype``.
 
     ``mm_dtype`` (f32, bf16 or ``None`` = by device, see
     ``resolve_mm_dtype``) is the matmul operands' dtype. CPU tensors run
     ``resblock_cluster_plain``; CUDA tensors run the kernel of ``mm_dtype``
-    or raise. Differentiable in ``x`` and ``weights``."""
+    or raise. Differentiable in ``x`` and ``weights``.
+
+    A bf16 ``x`` (a generator run in ``vocoder_compute_dtype: bfloat16``)
+    takes the bf16 operands whatever ``mm_dtype`` says, as the JAX generator
+    picks them for a bf16 activation: it runs the same bf16 kernel (one
+    pre-pass and 18 convs per stage), whose residual chain and tower mean
+    read ``x`` as f32 (exact) and whose result is rounded to bf16, the TPU
+    kernel's arithmetic (``neuralsvb_tpu/ops/fused_resblock.py``: the input
+    enters as float32 and the result is cast back to the input's dtype)."""
+    if x.dtype == torch.bfloat16:
+        if mm_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"a bf16 x takes bf16 operands, not mm_dtype {mm_dtype}")
+        return _Cluster.apply(x.to(torch.float32), spec, torch.bfloat16,
+                              *weights).to(torch.bfloat16)
     if x.dtype != torch.float32:
-        raise ValueError(f"fused_resblock_cluster is f32 only, got {x.dtype}")
+        raise ValueError(f"fused_resblock_cluster takes f32 or bf16, got {x.dtype}")
     return _Cluster.apply(x, spec, resolve_mm_dtype(mm_dtype, x.device), *weights)

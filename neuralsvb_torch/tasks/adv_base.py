@@ -24,6 +24,15 @@ windows and dropout, the generator's dropout) come from a ``torch.Generator``
 seeded by (seed, step), so a resumed run draws what the uninterrupted run
 draws; checkpoints hold the model, the discriminator, both optimizers and
 the host random stream.
+
+The JAX package's training options: ``accumulate_grad_batches`` (one
+``MultiSteps`` per optimizer, each counting its own micro-steps),
+``use_cond_disc`` (the discriminator's conditional branch, which no step
+feeds: see ``models/disc.py``), ``binary_data_dirs`` (the subclasses' train
+dataloaders concatenate the directories) and data parallelism over
+``mesh_shape`` (``parallel/ddp.py``: every rank takes its rows of the
+global batch). The JAX ``AdversarialTaskBase`` has no ``compute_dtype``
+cast, and neither has this one.
 """
 
 from __future__ import annotations
@@ -38,9 +47,10 @@ import torch.nn.functional as F
 from ..convert.checkpoint import is_torch_file, load_into, load_state_dict, newest_checkpoint
 from ..hparams import hparams, resolve_device
 from ..models.disc import Discriminator
+from ..parallel import ddp
 from ..training.schedulers import rsqrt_schedule, step_lr_schedule
-from .base_task import (BaseTask, copy_parameters, mesh_devices, no_grad_for,
-                        np_rng_state, set_np_rng_state, step_generator)
+from .base_task import (BaseTask, copy_parameters, no_grad_for, np_rng_state,
+                        set_np_rng_state, step_generator)
 from .losses import mse, parse_mel_losses
 
 
@@ -49,7 +59,7 @@ def cross_entropy_ignore0(logits: torch.Tensor, targets: torch.Tensor) -> torch.
     [..., V], targets [...] int (reference: svb_para.py add_asr_losses)."""
     nll = -torch.gather(F.log_softmax(logits, -1), -1, targets[..., None])[..., 0]
     mask = (targets != 0).to(nll.dtype)
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return ddp.all_sum((nll * mask).sum()) / ddp.all_sum(mask.sum()).clamp_min(1.0)
 
 
 class AdversarialTaskBase(BaseTask):
@@ -106,27 +116,9 @@ class AdversarialTaskBase(BaseTask):
         self.model = model.to(self.device).eval().requires_grad_(False)
         return self.model
 
-    @staticmethod
-    def check_train_options():
-        """Options of the JAX package this port does not train with."""
-        hp = hparams
-        refused = {
-            "accumulate_grad_batches > 1 (optax MultiSteps)":
-                int(hp.get("accumulate_grad_batches", 1) or 1) > 1,
-            "use_cond_disc: true": bool(hp.get("use_cond_disc")),
-            "binary_data_dirs (multi-dataset training)": bool(hp.get("binary_data_dirs")),
-            "a mesh_shape over more than one device (DDP)":
-                mesh_devices(hp.get("mesh_shape")) > 1,
-        }
-        for what, on in refused.items():
-            if on:
-                raise NotImplementedError(f"{what} is not ported to PyTorch yet "
-                                          "(ROADMAP.md)")
-
     def build_train(self):
         """Discriminator, optimizers and schedules (JAX: adv_base.py:74-160)."""
         hp = hparams
-        self.check_train_options()
         if hp.get("mel_gan"):
             with torch.random.fork_rng(devices=[]):
                 torch.manual_seed(self.seed + 1)
@@ -134,7 +126,9 @@ class AdversarialTaskBase(BaseTask):
                     time_lengths=(32, 64, 128)[: hp["disc_win_num"]],
                     freq_length=hp["audio_num_mel_bins"],
                     hidden_size=hp["mel_disc_hidden_size"], norm_type=hp["disc_norm"],
-                    reduction=hp["disc_reduction"]).to(self.device)
+                    reduction=hp["disc_reduction"],
+                    cond_size=hp["hidden_size"] if hp.get("use_cond_disc") else 0
+                ).to(self.device)
         self.model.requires_grad_(True)
         frozen = tuple(f"{k}." for k in self.frozen_keys())
         for k in self.frozen_keys():
@@ -155,6 +149,8 @@ class AdversarialTaskBase(BaseTask):
                           if hp["scheduler"] == "rsqrt" else (lambda s: hp["lr"]))
         dsp = hp.get("discriminator_scheduler_params") or {"step_size": 60000, "gamma": 0.5}
         self.sched_disc = step_lr_schedule(hp["disc_lr"], dsp["step_size"], dsp["gamma"])
+        self.build_accumulators(dict({"gen": self.gen_params},
+                                     **({"disc": self.disc_params} if self.disc_params else {})))
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -189,7 +185,7 @@ class AdversarialTaskBase(BaseTask):
             sd["mel_disc"] = self.mel_disc.state_dict()
             opts.append(self.opt_disc.state_dict())
         return {"state_dict": sd, "optimizer_states": opts,
-                "np_rng": np_rng_state(self._np_rng)}
+                "np_rng": np_rng_state(self._np_rng), "accumulators": self.accumulator_state()}
 
     def load_checkpoint_state(self, ckpt: dict):
         self.model.load_state_dict(ckpt["state_dict"]["model"])
@@ -198,6 +194,7 @@ class AdversarialTaskBase(BaseTask):
         for opt, st in zip((self.opt_gen, self.opt_disc), ckpt.get("optimizer_states") or []):
             opt.load_state_dict(st)
         set_np_rng_state(self._np_rng, ckpt["np_rng"])
+        self.load_accumulator_state(ckpt)
 
     # ------------------------------------------------------------------
     # the two optimizer steps (JAX: adv_base.py:181-300)
@@ -239,7 +236,7 @@ class AdversarialTaskBase(BaseTask):
                     hparams.get("discriminator_grad_norm", 0), hparams.get("clip_grad_value"))
         return losses
 
-    def training_step(self, batch, step: int, optimizer_idx: int):
+    def _training_step(self, batch, step: int, optimizer_idx: int):
         """(total loss, logs) of optimizer ``optimizer_idx`` at ``step``, or
         None when it is idle."""
         disc_on = self._disc_start(step)

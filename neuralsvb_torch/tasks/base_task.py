@@ -4,6 +4,13 @@
 A task owns model construction, its dataloaders and the per-batch steps;
 ``training/trainer.py`` owns the training loop, checkpoints and the logger.
 ``start`` runs ``Trainer.fit`` or, with ``--infer``, the inference loop.
+
+The optimizer update (``update``) is the JAX package's optax chain: under
+data parallelism the gradients are first averaged over the world
+(``parallel/ddp.py``), and with ``accumulate_grad_batches: k`` an
+``optax.MultiSteps`` counterpart (``training/optim.py``) holds the update
+until the k-th micro-step of that optimizer. ``apply_in_dtype`` is the SVB
+tasks' ``compute_dtype`` cast at the apply boundary.
 """
 
 from __future__ import annotations
@@ -13,13 +20,15 @@ import json
 import os
 import queue
 import threading
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..data.batching import batch_by_size
 from ..hparams import hparams
+from ..parallel import ddp
+from ..training.optim import MultiSteps
 
 
 class DataLoaderLite:
@@ -112,10 +121,60 @@ def clip_gradients(params, max_norm: float, clip_value: float = 0.0) -> None:
         torch._foreach_mul_(grads, scale)
 
 
-def mesh_devices(mesh_shape) -> int:
-    """The device count a ``mesh_shape`` such as ``data:4,model:2`` names."""
-    return int(np.prod([int(p.split(":")[1]) for p in str(mesh_shape or "").split(",")
-                        if ":" in p] or [1]))
+def _cast_floats(tree, src, dst):
+    """Every tensor of dtype ``src`` in a nest of dicts, lists and tuples
+    cast to ``dst`` (differentiable); the rest passes through."""
+    if torch.is_tensor(tree):
+        return tree.to(dst) if tree.dtype == src else tree
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, src, dst) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_floats(v, src, dst) for v in tree)
+    return tree
+
+
+def apply_in_dtype(module: torch.nn.Module, dtype: Optional[torch.dtype], *args,
+                   carry: Sequence[str] = (), **kwargs):
+    """``module(*args, **kwargs)`` run in ``dtype`` (None: as it is), the
+    JAX package's ``compute_dtype`` cast at the apply boundary
+    (``neuralsvb_tpu/tasks/svb_vae_task.py:482-536``). Float parameters and
+    float tensors among the arguments become ``dtype`` copies: the
+    parameters' copies are differentiable, so gradients land on the master
+    leaves as the transpose of the JAX cast does. Float buffers (BatchNorm
+    statistics) are rounded through ``dtype`` but stay in the master dtype:
+    flax's BatchNorm updates its statistics in float32 from the cast ones
+    (``models/common.py`` ``_batch_norm``). Float outputs come back in the
+    master dtype, and the updated statistics of the buffers whose names
+    start with a prefix in ``carry`` are copied back (the JAX step returns
+    its mutable ``batch_stats``). Not autocast: the whole body runs in
+    ``dtype``, softmax and reductions included; the norms compute their
+    statistics in float32, as flax's do."""
+    if dtype is None:
+        return module(*args, **kwargs)
+    master = next(module.parameters()).dtype
+    params = {n: p.to(dtype) for n, p in module.named_parameters()
+              if p.is_floating_point()}
+    bufs = {n: b.to(dtype).to(b.dtype) for n, b in module.named_buffers()
+            if b.is_floating_point()}
+    out = torch.func.functional_call(module, {**params, **bufs},
+                                     _cast_floats(args, master, dtype),
+                                     _cast_floats(kwargs, master, dtype))
+    if carry:
+        with torch.no_grad():
+            for n, b in module.named_buffers():
+                if n in bufs and n.startswith(tuple(carry)):
+                    b.copy_(bufs[n])
+    return _cast_floats(out, dtype, master)
+
+
+def compute_dtype() -> Optional[torch.dtype]:
+    """The ``compute_dtype`` hparam: bfloat16, or None (the master dtype)."""
+    cdt = hparams.get("compute_dtype")
+    if cdt in (None, "", "float32"):
+        return None
+    if cdt != "bfloat16":
+        raise ValueError(f"compute_dtype {cdt!r}: float32 or bfloat16")
+    return torch.bfloat16
 
 
 def np_rng_state(rng: np.random.RandomState) -> dict:
@@ -153,6 +212,9 @@ class BaseTask:
         self.trainer = None
         self.logger = None
         self.grad_hook = None  # (name, params) after backward, before clipping
+        self.accumulators: Dict[str, MultiSteps] = {}
+        # the data-parallel degree; a model axis or a mesh unlike the world raises
+        self.n_devices = ddp.data_parallel_size(hparams.get("mesh_shape"))
 
     def _dict_size(self) -> int:
         """The ASR's token vocabulary: ``len(phone_set.json) + 10``, else 100."""
@@ -167,22 +229,55 @@ class BaseTask:
         """The label under which the trainer times step ``step``."""
         return "train"
 
+    def build_accumulators(self, groups: Dict[str, list]) -> None:
+        """One ``MultiSteps`` per optimizer (``accumulate_grad_batches`` >
+        1); each counts the micro-steps of its own optimizer."""
+        k = int(hparams.get("accumulate_grad_batches", 1) or 1)
+        self.accumulators = ({name: MultiSteps(params, k) for name, params in groups.items()}
+                             if k > 1 else {})
+
+    def accumulator_state(self) -> dict:
+        return {n: a.state_dict() for n, a in self.accumulators.items()}
+
+    def load_accumulator_state(self, ckpt: dict) -> None:
+        for n, st in (ckpt.get("accumulators") or {}).items():
+            if n in self.accumulators:
+                self.accumulators[n].load_state_dict(st)
+
     def update(self, name, opt, params, total, lr, max_norm, clip_value=0.0):
         """Backward, then clip and the optimizer's step at ``lr``; a
         parameter without a gradient steps with a zero one, as an optax
-        chain steps every leaf."""
+        chain steps every leaf. Under data parallelism the gradients are
+        the world's mean (the global batch's gradient); under accumulation
+        a micro-step before the k-th only folds them into the running mean
+        and leaves the parameters and the optimizer's state untouched."""
         opt.zero_grad(set_to_none=True)
         if torch.is_tensor(total) and total.requires_grad:
             total.backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        ddp.average_gradients(params)
         if self.grad_hook is not None:
             self.grad_hook(name, params)
+        acc = self.accumulators.get(name)
+        if acc is not None and not acc.accumulate():
+            return
         clip_gradients(params, float(max_norm or 0), float(clip_value or 0))
         for group in opt.param_groups:
             group["lr"] = lr
         opt.step()
+
+    def training_step(self, batch, step: int, optimizer_idx: int):
+        """(total loss, logs) of optimizer ``optimizer_idx`` at ``step``, or
+        None when it is idle (``_training_step``), inside ``ddp.sharded``
+        over the task's data-parallel world: the task takes its rows of the
+        global batch and its losses are the global batch's."""
+        with ddp.sharded(self.n_devices):
+            return self._training_step(ddp.local_batch(batch), step, optimizer_idx)
+
+    def _training_step(self, batch, step: int, optimizer_idx: int):
+        raise NotImplementedError
 
     def build_model(self):
         raise NotImplementedError
@@ -193,14 +288,28 @@ class BaseTask:
 
     def build_dataloader(self, dataset, shuffle: bool = False, max_tokens=None,
                          max_sentences=None, endless: bool = False,
-                         use_batch_by_size: bool = True) -> DataLoaderLite:
+                         use_batch_by_size: bool = True, n_devices: int = 1) -> DataLoaderLite:
+        """Index batches of ``dataset``; over ``n_devices`` data-parallel
+        ranks the JAX package's global budget: ``max_tokens`` and
+        ``max_sentences`` times N, batch sizes a multiple of N, each batch
+        trimmed to a multiple of N and empty ones dropped
+        (``neuralsvb_tpu/tasks/base_task.py:108-130``). Every rank builds the
+        same global batches and keeps its rows (``ddp.local_batch``)."""
+        if max_tokens is not None:
+            max_tokens *= n_devices
+        if max_sentences is not None:
+            max_sentences *= n_devices
         indices = dataset.ordered_indices()
         if use_batch_by_size:
             batches = batch_by_size(indices, dataset.num_tokens, max_tokens=max_tokens,
-                                    max_sentences=max_sentences)
+                                    max_sentences=max_sentences,
+                                    required_batch_size_multiple=n_devices)
         else:
             ms = max_sentences or 1
             batches = [list(indices[i:i + ms]) for i in range(0, len(indices), ms)]
+        if n_devices > 1:
+            batches = [b for b in (ddp.trim_batch_to_multiple(b, n_devices)
+                                   for b in batches) if b]
         prefetch = 4 if shuffle and int(hparams.get("ds_workers", 1) or 0) > 0 else 0
         return DataLoaderLite(dataset, batches, endless=endless, shuffle=shuffle,
                               seed=int(hparams.get("seed", 1234)), prefetch=prefetch)

@@ -10,6 +10,7 @@ from typing import Dict
 import torch
 
 from ..ops.ssim import ssim
+from ..parallel import ddp
 
 
 def nan_guard(x: torch.Tensor) -> torch.Tensor:
@@ -23,15 +24,17 @@ def weights_nonzero_speech(target: torch.Tensor) -> torch.Tensor:
     return w.expand_as(target)
 
 
+# every masked mean divides by the global batch's weight in a data-parallel
+# step (``ddp.all_sum`` is the identity otherwise)
 def l1_mel_loss(out, target):
     w = weights_nonzero_speech(target)
-    return ((out - target).abs() * w).sum() / w.sum()
+    return ddp.all_sum(((out - target).abs() * w).sum()) / ddp.all_sum(w.sum())
 
 
 def ssim_mel_loss(out, target, bias: float = 6.0):
     w = weights_nonzero_speech(target)
     s = ssim(out[:, None] + bias, target[:, None] + bias, size_average=False)
-    return ((1 - s) * w).sum() / w.sum()
+    return ddp.all_sum(((1 - s) * w).sum()) / ddp.all_sum(w.sum())
 
 
 def parse_mel_losses(spec: str) -> Dict[str, float]:
@@ -57,4 +60,4 @@ def add_mel_loss(loss_and_lambda: Dict[str, float], out, target,
 
 
 def mse(x: torch.Tensor, target_value: float) -> torch.Tensor:
-    return ((x - target_value) ** 2).mean()
+    return ddp.global_mean((x - target_value) ** 2)

@@ -4,6 +4,22 @@
 
 The ``device`` hparam picks where the model runs (``cuda`` in
 ``vae_global_mle_eng_torch.yaml``); asking for CUDA without a GPU raises.
+
+Data-parallel training: ``torchrun --nproc_per_node N -m
+neuralsvb_torch.tasks.run --config ... --hparams "mesh_shape=data:N"``
+(``mesh_shape=''`` takes the launched world). Each process joins the world
+before the task starts and leaves it at the end, as the JAX entry joins
+its multi-host world under ``NSVB_MULTIHOST``; ``device=cuda`` becomes the
+rank's ``cuda:LOCAL_RANK`` over NCCL, an explicit ``device=cuda:0`` puts
+every rank on that card over gloo, and ``device=cpu`` takes gloo
+(``parallel/ddp.py`` ``init_process_group``). Rank 0 alone writes
+checkpoints, the config and the log (``training/trainer.py``).
+
+``compute_dtype: bfloat16`` also sets ``torch.set_float32_matmul_precision
+("medium")`` on the card, the nearest counterpart of the JAX entry's
+``jax_default_matmul_precision=bfloat16``: float32 matmuls outside the bf16
+apply may then use bf16 products. cuDNN's float32 convolutions stay off
+TF32.
 """
 
 import importlib
@@ -11,6 +27,7 @@ import importlib
 import torch
 
 from ..hparams import hparams, set_hparams
+from ..parallel import ddp
 
 
 def run_task():
@@ -19,9 +36,20 @@ def run_task():
     # float32 throughout: cuDNN would otherwise run float32 convs in TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    device = str(hparams.get("device") or "")
+    rank_device = ddp.init_process_group(device) if device else None
+    if rank_device is not None:
+        device = hparams["device"] = str(rank_device)
+        print(f"| data parallel: rank {ddp.rank()}/{ddp.world_size()} on {device} "
+              f"({torch.distributed.get_backend()})")
+    if hparams.get("compute_dtype") == "bfloat16" and device.startswith("cuda"):
+        torch.set_float32_matmul_precision("medium")
     pkg, cls_name = hparams["task_cls"].rsplit(".", 1)
     task_cls = getattr(importlib.import_module(pkg), cls_name)
-    return task_cls.start()
+    try:
+        return task_cls.start()
+    finally:
+        ddp.destroy_process_group()
 
 
 def main():

@@ -26,7 +26,7 @@ from typing import Dict
 import torch
 
 from ..convert.jax2torch import vcppg_from_jax
-from ..data.datasets import FastSingingF0AlignDataset
+from ..data.datasets import FastSingingF0AlignDataset, maybe_concat_dataset
 from ..hparams import hparams
 from ..models.svb_ppg import ParaSVBPPG
 from ..ops.pitch_utils import denorm_f0
@@ -194,10 +194,10 @@ class SVBParaTask(AdversarialTaskBase):
 
     # ------------------------------------------------------------------
     def train_dataloader(self):
-        ds = self.dataset_cls(hparams["train_set_name"], shuffle=True)
+        ds = maybe_concat_dataset(self.dataset_cls, hparams["train_set_name"], shuffle=True)
         return self.build_dataloader(ds, True, hparams["max_tokens"],
                                      hparams["max_sentences"],
-                                     endless=hparams["endless_ds"])
+                                     endless=hparams["endless_ds"], n_devices=self.n_devices)
 
     def val_dataloader(self):
         ds = self.dataset_cls(hparams["valid_set_name"], shuffle=False)

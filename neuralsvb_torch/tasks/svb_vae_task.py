@@ -20,6 +20,19 @@ of its schedule at the step. Random draws of a step come from a
 ``torch.Generator`` seeded by (seed, step), so a resumed run draws what the
 uninterrupted run draws.
 
+The JAX package's training options: ``accumulate_grad_batches`` (one
+``MultiSteps`` per optimizer; the trainer still counts every batch as a
+step, so schedules and phases advance per micro-batch), ``compute_dtype:
+bfloat16`` (the model and the discriminator run in bf16 behind the cast at
+the apply boundary, ``apply_in_dtype``; parameters, optimizer states,
+losses and the carried BatchNorm statistics stay in the master dtype),
+``use_cond_disc`` (the discriminator's conditional branch, which no step
+feeds: see ``models/disc.py``), ``binary_data_dirs`` (a concatenation of
+the directories' train splits; the PPG cache then streams, see
+``_build_ppg_cache``) and data parallelism over ``mesh_shape``
+(``parallel/ddp.py``: each rank takes its rows of the global batch, and
+the step computes what one process computes on the global batch).
+
 Inference (``--infer``): packed test split -> ``SVBVAE`` forward for the
 three ways -> HiFiGAN-NSF ->
 ``generated_{step}_{gen_dir_name}/wavs/{gt_a,gt_p,a2a,p2p,a2p}_wavout`` and
@@ -43,15 +56,15 @@ from ..convert import msgpack_ckpt
 from ..convert.checkpoint import (is_torch_file, load_into, load_state_dict,
                                   newest_checkpoint)
 from ..convert.jax2torch import svbvae_from_jax, vcasr_from_jax
-from ..data.datasets import MultiSpkEmbDataset
+from ..data.datasets import MultiSpkEmbDataset, maybe_concat_dataset
 from ..hparams import hparams, resolve_device
 from ..models.disc import Discriminator
 from ..models.svb_vae import SVBVAE, WAYS
 from ..ops.fused_resblock import KERNEL_COUNTERS
 from ..ops.pitch_utils import denorm_f0
 from ..training.schedulers import rsqrt_schedule, step_lr_schedule
-from .base_task import (BaseTask, copy_parameters, mesh_devices, no_grad_for,
-                        np_rng_state, set_np_rng_state, step_generator)
+from .base_task import (BaseTask, apply_in_dtype, compute_dtype, copy_parameters,
+                        no_grad_for, np_rng_state, set_np_rng_state, step_generator)
 from .losses import add_mel_loss, mse, nan_guard, parse_mel_losses
 
 
@@ -82,8 +95,9 @@ class SVBVAEMleTask(BaseTask):
         self.rand_device = self.device
         self.disc_start_frames_wins = None  # pins the discriminator's windows
         self._train_ds = None
-        self._ppg_cache = None
+        self._ppg_cache = None  # built at the first cached batch; {} streams
         self._pending_disc = None
+        self.cdt = compute_dtype()
         self.vocoder_calls = 0
 
     def build_model(self):
@@ -122,36 +136,19 @@ class SVBVAEMleTask(BaseTask):
 
     # ------------------------------------------------------------------
     # training set-up
-    @staticmethod
-    def check_train_options():
-        """Options of the JAX package this port does not train with."""
-        hp = hparams
-        refused = {
-            "accumulate_grad_batches > 1 (optax MultiSteps)":
-                int(hp.get("accumulate_grad_batches", 1) or 1) > 1,
-            "compute_dtype: bfloat16": hp.get("compute_dtype") == "bfloat16",
-            "use_cond_disc: true": bool(hp.get("use_cond_disc")),
-            "binary_data_dirs (multi-dataset training)": bool(hp.get("binary_data_dirs")),
-            "a mesh_shape over more than one device (DDP)":
-                mesh_devices(hp.get("mesh_shape")) > 1,
-        }
-        for what, on in refused.items():
-            if on:
-                raise NotImplementedError(f"{what} is not ported to PyTorch yet "
-                                          "(ROADMAP.md)")
-
     def build_train(self):
         """Discriminator, optimizers and schedules; the frozen ASR stays
         without gradients (reference: svb_vae_task.py:290-434)."""
         hp = hparams
-        self.check_train_options()
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(self.seed + 1)
             self.mel_disc = Discriminator(
                 time_lengths=(32, 64, 128)[: hp["disc_win_num"]],
                 freq_length=hp["audio_num_mel_bins"],
                 hidden_size=hp["mel_disc_hidden_size"], norm_type=hp["disc_norm"],
-                reduction=hp["disc_reduction"]).to(self.device)
+                reduction=hp["disc_reduction"],
+                cond_size=hp["hidden_size"] if hp.get("use_cond_disc") else 0
+            ).to(self.device)
         self.model.requires_grad_(True)
         self.model.vc_asr.requires_grad_(False)
         self._load_pretrained_asr()
@@ -179,6 +176,8 @@ class SVBVAEMleTask(BaseTask):
         msp = hp.get("map_scheduler_params") or {"step_size": 60000, "gamma": 0.5}
         self.sched_map = step_lr_schedule(hp["map_lr"], msp["step_size"], msp["gamma"])
         self.loss_and_lambda = parse_mel_losses(hp["mel_loss"])
+        self.build_accumulators({"gen": self.gen_params, "disc": self.disc_params,
+                                 "map": self.map_params})
 
     def _from_jax(self, state: dict) -> Dict[str, torch.Tensor]:
         """A JAX package checkpoint's ``state`` -> the model's state_dict."""
@@ -243,6 +242,7 @@ class SVBVAEMleTask(BaseTask):
             "optimizer_states": [self.opt_gen.state_dict(), self.opt_disc.state_dict(),
                                  self.opt_map.state_dict()],
             "emb_column_rng": np_rng_state(self._np_rng),
+            "accumulators": self.accumulator_state(),
         }
 
     def load_checkpoint_state(self, ckpt: dict):
@@ -254,6 +254,7 @@ class SVBVAEMleTask(BaseTask):
             opt.load_state_dict(st)
         if "emb_column_rng" in ckpt:
             set_np_rng_state(self._np_rng, ckpt["emb_column_rng"])
+        self.load_accumulator_state(ckpt)
         # cached PPG rows came from the ASR weights before the restore
         self._ppg_cache = None
 
@@ -286,7 +287,9 @@ class SVBVAEMleTask(BaseTask):
         """Collated numpy batch -> model inputs on the device. Inference
         takes speaker-embedding column 0, a training batch a random other
         column (reference: svb_vae_task.py:139-143); with ``cache_ppg`` a
-        training batch carries the cached content rows."""
+        training batch carries the cached content rows. In a data-parallel
+        step the batch holds this rank's rows (``BaseTask.training_step``)
+        and every rank draws the same column."""
         def dev(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
         real = torch.get_default_dtype()
@@ -301,7 +304,9 @@ class SVBVAEMleTask(BaseTask):
             "spk_emb": dev(batch["multi_spk_emb"][:, col], real),
         }
         if train and not _off(hparams.get("cache_ppg", False)):
-            b["ppg_a"], b["ppg_p"] = self._cached_ppg(batch)
+            rows = self._cached_ppg(batch)
+            if rows is not None:
+                b["ppg_a"], b["ppg_p"] = rows
         return b
 
     def _mel_stride(self) -> int:
@@ -310,12 +315,24 @@ class SVBVAEMleTask(BaseTask):
     @torch.no_grad()
     def _build_ppg_cache(self):
         """The frozen ASR's content rows of every train item, each side
-        computed alone at its exact length, kept on the device in f32."""
+        computed alone at its exact length, kept on the device in f32.
+
+        Batches address the cache by their items' ``id``. The members of a
+        concatenation (``binary_data_dirs``) emit member-local ids, so two
+        members' item 0 would share a row; there the JAX package's device
+        cache streams instead (``neuralsvb_tpu/data/device_cache.py:120-133``)
+        and the model computes the PPG in the step, at the collate-length
+        rel-pos. The port does the same: returns an empty cache."""
         t0 = time.perf_counter()
         cache = {"a": {}, "p": {}}
         ds = self._train_ds
         for i in range(len(ds)):
             s = ds[i]
+            if int(s["id"]) != i:
+                print("| PPG cache: the train items' ids are not global indices (a "
+                      "concatenation of binary_data_dirs); computing the PPG in every "
+                      "step instead, as the JAX package's device cache streams")
+                return {}
             for side, key in (("a", "mel"), ("p", "prof_mel")):
                 mel = torch.as_tensor(s[key], dtype=torch.get_default_dtype(),
                                       device=self.device).T[None]
@@ -328,6 +345,8 @@ class SVBVAEMleTask(BaseTask):
     def _cached_ppg(self, batch):
         if self._ppg_cache is None:
             self._ppg_cache = self._build_ppg_cache()
+        if not self._ppg_cache:
+            return None
         stride, H = self._mel_stride(), hparams["hidden_size"]
         out = []
         for side, key in (("a", "mels"), ("p", "prof_mels")):
@@ -339,13 +358,16 @@ class SVBVAEMleTask(BaseTask):
             out.append(rows)
         return out
 
-    def _run_model(self, b, ways, generator, exact_lengths=None):
-        return self.model(b["mels"], b["prof_mels"], b["pitch"], b["prof_pitch"],
-                          b["spk_emb"], b["a2p_f0_alignment"],
-                          disable_map=bool(hparams.get("disable_map", False)),
-                          generator=generator, zero_noise=self.zero_noise, ways=ways,
-                          exact_lengths=exact_lengths, ppg_a=b.get("ppg_a"),
-                          ppg_p=b.get("ppg_p"))
+    def _run_model(self, b, ways, generator, exact_lengths=None, carry=()):
+        """The model on the batch in ``compute_dtype``; ``carry`` names the
+        modules whose BatchNorm statistics the step keeps (see
+        ``apply_in_dtype``)."""
+        return apply_in_dtype(
+            self.model, self.cdt, b["mels"], b["prof_mels"], b["pitch"], b["prof_pitch"],
+            b["spk_emb"], b["a2p_f0_alignment"], carry=carry,
+            disable_map=bool(hparams.get("disable_map", False)),
+            generator=generator, zero_noise=self.zero_noise, ways=ways,
+            exact_lengths=exact_lengths, ppg_a=b.get("ppg_a"), ppg_p=b.get("ppg_p"))
 
     @torch.no_grad()
     def forward(self, b):
@@ -362,8 +384,9 @@ class SVBVAEMleTask(BaseTask):
                              postfix=way)
         return losses
 
-    def _adv_loss(self, mel, generator, target: float):
-        o = self.mel_disc(mel, self.disc_start_frames_wins, generator)
+    def _adv_loss(self, mel, generator, target: float, carry=()):
+        o = apply_in_dtype(self.mel_disc, self.cdt, mel, self.disc_start_frames_wins,
+                           generator, carry=carry)
         return None if o["y"] is None else mse(o["y"], target)
 
     # ------------------------------------------------------------------
@@ -371,7 +394,7 @@ class SVBVAEMleTask(BaseTask):
     def gen_step(self, b, ways, disc_on: bool, lr: float, generator):
         self.model.train()
         self.mel_disc.eval()
-        out = self._run_model(b, ways, generator)
+        out = self._run_model(b, ways, generator, carry=("",))
         losses = self._model_losses(out, b, ways)
         if disc_on:
             with no_grad_for(self.disc_params):
@@ -388,8 +411,8 @@ class SVBVAEMleTask(BaseTask):
         losses: Dict[str, torch.Tensor] = {}
         for way in ways:
             mel_g = b["prof_mels"] if way in ("p2p", "a2p") else b["mels"]
-            real = self._adv_loss(mel_g, generator, 1.0)
-            fake = self._adv_loss(fakes[way], generator, 0.0)
+            real = self._adv_loss(mel_g, generator, 1.0, carry=("",))
+            fake = self._adv_loss(fakes[way], generator, 0.0, carry=("",))
             if real is not None:
                 losses[f"{way}_r"] = real
             if fake is not None:
@@ -413,7 +436,8 @@ class SVBVAEMleTask(BaseTask):
             getattr(self.model, k).train()
         self.mel_disc.eval()
         with no_grad_for(self.gen_params + self.disc_params):
-            out = self._run_model(b, all_ways, generator, exact_lengths=False)
+            out = self._run_model(b, all_ways, generator, exact_lengths=False,
+                                  carry=self.model.mapping_keys)
             losses = self._model_losses(out, b, all_ways)
             for way in ways:
                 if way in ("a2a", "p2p"):
@@ -430,7 +454,7 @@ class SVBVAEMleTask(BaseTask):
                     hp.get("generator_grad_norm", 0), hp.get("clip_grad_value"))
         return losses
 
-    def training_step(self, batch, step: int, optimizer_idx: int):
+    def _training_step(self, batch, step: int, optimizer_idx: int):
         """(total loss, logs) of optimizer ``optimizer_idx`` at ``step``, or
         None when it is idle; the generator pass also runs the
         discriminator's, whose result optimizer 1 reports."""
@@ -612,11 +636,11 @@ class SVBVAEMleTask(BaseTask):
 
     # ------------------------------------------------------------------
     def train_dataloader(self):
-        ds = MultiSpkEmbDataset(hparams["train_set_name"], shuffle=True)
+        ds = maybe_concat_dataset(MultiSpkEmbDataset, hparams["train_set_name"], shuffle=True)
         self._train_ds = ds  # the PPG cache's items
         return self.build_dataloader(ds, True, hparams["max_tokens"],
                                      hparams["max_sentences"],
-                                     endless=hparams["endless_ds"])
+                                     endless=hparams["endless_ds"], n_devices=self.n_devices)
 
     def val_dataloader(self):
         ds = MultiSpkEmbDataset(hparams["valid_set_name"], shuffle=False)

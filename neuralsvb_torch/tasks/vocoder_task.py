@@ -19,7 +19,16 @@ batch. The NSF draws of a step come from a ``torch.Generator`` seeded by
 (seed, step), so a resumed run draws what the uninterrupted run draws;
 ``zero_noise`` makes them zero. Checkpoints hold ``state_dict.model_gen``
 (what ``vocoders/hifigan.py`` loads), ``mpd`` and ``msd`` and both
-optimizer states. The JAX mesh and jit step cache are left out.
+optimizer states.
+
+``mesh_shape: data:N`` trains data-parallel over N ranks started by
+``torchrun`` (``parallel/ddp.py``), as the JAX task trains over its
+``data`` mesh: the batch budget is ``max_sentences x N``, every rank crops
+the same global batch and keeps its rows, the NSF draws are the global
+batch's, and the losses' means run over the global batch. A mesh the
+launched world cannot honour raises. The JAX vocoder tasks do not read
+``accumulate_grad_batches`` (their optimizers have no ``MultiSteps``), and
+neither do these.
 
 ``PWGTask`` trains the Parallel WaveGAN generator the same way, with the
 multi-resolution STFT loss, one discriminator and RAdam (``PWGTask`` of
@@ -41,6 +50,7 @@ from ..models.hifigan import (HifiGanGenerator, MultiPeriodDiscriminator,
                               generator_loss)
 from ..models.stft_loss import DEFAULT_RESOLUTIONS, multi_resolution_stft_loss
 from ..ops.stft import log_mel_batch
+from ..parallel import ddp
 from ..training.optim import RAdam
 from ..training.schedulers import step_lr_schedule
 from .base_task import BaseTask, no_grad_for, step_generator
@@ -162,8 +172,10 @@ class HifiGanTask(BaseTask):
 
     # ------------------------------------------------------------------
     def _prep_batch(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(batch[k]), dtype=torch.float32,
-                                   device=self.device) for k in ("wavs", "mels", "f0")}
+        """Moves the batch to the device in the default float dtype."""
+        real = torch.get_default_dtype()
+        return {k: torch.as_tensor(np.asarray(batch[k]), dtype=real, device=self.device)
+                for k in ("wavs", "mels", "f0")}
 
     def _mel_fn(self, wav):
         hp = hparams
@@ -186,7 +198,8 @@ class HifiGanTask(BaseTask):
         y_hat = self._generate(b, generator)
         with torch.no_grad():
             mel_ref = self._mel_fn(b["wavs"])
-        losses = {"mel": (self._mel_fn(y_hat) - mel_ref).abs().mean() * hp.get("lambda_mel", 5.0)}
+        losses = {"mel": ddp.global_mean((self._mel_fn(y_hat) - mel_ref).abs())
+                  * hp.get("lambda_mel", 5.0)}
         with no_grad_for(self.disc_params):
             p_g, fp_g = self.mpd(y_hat)
             s_g, fs_g = self.msd(y_hat)
@@ -213,7 +226,7 @@ class HifiGanTask(BaseTask):
                     hparams.get("discriminator_grad_norm", 1))
         return losses
 
-    def training_step(self, batch, step: int, optimizer_idx: int):
+    def _training_step(self, batch, step: int, optimizer_idx: int):
         """(total loss, logs) of optimizer ``optimizer_idx`` at ``step``, or
         None when it is idle."""
         if optimizer_idx == 0:
@@ -245,7 +258,8 @@ class HifiGanTask(BaseTask):
     def train_dataloader(self):
         ds = VocoderDataset(hparams["train_set_name"], shuffle=True)
         return self.build_dataloader(ds, True, None, hparams.get("max_sentences", 24),
-                                     endless=hparams["endless_ds"], use_batch_by_size=False)
+                                     endless=hparams["endless_ds"], use_batch_by_size=False,
+                                     n_devices=self.n_devices)
 
     def val_dataloader(self):
         ds = VocoderDataset(hparams["valid_set_name"], shuffle=False)
@@ -331,9 +345,11 @@ class PWGTask(HifiGanTask):
 
     # ------------------------------------------------------------------
     def noise(self, wavs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        """z ~ N(0, 1) [B, 1, N] for the crops ``wavs`` [B, N]."""
-        return torch.randn((wavs.shape[0], 1, wavs.shape[1]), generator=generator,
-                           device=self.device, dtype=wavs.dtype)
+        """z ~ N(0, 1) [B, 1, N] for the crops ``wavs`` [B, N] (a
+        data-parallel step's rows of the global batch's draw)."""
+        return ddp.draw_rows(lambda s: torch.randn(s, generator=generator, device=self.device,
+                                                   dtype=wavs.dtype),
+                             (wavs.shape[0], 1, wavs.shape[1]))
 
     def _generate(self, b, generator):
         self.vocoder_calls += 1

@@ -7,6 +7,9 @@ function: it adds ``eps`` to ``sqrt(v)`` before the bias correction (so
 ``eps / sqrt(1 - b2^t)`` sits on ``sqrt(v_hat)``), and it rectifies when
 ``rho_t > 5`` where optax does when ``rho_t >= 5``. With ``b2 = 0.999``,
 ``rho_t`` first reaches 5 at step 6 (4.996 at step 5, 5.994 at step 6).
+
+``MultiSteps`` is ``optax.MultiSteps`` (gradient accumulation,
+``accumulate_grad_batches``) in front of any of the port's optimizer chains.
 """
 
 from __future__ import annotations
@@ -15,6 +18,50 @@ import numpy as np
 import torch
 
 RHO_THRESHOLD = 5.0  # optax's default: rectify when rho_t >= 5
+
+
+class MultiSteps:
+    """``optax.MultiSteps(chain, every_k_schedule=k)`` with optax's default
+    ``use_grad_mean``: the gradients of ``k`` micro-steps are averaged as a
+    running mean (``acc += (g - acc) / (n + 1)``, optax's Welford update),
+    and the inner chain (clip, Adam, decoupled decay) runs once, on the
+    mean, at the k-th micro-step. Between, it emits no update: the caller
+    skips the optimizer's step, so parameters and the Adam count stay as
+    they are (a torch ``AdamW.step()`` on a zero gradient would still decay
+    the weights and advance the count)."""
+
+    def __init__(self, params, every_k: int):
+        self.every_k = int(every_k)
+        self.params = list(params)
+        self.mini_step = 0
+        self.acc = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def accumulate(self) -> bool:
+        """Fold the parameters' ``.grad`` into the running mean. At the k-th
+        micro-step the mean replaces ``.grad`` and the state resets: returns
+        True, the chain's turn to step."""
+        n = self.mini_step
+        grads = [p.grad for p in self.params]
+        delta = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(delta, float(n + 1))
+        torch._foreach_add_(self.acc, delta)
+        if n + 1 < self.every_k:
+            self.mini_step = n + 1
+            return False
+        torch._foreach_copy_(grads, self.acc)
+        torch._foreach_zero_(self.acc)
+        self.mini_step = 0
+        return True
+
+    def state_dict(self) -> dict:
+        return {"mini_step": self.mini_step, "acc": [a.clone() for a in self.acc]}
+
+    def load_state_dict(self, st: dict) -> None:
+        self.mini_step = int(st["mini_step"])
+        with torch.no_grad():
+            for a, b in zip(self.acc, st["acc"]):
+                a.copy_(b)
 
 
 class RAdam(torch.optim.Optimizer):

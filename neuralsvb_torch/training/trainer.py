@@ -10,10 +10,20 @@ saving at the end and on KeyboardInterrupt. ``--validate`` runs one full
 validation pass on the restored checkpoint. At the end it prints
 ``| train summary: {json}``: steps, device-synchronized seconds per step by
 phase, validation time, peak device memory and the kernels' launches.
+
+Every batch counts as a step, under gradient accumulation too (the JAX
+trainer's rule, ``neuralsvb_tpu/training/trainer.py:61``). Under data
+parallelism every rank runs this loop on the same global batches, loads
+the same checkpoint and validates unsharded (the JAX package replicates its
+eval batches), and rank 0 alone writes checkpoints, ``config.yaml``, the
+log and the validation audio; the others wait for it at a barrier after
+each save. A rank that fails ends its process with an error, and torchrun
+ends the world.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -25,11 +35,25 @@ import yaml
 
 from ..hparams import hparams
 from ..ops.fused_resblock import KERNEL_COUNTERS
+from ..parallel import ddp
 from .checkpoint import get_last_checkpoint, load_checkpoint, save_checkpoint
 from .logger import JsonLogger
 
 # per-process keys of the CLI, not part of a run's configuration
 RUN_KEYS = ("infer", "debug", "validate", "exp_name")
+
+
+def state_digest(state_dict: dict) -> str:
+    """SHA-1 of the bytes of every tensor of a nested state dict, in key
+    order."""
+    h = hashlib.sha1()
+    for k in sorted(state_dict):
+        v = state_dict[k]
+        if isinstance(v, dict):
+            h.update(state_digest(v).encode())
+        elif torch.is_tensor(v):
+            h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 class Trainer:
@@ -51,6 +75,7 @@ class Trainer:
         self.current_epoch = 0
         self.best_val = None
         self.logger = None
+        self.is_main = ddp.is_main()
 
     @classmethod
     def from_hparams(cls, hp: dict) -> "Trainer":
@@ -84,7 +109,7 @@ class Trainer:
             print(f"| Restored ckpt: {ckpt}")
         elif hparams.get("load_ckpt"):
             task.warm_start(hparams["load_ckpt"])
-        if self.work_dir:
+        if self.work_dir and self.is_main:
             self.logger = task.logger = JsonLogger(self.work_dir)
             self._write_config()
         for c in KERNEL_COUNTERS:
@@ -157,6 +182,8 @@ class Trainer:
             return
         self._last_log_step = step
         scalars = {k: float(v) for k, v in logs.items()}
+        if not self.is_main:
+            return
         print(f"| step {step}: {json.dumps({k: round(v, 5) for k, v in scalars.items()})}")
         if self.logger is not None:
             self.logger.log_metrics({f"tr/{k}": v for k, v in scalars.items()}, step)
@@ -189,11 +216,13 @@ class Trainer:
     def _save(self, task, is_best: bool = False):
         if not self.work_dir:
             return
-        payload = dict(task.checkpoint_state(), global_step=self.global_step,
-                       epoch=self.current_epoch, checkpoint_callback_best=self.best_val)
-        path = save_checkpoint(payload, self.work_dir, self.global_step,
-                               self.num_ckpt_keep, is_best)
-        print(f"| Saved ckpt: {path}")
+        if self.is_main:
+            payload = dict(task.checkpoint_state(), global_step=self.global_step,
+                           epoch=self.current_epoch, checkpoint_callback_best=self.best_val)
+            path = save_checkpoint(payload, self.work_dir, self.global_step,
+                                   self.num_ckpt_keep, is_best)
+            print(f"| Saved ckpt: {path}")
+        ddp.barrier()
 
     def _summary(self, task, start_step: int) -> dict:
         phases = {}
@@ -202,12 +231,16 @@ class Trainer:
             phases[str(phase)] = {"steps": len(times), "first_step_s": times[0],
                                   "median_warm_step_s": statistics.median(warm),
                                   "mean_warm_step_s": sum(warm) / len(warm)}
-        summary = {"device": str(task.device), "start_step": start_step,
+        summary = {"device": str(task.device), "rank": ddp.rank(),
+                   "world": ddp.world_size(), "start_step": start_step,
                    "end_step": self.global_step, "phases": phases,
                    "validations": self._validations, "validation_s": self._val_seconds,
                    "vocoder_calls": getattr(task, "vocoder_calls", 0),
                    **{f"{c.__name__}_launches": c.launches for c in KERNEL_COUNTERS}}
         if task.device.type == "cuda":
             summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(task.device)
+        if ddp.world_size() > 1:
+            # the ranks step identically: their states hash alike
+            summary["state_digest"] = state_digest(task.checkpoint_state()["state_dict"])
         print(f"| train summary: {json.dumps(summary)}")
         return summary

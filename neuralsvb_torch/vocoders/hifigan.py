@@ -13,6 +13,13 @@ Loading order (``<vocoder_ckpt>/config.yaml`` overrides the generator keys):
    checkpoint under the reference names, or a JAX package checkpoint (its
    ``state.params``);
 3. otherwise seeded random init with a loud warning.
+
+``vocoder_compute_dtype: bfloat16`` (``compute_dtype`` when it is not set)
+runs the whole generator in bf16 and returns f32, as the JAX vocoder does:
+the weights are cast once, the mel enters as bf16, f0 and the NSF phase
+cumsum stay f32 and the sine source is cast to bf16 before ``noise_conv``,
+so every activation after the injection is bf16 and the ResBlock kernel
+takes them as they are (``ops/fused_resblock.py``).
 """
 
 from __future__ import annotations
@@ -87,6 +94,9 @@ class HifiGAN(BaseVocoder):
                 "ported yet (ROADMAP.md); set vocoder_denoise_c: 0.0")
         base_dir = hp.get("vocoder_ckpt", "")
         self.model, self.config, loaded = load_hifigan(base_dir, hp, self.device)
+        cdt = hp.get("vocoder_compute_dtype") or hp.get("compute_dtype")
+        self.dtype = torch.bfloat16 if cdt == "bfloat16" else torch.float32
+        self.model.to(self.dtype)
         if not loaded:
             print(f"| WARNING: no HifiGAN checkpoint under '{base_dir}'; "
                   "using random init (smoke mode).")
@@ -104,6 +114,6 @@ class HifiGAN(BaseVocoder):
         f0 = (torch.zeros(T, device=self.device) if f0 is None else
               torch.as_tensor(f0, dtype=torch.float32, device=self.device))
         f0_p = torch.nn.functional.pad(f0, (0, Tb - T))
-        wav = self.model(mel_p[None], f0_p[None], generator=self.generator,
+        wav = self.model(mel_p[None].to(self.dtype), f0_p[None], generator=self.generator,
                          zero_noise=zero_noise)
-        return wav[0, : T * self.model.hop]
+        return wav[0, : T * self.model.hop].to(torch.float32)

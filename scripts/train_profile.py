@@ -27,8 +27,12 @@ discriminator step as phase 2. Then:
 
 TF32 is off, as the training CLI sets it. Run from the repository root on
 a machine with a CUDA card: ``python3 scripts/train_profile.py [--config
-YAML ...] [--out FILE]``. It prints one JSON object per recipe and writes
-their list to ``--out`` (default ``build/train_profile.json``).
+YAML ...] [--variant NAME:K=V,... ...] [--out FILE]``. Each ``--variant``
+profiles every recipe again with those hparams on top (e.g. ``--variant
+f32: --variant bf16:compute_dtype=bfloat16`` times the float32 and the bf16
+step in one process, in that order). It prints one JSON object per recipe
+and variant and writes their list to ``--out`` (default
+``build/train_profile.json``).
 """
 
 from __future__ import annotations
@@ -52,6 +56,8 @@ def main():
     ap.add_argument("--warm", type=int, default=4, help="timed steps per phase")
     ap.add_argument("--config", action="append",
                     help="recipe yaml (repeatable; default the flagship's)")
+    ap.add_argument("--variant", action="append",
+                    help="NAME:HPARAMS, profiled per recipe (repeatable; default one, as is)")
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     os.chdir(REPO)
@@ -66,16 +72,19 @@ def main():
     for prefix, seed in (("train", 1), ("valid", 2)):
         write_synthetic_split(data, FRAMES, prefix=prefix, seed=seed)
     results = []
+    variants = [v.partition(":")[::2] for v in args.variant or [":"]]
     for config in args.config or ["egs/datasets/audio/PopBuTFy/vae_global_mle_eng_torch.yaml"]:
-        res = profile_recipe(config, data, args.warm)
-        print(json.dumps(res), flush=True)
-        results.append(res)
+        for name, extra in variants:
+            res = dict(profile_recipe(config, data, args.warm, extra), variant=name,
+                       hparams=extra)
+            print(json.dumps(res), flush=True)
+            results.append(res)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(results, f, indent=1)
 
 
-def profile_recipe(config, data, warm):
+def profile_recipe(config, data, warm, extra=""):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from chip_smoke import kernel_kind, synthetic_crops
@@ -99,9 +108,14 @@ def profile_recipe(config, data, warm):
         data = os.path.join(REPO, "build", "train_profile_speech")
         write_synthetic_speech_split(data, SPEECH_FRAMES)
     hp = set_hparams(config=config,
-                     hparams_str=f"binary_data_dir={data},pretrain_asr_ckpt=,ds_workers=0",
+                     hparams_str=f"binary_data_dir={data},pretrain_asr_ckpt=,ds_workers=0"
+                                 + (f",{extra}" if extra else ""),
                      print_hparams=False, global_hparams=False)
     dev = torch.device("cuda")
+    if hp.get("compute_dtype") == "bfloat16":
+        torch.set_float32_matmul_precision("medium")  # as the training CLI sets it
+    else:
+        torch.set_float32_matmul_precision("highest")
     with hparams_scope(hp, **({"disc_start_steps": 0} if vocoder else {})) as h:
         task = task_cls()
         task.build_model()

@@ -74,3 +74,14 @@ def agree(a, b, tol, name=""):
     assert a.shape == b.shape, (name, a.shape, b.shape)
     d = float(np.abs(a - b).max())
     assert d <= tol, f"{name}: max |d| = {d:.3e} > {tol}"
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module of tiny-width tests: the test
+    workers share the host's cores, and torch's default of one thread per
+    core makes them wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

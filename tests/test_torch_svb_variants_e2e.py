@@ -10,8 +10,7 @@ that changes in phase 3, the frozen ASR never changes.
 
 In-process, each of the four task classes (the technique recipe's and the
 two variants reached through ``task_cls``): train 2 steps across the phases
-and render the test split; the boost task validates a2p already in phase 2;
-the options the flagship refuses, they refuse too.
+and render the test split; the boost task validates a2p already in phase 2.
 """
 
 from __future__ import annotations
@@ -161,14 +160,3 @@ def test_task_trains_and_renders(root, tmp_path, capsys, name):
     for k in WAVS:
         assert len(glob.glob(str(gen / "wavs" / f"{k}_wavout" / "*.wav"))) == 2, k
 
-
-@pytest.mark.parametrize("name", list(TASKS))
-def test_variants_refuse_what_the_flagship_refuses(root, name):
-    from neuralsvb_torch.tasks import svb_vae_task as t
-    hp = set_hparams(config=str(root / "cfg.yaml"), hparams_str="device=cpu",
-                     print_hparams=False, global_hparams=False)
-    with hparams_scope(hp, accumulate_grad_batches=2, **TASKS[name][2]), \
-            pytest.raises(NotImplementedError):
-        task = getattr(t, name)()
-        task.build_model()
-        task.build_train()

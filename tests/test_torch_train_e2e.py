@@ -10,7 +10,7 @@ not change in phase 2 and is the only part of the model that changes in
 phase 3, the discriminator does not change in phase 3, checkpoint
 retention (``num_ckpt_keep`` 2), the resumed run's steps, validation audio,
 the wav tree; in-process, that a resumed run reproduces an uninterrupted
-one bit for bit, and the options the port refuses.
+one bit for bit.
 """
 
 from __future__ import annotations
@@ -196,19 +196,6 @@ def test_resume_reproduces_the_uninterrupted_run(root, tmp_path):
         for i, st in oa["state"].items():
             assert all(torch.equal(v, ob["state"][i][k]) for k, v in st.items())
     assert torch.equal(a["emb_column_rng"]["keys"], b["emb_column_rng"]["keys"])
-
-
-@pytest.mark.parametrize("over", [
-    {"accumulate_grad_batches": 2}, {"compute_dtype": "bfloat16"}, {"use_cond_disc": True},
-    {"mesh_shape": "data:2"}, {"binary_data_dirs": ["a", "b"]}])
-def test_refuses_options_it_does_not_train_with(root, over):
-    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
-    hp = set_hparams(config=str(root / "cfg.yaml"), hparams_str="device=cpu",
-                     print_hparams=False, global_hparams=False)
-    with hparams_scope(hp, **over), pytest.raises(NotImplementedError):
-        task = SVBVAEMleTask()
-        task.build_model()
-        task.build_train()
 
 
 @pytest.mark.parametrize("device, error", [("", ValueError), ("cuda", RuntimeError)])

@@ -199,7 +199,33 @@ Every phase prints one JSON line; any failure raises.
    spawned ranks against one process in float64, then ``torchrun
    --nproc_per_node 2`` through the training CLI with multi-directory
    training, ``cache_ppg``, ``use_cond_disc`` and accumulation, a
-   validation and a resume (``phase_data_parallel``).
+   validation and a resume (``phase_data_parallel``);
+26. FS2 binarize: 2 speakers x 12 utterances of 2-6 s with transcripts and
+   MFA TextGrids through ``python -m neuralsvb_torch.data.binarize --config
+   fs2_adv_torch.yaml`` (``with_f0cwt`` on): 20/4/4 items with ``mel2ph``,
+   ``ph2word`` and the f0's CWT;
+27. FS2 train: ``fs2_adv_torch.yaml`` at the recipe's full width (hidden
+   256, 4 FFT encoder and 4 conv decoder layers, 2 heads, the multi-window
+   discriminator) from seeded weights, 4 steps with the discriminator from
+   step 1, validating at 0, 2 and 4, then a resume to 6: every logged loss
+   finite with JAX's keys, encoder, decoder, predictors and discriminator
+   changed, no kernel launched. Then ``--infer`` twice: with the recipe's
+   PWG (phase 14's hop-128 model; every count 0) and with HiFiGAN-NSF
+   (``vocoder_keys``; 54 + 3 bf16 launches per call, a P and a G call per
+   test item); each writes P and G wavs of frames x 128 samples, the mels
+   and the f0 tracks;
+28. FS2 step time: ``scripts/train_profile.py --config fs2_adv_torch.yaml``
+   at the recipe's budget (30 x 1000 frames, 85 tokens each);
+29. FS2 card vs CPU: the recipe's step, and two steps with ``pitch_type:
+   cwt`` and ``cwt_add_f0_loss``, in float32 and float64 (phase 19's
+   gates);
+30. pitch alignment: ``python -m neuralsvb_torch.tasks.pitch_alignment_task``
+   over phase 6's test split with the six aligners on the card and on the
+   CPU: one χ² launch per item for SADTW and EHSADTW, the host aligners'
+   accuracies equal, the two χ² aligners' differences reported;
+31. MCD: phase 4's ``--infer`` on one utterance at zero noise on the card
+   and on the CPU, ``python -m neuralsvb_torch.tasks.mcd_eval`` between the
+   a2p mels, gated at 0.1 dB.
 
 The line before the last is the kernel table: per kernel its launches on
 the main path (the bf16 ResBlock kernel's also on the training path's
@@ -209,9 +235,11 @@ the technique-prior recipes' training and ``--infer`` processes,
 ``variants_train_launches`` and ``variants_infer_launches``, and on phase
 15's JAX-format vocoder call, ``jax_checkpoint_launches``, and on
 phase 20's warm-started flagship, ``vcppg_warm_start_launches``, on
-phase 24's bf16 vocoder call, ``bf16_vocoder_launches``, and on phase
-25's rank 0 under torchrun, ``data_parallel_train_launches``; the χ²
-kernel's also in the vocoder's binarize pass), worst error, time per call (``ms``; for the
+phase 24's bf16 vocoder call, ``bf16_vocoder_launches``, on phase
+25's rank 0 under torchrun, ``data_parallel_train_launches``, and on phase
+27's HiFiGAN ``--infer`` of FS2, ``fs2_infer_launches``; the χ² kernel's
+also in the vocoder's binarize pass and in phase 30's harness,
+``harness_launches``), worst error, time per call (``ms``; for the
 χ² kernel also ``device_ms``), plain time and bound (``bound_ms``,
 ``bound_by``) at the main path's shapes; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2738,6 +2766,368 @@ def phase_data_parallel(voc, device="cuda:0"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the FastSpeech2 family and the evaluation harnesses (phases 26-31)
+# ---------------------------------------------------------------------------
+
+FS2_RECIPE = "egs/egs_bases/tts/fs2_adv_torch.yaml"
+FS2_SPEAKERS, FS2_UTTS, FS2_TEST_NUM = 2, 12, 4
+FS2_STEPS, FS2_RESUME, FS2_VAL_EVERY = 4, 6, 2
+FS2_GEN_KEYS = {"l1", "ssim", "pdur", "sdur", "f0", "uv", "a", "lr_0"}
+FS2_DISC_KEYS = {"r", "f", "lr_1"}
+FS2_CARD_VS_CPU = dict(items=3, frames=320, starts=[40, 80, 120])
+FS2_CWT = "pitch_type=cwt,lambda_f0=1.0,cwt_add_f0_loss=true"
+MCD_GATE_DB = 0.1  # BASELINE.md:30, the a2p parity metric
+ALIGNERS = ("SADTW", "EHSADTW", "NaiveDTW", "ZMNaiveDTW", "NNaiveDTW", "LoNDTW")
+
+
+def fs2_config(device="cuda", name="fs2.yaml", **over):
+    """``fs2_adv_torch.yaml`` at the recipe's full width (hidden 256, 4 + 4
+    FFT/conv layers, 2 heads, the multi-window discriminator 3 x 128) on
+    phase 26's corpus, binarized with ``with_f0cwt`` as well."""
+    import yaml
+    root = os.path.join(WORK, "fs2")
+    cfg = os.path.join(WORK, name)
+    with open(cfg, "w") as f:
+        yaml.safe_dump(dict({
+            "base_config": [os.path.join(REPO, FS2_RECIPE)],
+            "processed_data_dir": os.path.join(root, "processed"),
+            "binary_data_dir": os.path.join(root, "binary"), "device": device,
+            "binarization_args": {"with_f0cwt": True}, "test_num": FS2_TEST_NUM,
+            "ds_workers": 1, "max_updates": FS2_STEPS, "val_check_interval": FS2_VAL_EVERY,
+            "num_sanity_val_steps": 1, "tb_log_interval": 1}, **over), f)
+    return cfg
+
+
+def phase_fs2_binarize(device="cuda"):
+    """2 speakers x 12 utterances of 2-6 s with transcripts and TextGrids
+    through ``python -m neuralsvb_torch.data.binarize`` with the FS2 recipe;
+    returns its config."""
+    import numpy as np
+    from neuralsvb_torch.data.synthetic import write_synthetic_speech_corpus
+    write_synthetic_speech_corpus(os.path.join(WORK, "fs2", "processed"), FS2_SPEAKERS,
+                                  FS2_UTTS, textgrids=True)
+    cfg = fs2_config(device)
+    wall, summary = run_binarize(cfg, device)
+    binary = os.path.join(WORK, "fs2", "binary")
+    bad, n_items = [], {}
+    for prefix in ("train", "valid", "test"):
+        items = read_split(binary, prefix)
+        n_items[prefix] = len(items)
+        for it in items:
+            T = len(it["mel"])
+            if not (it["mel2ph"].shape == (T,) and it["mel2ph"].max() < len(it["phone"])
+                    and it["cwt_spec"].shape == (T, 10) and np.isfinite(it["cwt_spec"]).all()
+                    and len(it["ph2word"]) == len(it["phone"]) and (it["f0"] > 0).mean() > 0.5):
+                bad.append(f"{it['item_name']}: mel2ph/cwt_spec/ph2word/f0")
+    want = {"train": FS2_SPEAKERS * FS2_UTTS - FS2_TEST_NUM, "valid": FS2_TEST_NUM,
+            "test": FS2_TEST_NUM}
+    if n_items != want or summary["items"] != want:
+        bad.append(f"items {n_items} {summary['items']} != {want}")
+    emit("fs2_binarize", ok=not bad, problems=bad, wall_s=wall, items=n_items,
+         summary=summary)
+    if bad:
+        raise AssertionError(f"fs2 binarize: {bad}")
+    return cfg
+
+
+def wav_frames_check(gen_dir, frames, kinds):
+    """Each kind's wavs are frames x 128 samples long, finite and not
+    silent; returns the problems."""
+    import numpy as np
+    bad = []
+    for kind in kinds:
+        wavs = sorted(glob.glob(f"{gen_dir}/wavs/{kind}/*.wav"))
+        lens = []
+        for wf in wavs:
+            with wave.open(wf) as f:
+                pcm = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+            lens.append(pcm.shape[0])
+            if np.sqrt(np.mean(pcm.astype(np.float64) ** 2)) < 1.0:
+                bad.append(f"{wf} is silent")
+        if sorted(lens) != sorted(f * 128 for f in frames):
+            bad.append(f"{kind}: {sorted(lens)} samples for {sorted(frames)} frames")
+    return bad
+
+
+def phase_fs2_train(cfg, voc, pwg_work, device="cuda"):
+    """``FastSpeech2AdvTask`` at full width: 4 steps (the discriminator from
+    step 1, validating at 0, 2 and 4), a resume to 6, then ``--infer`` with
+    the recipe's PWG (phase 14's trained hop-128 model: no kernel of the
+    repo) and with HiFiGAN-NSF (``vocoder_keys``, seeded: the bf16 ResBlock
+    kernel, 54 + 3 launches per vocoder call, a P and a G call per item).
+    Returns the HiFiGAN ``--infer`` process's launches."""
+    import math
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.fs2_adv import FastSpeech2AdvTask
+    work = os.path.join(WORK, "fs2_work")
+    out, wall = run_train_cli(cfg, work)
+    s = summary_of(out, "train")
+    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={FS2_RESUME}")
+    rs = summary_of(resumed, "train")
+    bad = []
+    steps = {int(m.group(1)): json.loads(m.group(2))
+             for m in re.finditer(r"^\| step (\d+): (\{.*\})$", out + resumed, re.M)}
+    for n, logs in steps.items():  # "step n" logs step n - 1
+        want = FS2_GEN_KEYS | FS2_DISC_KEYS if n > 1 else FS2_GEN_KEYS - {"a"}
+        if set(logs) - {"total_loss_0", "total_loss_1"} != want:
+            bad.append(f"step {n} logs {sorted(logs)}")
+        if not all(math.isfinite(v) for v in logs.values()):
+            bad.append(f"step {n}: non-finite {logs}")
+    if sorted(steps) != list(range(1, FS2_RESUME + 1)):
+        bad.append(f"logged steps {sorted(steps)}")
+    valid = re.findall(r"^\| Valid results: (\{.*\})$", out, re.M)
+    if len(valid) != FS2_STEPS // FS2_VAL_EVERY + 1:
+        bad.append(f"validations {valid}")
+    if (rs["start_step"], rs["end_step"]) != (FS2_STEPS, FS2_RESUME):
+        bad.append(f"resume {rs['start_step']} -> {rs['end_step']}")
+    if any(v for k, v in {**s, **rs}.items() if k.endswith("_launches")):
+        bad.append("a kernel of the repo launched in training")  # PWG vocodes validation
+    hp = set_hparams(config=cfg, hparams_str="device=cpu", print_hparams=False,
+                     global_hparams=False)
+    with hparams_scope(hp):
+        init = FastSpeech2AdvTask()
+        init.build_model()
+        init.build_train()
+    c = torch.load(os.path.join(work, f"model_ckpt_steps_{FS2_STEPS}.ckpt"),
+                   map_location="cpu", weights_only=True)["state_dict"]
+    moved = changed(init.model.state_dict(), c["model"])
+    invariants = {part: any(k.startswith(f"{part}.") for k in moved)
+                  for part in ("encoder", "decoder", "dur_predictor", "pitch_predictor",
+                               "mel_out")}
+    invariants["disc"] = bool(changed(init.mel_disc.state_dict(), c["mel_disc"]))
+    test_frames = [len(it["mel"]) for it in read_split(os.path.join(WORK, "fs2", "binary"),
+                                                       "test")]
+    infers = {}
+    for name, ckpt in (("PWG", pwg_work), ("HifiGAN", os.path.join(WORK, "voc"))):
+        io, iwall = run_train_cli(cfg, work, "--infer", hp=f",vocoder={name},vocoder_ckpt="
+                                  f"{ckpt},gen_dir_name={name}")
+        summary = summary_of(io, "infer")
+        gen = os.path.join(work, f"generated_{FS2_RESUME}_{name}")
+        problems = wav_frames_check(gen, test_frames, ("p_wavout", "g_wavout"))
+        mels = sorted(glob.glob(f"{gen}/mels/mel/*.npy"))
+        plots = glob.glob(f"{gen}/plot/*.npy")
+        if len(mels) != FS2_TEST_NUM or len(plots) != FS2_TEST_NUM:
+            problems.append(f"{len(mels)} mels, {len(plots)} f0 tracks")
+        calls = 2 * FS2_TEST_NUM
+        stages = len(voc["upsample_rates"])
+        on_card = device == "cuda"
+        want = ({"resblock_conv1d_bf16": 18 * stages * calls * on_card,
+                 "lrelu_bf16": stages * calls * on_card, "resblock_conv1d": 0}
+                if name == "HifiGAN" else
+                {"resblock_conv1d_bf16": 0, "lrelu_bf16": 0, "resblock_conv1d": 0})
+        launches = {k: summary[f"{k}_launches"] for k in want}
+        if launches != want or summary["vocoder_calls"] != calls:
+            problems.append(f"launches {launches} != {want}, calls {summary['vocoder_calls']}")
+        infers[name] = dict(ok=not problems, problems=problems, wall_s=iwall,
+                            launches=launches, expected_launches=want, summary=summary)
+    ok = not bad and all(invariants.values()) and all(r["ok"] for r in infers.values())
+    row = dict(ok=ok, problems=bad, invariants=invariants, wall_s=wall,
+               resume_wall_s=wall_resume, summary=s, resume_summary=rs,
+               validations=valid, last_step_losses=steps.get(FS2_RESUME), infer=infers)
+    emit("fs2_train", **row)
+    print(f"| train summary: {json.dumps(s)}", flush=True)
+    if not ok:
+        raise AssertionError(f"fs2 train: {bad} {invariants} {infers}")
+    return infers["HifiGAN"]["launches"]
+
+
+def phase_fs2_step_time():
+    """``scripts/train_profile.py`` on the FS2 recipe: warm generator +
+    discriminator steps at its token budget (30 x 1000 frames, 85 tokens
+    each)."""
+    out = os.path.join(WORK, "fs2_profile.json")
+    proc = subprocess.run([sys.executable, "scripts/train_profile.py", "--config", FS2_RECIPE,
+                           "--out", out, "--warm", "5"], cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"train_profile failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)[0]
+    warm, prof = res["phase2_warm_steps_s"], res["profiled_phase2_step"]
+    row = dict(batch=res["batch"], first_step_s=res["phase2_first_step_s"], warm_steps_s=warm,
+               median_s=res["phase2_median_s"], min_s=min(warm), max_s=max(warm),
+               max_memory_allocated=res["max_memory_allocated"],
+               profiled_step={k: prof[k] for k in ("wall_ms", "kernel_ms", "busy_share",
+                                                   "busy_share_of_unprofiled_median",
+                                                   "launches", "by_kind_ms")},
+               top_kernels=prof["top_kernels"][:10], nvidia_smi=res["nvidia_smi"])
+    emit("fs2_step_time", **row)
+    return row
+
+
+def fs2_step_runs(cfg, extra, steps, devices):
+    """Generator + discriminator steps of the seeded full-width
+    ``FastSpeech2AdvTask`` on the CPU and on the card, in float32 and
+    float64 from the same float32 weights, on three train items cropped to
+    320 frames, with pinned discriminator windows and the same dropout masks
+    (drawn on the CPU). Returns ({(side, dtype): (losses, last gradients)},
+    parameter names)."""
+    import torch
+    from neuralsvb_torch.data.datasets import FastSpeechDataset
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks.fs2_adv import FastSpeech2AdvTask
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        for side, dev in zip(("cpu", "card"), devices):
+            hp = set_hparams(config=cfg, hparams_str=f"device={dev},max_frames="
+                             f"{FS2_CARD_VS_CPU['frames']},{extra}", print_hparams=False,
+                             global_hparams=False)
+            with hparams_scope(hp):
+                ds = FastSpeechDataset("train")  # sets f0_mean/f0_std, as training does
+                task = FastSpeech2AdvTask()
+                task.build_model()
+                task.build_train()
+                task.model.to(dtype)
+                task.mel_disc.to(dtype)
+                task.rand_device = torch.device("cpu")
+                task.disc_start_frames_wins = FS2_CARD_VS_CPU["starts"]
+                grads = {}
+                task.grad_hook = lambda group, params: grads.__setitem__(
+                    group, [p.grad.detach().cpu().double().clone() for p in params])
+                names = {"gen": [n for n, _ in task.model.named_parameters()],
+                         "disc": [n for n, _ in task.mel_disc.named_parameters()]}
+                batch = ds.collater([ds[i] for i in range(FS2_CARD_VS_CPU["items"])])
+                torch.set_default_dtype(dtype)
+                try:
+                    logs = {}
+                    for step in steps:
+                        for idx in (0, 1):
+                            logs.update({f"{step}/{idx}/{k}": float(torch.as_tensor(v).detach())
+                                         for k, v in task.training_step(batch, step, idx)[1]
+                                         .items()})
+                finally:
+                    torch.set_default_dtype(torch.float32)
+                runs[side, dtype] = logs, grads
+    return runs, names
+
+
+def phase_fs2_card_vs_cpu(cfg, devices=("cpu", "cuda")):
+    """The recipe (frame pitch, conv decoder) one step, and ``pitch_type:
+    cwt`` with ``cwt_add_f0_loss`` two steps, card vs CPU (``fs2_step_runs``,
+    TF32 off). Gates, as phase 19's: every logged loss within 1e-4 relative
+    in float64, and the first step's in float32; the last step's gradients,
+    per tensor, card against CPU in float64 within 1e-3 of the tensor's
+    scale; the float32 differences are printed beside them. A float32
+    second step starts from parameters that the first step's float32
+    gradients moved apart (the discriminator's is ill-conditioned: 0.13 of
+    its scale from float64 on the card, 0.0014 on the CPU), so its losses
+    are printed, not gated."""
+    import torch
+    f32, f64 = torch.float32, torch.float64
+    rows, ok = {}, True
+    for name, extra, steps in (("frame", "", (1,)), ("cwt", FS2_CWT, (1, 2))):
+        t0 = time.perf_counter()
+        runs, names = fs2_step_runs(cfg, extra, steps, devices)
+        rel32_all = loss_rel(runs["card", f32][0], runs["cpu", f32][0])
+        rel32 = {k: v for k, v in rel32_all.items() if k.startswith(f"{steps[0]}/")}
+        rel64 = loss_rel(runs["card", f64][0], runs["cpu", f64][0])
+        good = max(rel32.values()) <= 1e-4 and max(rel64.values()) <= 1e-4
+        groups = {}
+        for group in ("gen", "disc"):
+            scales = grad_scales(runs["cpu", f64][1][group])
+            g = {(side, dt): runs[side, dt][1][group] for side in ("cpu", "card")
+                 for dt in (f32, f64)}
+            off = [float((x - y).abs().max()) / sc
+                   for x, y, sc in zip(g["card", f32], g["cpu", f64], scales)]
+            groups[group] = dict(
+                card_vs_cpu_f64=grads_over_scale(g["card", f64], g["cpu", f64], scales),
+                card_vs_cpu_f32=grads_over_scale(g["card", f32], g["cpu", f32], scales),
+                card_f32_vs_f64=grads_over_scale(g["card", f32], g["cpu", f64], scales),
+                cpu_f32_vs_f64=grads_over_scale(g["cpu", f32], g["cpu", f64], scales),
+                card_f32_worst_tensor=names[group][off.index(max(off))])
+            good = good and groups[group]["card_vs_cpu_f64"] <= 1e-3
+        rows[name] = dict(ok=good, steps=list(steps), max_loss_rel_err_f32=max(rel32.values()),
+                          max_loss_rel_err_f64=max(rel64.values()),
+                          loss_rel_err_f32_all_steps=rel32_all, grads_over_scale=groups,
+                          losses_cpu_f32=runs["cpu", f32][0], seconds=time.perf_counter() - t0)
+        ok = ok and good
+    emit("fs2_card_vs_cpu", ok=ok, items=FS2_CARD_VS_CPU["items"],
+         frames=FS2_CARD_VS_CPU["frames"], tol_loss=1e-4, tol_grad_f64=1e-3, **rows)
+    if not ok:
+        raise AssertionError(f"fs2 card vs CPU: {rows}")
+    return rows
+
+
+def run_module(module, *args, timeout=900):
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{module} failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+def phase_pitch_alignment(cfgs, devices=("cuda", "cpu")):
+    """``python -m neuralsvb_torch.tasks.pitch_alignment_task`` over phase
+    6's test split with all six aligners, on the card and on the CPU. The
+    χ² kernel launches once per item for SADTW and for EHSADTW on the card
+    (none for the host aligners); the four host aligners' accuracies equal
+    the CPU's; SADTW's and EHSADTW's differences are reported (an ulp of the
+    χ² cost can flip a DP tie). Returns the card run's χ² launches."""
+    runs = {}
+    for dev in devices:
+        out, wall = run_module("neuralsvb_torch.tasks.pitch_alignment_task", "--config",
+                               cfgs["para_bin_torch"], "--hparams",
+                               f"align_funcs={'|'.join(ALIGNERS)},align_split=test,device={dev}")
+        acc = {m.group(1): dict(avg=float(m.group(2)), max=float(m.group(3)),
+                                min=float(m.group(4)), bad=int(m.group(5)))
+               for m in re.finditer(r"^\| (\w+) \[test\] avg=(\S+) max=(\S+) min=(\S+) "
+                                    r"bad\(<0\.3\)=(\d+)$", out, re.M)}
+        runs[dev] = dict(accuracies=acc, summary=summary_of(out, "pitch alignment"), wall_s=wall)
+    card, cpu = (runs[d] for d in devices)
+    items = card["summary"]["items"]
+    launches = {a: card["summary"][a]["chi2_dist_launches"] for a in ALIGNERS}
+    on_card = devices[0].startswith("cuda")
+    want = {a: items * on_card if a in ("SADTW", "EHSADTW") else 0 for a in ALIGNERS}
+    host_equal = all(card["accuracies"].get(a) == cpu["accuracies"].get(a)
+                     for a in ALIGNERS[2:])
+    diffs = {a: {k: card["accuracies"][a][k] - cpu["accuracies"][a][k]
+                 for k in ("avg", "max", "min", "bad")} for a in ("SADTW", "EHSADTW")}
+    ok = (sorted(card["accuracies"]) == sorted(ALIGNERS) and launches == want and host_equal
+          and items == 4)
+    emit("pitch_alignment", ok=ok, items=items, chi2_launches=launches,
+         expected_launches=want, host_aligners_equal=host_equal, card_minus_cpu=diffs,
+         seconds_per_item={a: card["summary"][a]["seconds"] / items for a in ALIGNERS},
+         seconds_per_item_cpu={a: cpu["summary"][a]["seconds"] / items for a in ALIGNERS},
+         card=card, cpu=cpu)
+    if not ok:
+        raise AssertionError(f"pitch alignment: {launches} {want} {host_equal} {runs}")
+    return launches["SADTW"] + launches["EHSADTW"]
+
+
+def phase_mcd(devices=("cuda", "cpu")):
+    """The main path's ``--infer`` (phase 4's config) on one test utterance
+    at zero noise, on the card and on the CPU; ``python -m
+    neuralsvb_torch.tasks.mcd_eval`` between their a2p mels, gated at 0.1 dB
+    (BASELINE.md's parity metric)."""
+    dirs = {}
+    for i, dev in enumerate(devices):
+        work = os.path.join(WORK, f"mcd_{i}_{dev}")
+        cmd = ["--config", os.path.join(WORK, "infer.yaml"), "--infer", "--hparams",
+               f"work_dir={work},device={dev},zero_noise=true,num_test_samples=1"]
+        out, wall = run_module("neuralsvb_torch.tasks.run", *cmd)
+        dirs[i] = (os.path.join(work, "generated_0_", "mels", "a2p_mel"), wall)
+    out, _ = run_module("neuralsvb_torch.tasks.mcd_eval", "--dir_a", dirs[0][0],
+                        "--dir_b", dirs[1][0])
+    m = re.search(r"^\| mean MCD over (\d+) items: (\S+) dB$", out, re.M)
+    n, mcd = int(m.group(1)), float(m.group(2))
+    import numpy as np
+    from neuralsvb_torch.utils.metrics import mel_cepstral_distortion
+    exact = [mel_cepstral_distortion(np.load(f), np.load(os.path.join(dirs[1][0],
+                                                                     os.path.basename(f))))
+             for f in sorted(glob.glob(os.path.join(dirs[0][0], "*.npy")))]
+    ok = n >= 1 and mcd <= MCD_GATE_DB
+    emit("mcd", ok=ok, items=n, mcd_db=mcd, mcd_db_unrounded=exact, gate_db=MCD_GATE_DB,
+         lines=out.splitlines(),
+         card_infer_wall_s=dirs[0][1], cpu_infer_wall_s=dirs[1][1])
+    if not ok:
+        raise AssertionError(f"MCD card vs CPU {mcd} dB over {n} items > {MCD_GATE_DB}")
+    return mcd
+
+
 def build_all():
     """nvcc for each CUDA source and g++ for the host library, all started
     together."""
@@ -2838,6 +3228,17 @@ def main():
     phase_accum_card_vs_cpu()
     bf16_voc_launches = phase_bf16_vocoder(voc)
     dp_launches = phase_data_parallel(voc)
+    # the FS2 family: its training processes run no kernel of the repo (their
+    # summaries' counts are checked at 0); the HiFiGAN --infer process zeroes
+    # its counts at test_start and reports them at test_end
+    fs2_cfg = phase_fs2_binarize()
+    fs2_launches = phase_fs2_train(fs2_cfg, voc, os.path.join(WORK, "pwg_work"))
+    phase_fs2_step_time()
+    phase_fs2_card_vs_cpu(fs2_cfg)
+    # the harnesses: each pitch-alignment process reports the χ² launches
+    # of each aligner's pass in its summary
+    harness_launches = phase_pitch_alignment(cfgs)
+    phase_mcd()
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -2864,6 +3265,8 @@ def main():
         "bf16_vocoder_prepass_launches": bf16_voc_launches["lrelu_bf16"],
         "data_parallel_train_launches": dp_launches["resblock_conv1d_bf16_launches"],
         "data_parallel_train_prepass_launches": dp_launches["lrelu_bf16_launches"],
+        "fs2_infer_launches": fs2_launches["resblock_conv1d_bf16"],
+        "fs2_infer_prepass_launches": fs2_launches["lrelu_bf16"],
         "vocoder_train_shapes_ms": total(train_rows, "kernel_ms"),
         "vocoder_train_shapes_plain_ms": total(train_rows, "plain_ms"),
         "vocoder_train_shapes_bound_ms": total(train_rows, "bound_ms"),
@@ -2881,7 +3284,7 @@ def main():
         "name": "chi2_dist", "route": "cuda",
         "source": "neuralsvb_torch/csrc/chi2_dist.cu",
         "replaces": CHI2_TPU_KERNEL, "launches": chi2_launches,
-        "vocoder_bin_launches": voc_chi2_launches,
+        "vocoder_bin_launches": voc_chi2_launches, "harness_launches": harness_launches,
         "max_abs_err": chi2_worst, "ms": chi2_row["kernel_ms"],
         "device_ms": chi2_row["device_ms"], "plain_ms": chi2_row["plain_ms"],
         "bound_ms": chi2_row["bound_us"] / 1e3, "bound_by": chi2_row["bound_by"],

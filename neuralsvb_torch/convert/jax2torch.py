@@ -2,8 +2,9 @@
 ``convert_svbvae_mle_sd``, ``convert_hifigan``, ``convert_ge2e`` and
 ``convert_vcasr`` in ``neuralsvb_tpu/convert/torch2jax.py``, of
 ``convert_pwg`` and ``convert_melgan_generator``, the SVB VAE's other
-variants and the PPG models (``VCPPG``, ``SVBPPG``, ``ParaSVBPPG``; the JAX
-package has no converter for these), and the maps of the discriminators:
+variants, the PPG models (``VCPPG``, ``SVBPPG``, ``ParaSVBPPG``),
+``FastSpeech2`` and ``PitchExtractor`` (the JAX package has no converter for
+these), and the maps of the discriminators:
 the mel discriminator, the vocoders' multi-period and multi-scale ones,
 PWG's and MelGAN's.
 
@@ -250,8 +251,81 @@ def vcppg_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
     if "ref_encoder" in params:  # ConvGlobalStacks: the ConvStacks layout
         _conv_stacks(sd, "ref_encoder", params["ref_encoder"])
     sd.dense("encoded_embed_proj", params["encoded_embed_proj"])
-    _conv_stacks(sd, "decoder", params["decoder"])
+    if "blocks" in params["decoder"]:  # decoder_type: fft
+        _fft_blocks(sd, "decoder.blocks", params["decoder"]["blocks"])
+    else:
+        _conv_stacks(sd, "decoder", params["decoder"])
     sd.dense("mel_out", params["mel_out"])
+    return dict(sd)
+
+
+def _fft_blocks(sd: _SD, prefix: str, p: Tree) -> None:
+    """``FFTBlocks``: ``layer_{i}`` (``EncSALayer``) -> ``layers.{i}``."""
+    n = sum(1 for k in p if k.startswith("layer_") and k[len("layer_"):].isdigit())
+    for i in range(n):
+        lp, base = p[f"layer_{i}"], f"{prefix}.layers.{i}"
+        sd.norm(f"{base}.layer_norm1", lp["LayerNorm_0"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd.dense(f"{base}.self_attn.{name}", lp["MultiheadAttention_0"][name])
+        sd.norm(f"{base}.layer_norm2", lp["LayerNorm_1"])
+        sd.conv(f"{base}.ffn.ffn_1.1", lp["TransformerFFNLayer_0"]["Conv_0"])
+        sd.dense(f"{base}.ffn.ffn_2", lp["TransformerFFNLayer_0"]["Dense_0"])
+    sd.norm(f"{prefix}.last_norm", p["last_norm"])
+
+
+def _predictor(sd: _SD, prefix: str, p: Tree) -> None:
+    """A predictor's ``stack`` (``PredictorConvStack``)."""
+    st = p["stack"]
+    n = sum(1 for k in st if k.startswith("conv_"))
+    for i in range(n):
+        sd.conv(f"{prefix}.stack.conv.{i}", st[f"conv_{i}"])
+        sd.norm(f"{prefix}.stack.ln.{i}", st[f"ln_{i}"])
+    sd.dense(f"{prefix}.stack.linear", st["linear"])
+
+
+def fs2_from_jax(params: Tree, batch_stats: Tree = None) -> Dict[str, torch.Tensor]:
+    """``FastSpeech2`` params -> the port's state_dict, for either decoder,
+    frame or CWT pitch, energy, and a speaker id or embedding projection.
+    The model holds no BatchNorm, so ``batch_stats`` is empty (accepted for
+    the loaders' uniform call)."""
+    sd = _SD()
+    enc = params["encoder"]
+    sd.put("encoder.embed_tokens.weight", enc["embed_tokens"]["Embed_0"]["embedding"])
+    _fft_blocks(sd, "encoder.blocks", enc["blocks"])
+    spk = params.get("spk_embed_proj")
+    if spk is not None and "Embed_0" in spk:
+        sd.put("spk_embed_proj.weight", spk["Embed_0"]["embedding"])
+    elif spk is not None:
+        sd.dense("spk_embed_proj", spk)
+    for name in ("dur_predictor", "pitch_predictor", "cwt_predictor", "energy_predictor"):
+        if name in params:
+            _predictor(sd, name, params[name])
+    for name in ("cwt_in", "cwt_stats_0", "cwt_stats_1", "cwt_stats_2", "mel_out"):
+        if name in params:
+            sd.dense(name, params[name])
+    for name in ("pitch_embed", "energy_embed"):
+        if name in params:
+            sd.put(f"{name}.weight", params[name]["Embed_0"]["embedding"])
+    if "blocks" in params["decoder"]:
+        _fft_blocks(sd, "decoder.blocks", params["decoder"]["blocks"])
+    else:
+        _conv_stacks(sd, "decoder", params["decoder"])
+    return dict(sd)
+
+
+def pitch_extractor_from_jax(params: Tree, batch_stats: Tree = None) -> Dict[str, torch.Tensor]:
+    """``PitchExtractor`` params (+ batch_stats: the prenet's BatchNorm
+    running statistics) -> the port's state_dict."""
+    sd = _SD()
+    pn = params["mel_prenet"]
+    for i in range(sum(1 for k in pn if k.startswith("Conv_"))):
+        sd.conv(f"mel_prenet.layers.{i}.0", pn[f"Conv_{i}"])
+        sd.bn(f"mel_prenet.layers.{i}.2", pn[f"BatchNorm1d_{i}"],
+              None if batch_stats is None else batch_stats["mel_prenet"][f"BatchNorm1d_{i}"])
+    sd.dense("mel_prenet.out_proj", pn["Dense_0"])
+    if "mel_encoder" in params:
+        _conv_stacks(sd, "mel_encoder", params["mel_encoder"])
+    _predictor(sd, "pitch_predictor", params["pitch_predictor"])
     return dict(sd)
 
 

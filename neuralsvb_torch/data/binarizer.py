@@ -23,8 +23,11 @@ data_gen/singing/binarize_para.py:25-260).
 
 Mel, pitch candidates, the chi-square DTW cost and GE2E run on the
 ``device`` the hparams name (required); the DTW and Viterbi dynamic
-programs run in the host C++ kernel; the text branch runs on the host. Not
-ported yet (ROADMAP.md): ``with_f0cwt``, which raises.
+programs run in the host C++ kernel; the text branch runs on the host.
+``with_f0cwt`` adds the Mexican-hat CWT of the continuous log-f0 (host
+numpy, ``ops/cwt.py``; with a ``prof_`` prefix for the paired side).
+``ZhBinarizer`` and ``SingingPreAlign`` are the placeholders that the
+recipes' bases name, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from ..hparams import hparams, resolve_device
 from ..models.ge2e import SpeakerEncoder
 from ..ops import dtw as dtw_ops
 from ..ops.chi2 import chi2_dist
+from ..ops.cwt import get_cont_lf0, get_lf0_cwt
 from ..ops.pitch import get_pitch
 from ..utils.text_encoder import TokenTextEncoder, build_token_encoder, is_sil_phoneme
 from ..vocoders import get_vocoder_cls
@@ -105,9 +109,6 @@ class BaseBinarizer:
             processed_data_dir = hparams["processed_data_dir"]
         self.processed_data_dirs = processed_data_dir.split(",")
         self.binarization_args = hparams["binarization_args"]
-        if self.binarization_args.get("with_f0cwt"):
-            raise NotImplementedError("with_f0cwt (ops/cwt.py) is not ported yet "
-                                      "(ROADMAP.md queue 1 item 5)")
         self.device = resolve_device(hparams.get("device"))
         self.item2wavfn = {}
         self.item2spk = {}
@@ -325,6 +326,8 @@ class BaseBinarizer:
         try:
             if binarization_args.get("with_f0"):
                 cls.get_pitch(res)
+                if binarization_args.get("with_f0cwt"):
+                    cls.get_f0cwt(res)
             if len(rest) > 1:
                 ph, txt, tg_fn, (ph_enc, word_enc) = rest[:-1]
                 if ph is None:
@@ -423,6 +426,19 @@ class BaseBinarizer:
             raise BinarizationError("Empty f0")
         res[f"{prefix}f0"] = f0
         res[f"{prefix}pitch"] = pitch_coarse
+
+    @staticmethod
+    def get_f0cwt(res, prefix=""):
+        """Mexican-hat CWT of the standardized continuous log-f0, with the
+        utterance's mean and std (reference: base_binarizer.py:240-252)."""
+        with _stage("f0cwt"):
+            _uv, cont_lf0 = get_cont_lf0(res[f"{prefix}f0"])
+            mean, std = np.mean(cont_lf0), np.std(cont_lf0)
+            cwt_spec, scales = get_lf0_cwt((cont_lf0 - mean) / std)
+        res[f"{prefix}cwt_spec"] = cwt_spec
+        res[f"{prefix}cwt_scales"] = scales
+        res[f"{prefix}f0_mean"] = float(mean)
+        res[f"{prefix}f0_std"] = float(std)
 
 
 class SingingBinarizer(BaseBinarizer):
@@ -553,6 +569,9 @@ class PopBuTFyENBinarizer(SingingBinarizer):
             if binarization_args.get("with_f0"):
                 cls.get_pitch(res)
                 cls.get_pitch(res, prefix="prof_")
+                if binarization_args.get("with_f0cwt"):
+                    cls.get_f0cwt(res)
+                    cls.get_f0cwt(res, prefix="prof_")
         except BinarizationError as e:
             print(f"| Skip item ({e}). item_name: {item_name}")
             return None
@@ -594,3 +613,15 @@ class PopBuTFyENSpkEMBinarizer(PopBuTFyENBinarizer):
             return None
         res["multi_spk_emb"] = np.stack(multi, 0)
         return res
+
+
+class ZhBinarizer(BaseBinarizer):
+    """Placeholder for the Chinese text pipeline that
+    ``egs/egs_bases/tts/base_zh.yaml`` names; the reference repo lacks it
+    too (JAX: ``neuralsvb_tpu/data/binarizer.py:592-596``)."""
+
+
+class SingingPreAlign:
+    """Placeholder for the reference's missing
+    ``data_gen.tts.singing.pre_align.SingingPreAlign`` that
+    ``egs/egs_bases/singing/base.yaml`` names."""

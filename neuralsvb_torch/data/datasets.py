@@ -1,6 +1,6 @@
 """Datasets over packed IndexedDatasets, producing numpy batches; port of the
-SVB and speech paths of ``neuralsvb_tpu/data/datasets.py`` (reference:
-tasks/tts/dataset_utils.py:15-236, tasks/singing/neural_svb_task.py:10-86,
+SVB, speech and FastSpeech2 paths of ``neuralsvb_tpu/data/datasets.py``
+(reference: tasks/tts/dataset_utils.py:15-236, tasks/singing/neural_svb_task.py:10-86,
 tasks/singing/svb_vae_task.py:20-45, tasks/singing/svb_para.py:19-49).
 
 Samples are numpy dicts and stay on the host; the task moves a collated
@@ -166,13 +166,23 @@ class BaseTTSDataset(BaseDataset):
 
 
 class FastSpeechDataset(BaseTTSDataset):
+    """Adds energy, ``mel2ph``, the normalized f0 with uv and the coarse
+    pitch (zeros and no pitch with ``use_pitch_embed: false``) and, with
+    ``pitch_type: cwt``, the packed ``cwt_spec`` with the utterance's
+    ``f0_mean``/``f0_std``. ``train_f0s_mean_std.npy`` of the data dir sets
+    the ``f0_mean``/``f0_std`` hparams and attributes."""
+
     def __init__(self, prefix, shuffle=False, data_dir=None, hp=None):
         super().__init__(prefix, shuffle, data_dir, hp)
         stats_fn = f"{self.data_dir}/train_f0s_mean_std.npy"
         if os.path.exists(stats_fn):
             mean, std = np.load(stats_fn)
-            self.hparams["f0_mean"] = float(mean)
-            self.hparams["f0_std"] = float(std)
+            self.hparams["f0_mean"] = self.f0_mean = float(mean)
+            self.hparams["f0_std"] = self.f0_std = float(std)
+        else:
+            self.f0_mean = self.hparams.get("f0_mean")
+            self.f0_std = self.hparams.get("f0_std")
+        self.pitch_type = self.hparams.get("pitch_type")
 
     def _pitch_sample(self, item, max_frames, prefix=""):
         hp = self.hparams
@@ -200,8 +210,16 @@ class FastSpeechDataset(BaseTTSDataset):
         sample["energy"] = np.sqrt((np.exp(spec) ** 2).sum(-1)).astype(np.float32)
         sample["mel2ph"] = (np.asarray(item["mel2ph"], np.int64)[:max_frames]
                             if "mel2ph" in item else None)
-        f0, uv, pitch = self._pitch_sample(item, max_frames)
-        sample["f0"], sample["uv"], sample["pitch"] = f0, uv, pitch
+        if self.hparams.get("use_pitch_embed", True):
+            f0, uv, pitch = self._pitch_sample(item, max_frames)
+            sample["f0"], sample["uv"], sample["pitch"] = f0, uv, pitch
+            if self.pitch_type == "cwt" and "cwt_spec" in item:
+                sample["cwt_spec"] = np.asarray(item["cwt_spec"], np.float32)[:max_frames]
+                sample["f0_mean"] = item.get("f0_mean", item.get("cwt_mean"))
+                sample["f0_std"] = item.get("f0_std", item.get("cwt_std"))
+        else:
+            sample["f0"] = sample["uv"] = np.zeros(max_frames, np.float32)
+            sample["pitch"] = None
         return sample
 
     def collater(self, samples):
@@ -210,11 +228,16 @@ class FastSpeechDataset(BaseTTSDataset):
         batch = super().collater(samples)
         bq = self.bucket_quant
         batch["f0"] = collate_1d([s["f0"] for s in samples], 0.0, bucket_quant=bq)
-        batch["pitch"] = collate_1d([s["pitch"] for s in samples], 0, bucket_quant=bq)
+        batch["pitch"] = (collate_1d([s["pitch"] for s in samples], 0, bucket_quant=bq)
+                          if samples[0]["pitch"] is not None else None)
         batch["uv"] = collate_1d([s["uv"] for s in samples], 0.0, bucket_quant=bq)
         batch["energy"] = collate_1d([s["energy"] for s in samples], 0.0, bucket_quant=bq)
         batch["mel2ph"] = (collate_1d([s["mel2ph"] for s in samples], 0, bucket_quant=bq)
                            if samples[0]["mel2ph"] is not None else None)
+        if self.pitch_type == "cwt" and "cwt_spec" in samples[0]:
+            batch["cwt_spec"] = collate_2d([s["cwt_spec"] for s in samples], bucket_quant=bq)
+            batch["f0_mean"] = np.asarray([s["f0_mean"] for s in samples], np.float32)
+            batch["f0_std"] = np.asarray([s["f0_std"] for s in samples], np.float32)
         return batch
 
 
@@ -319,4 +342,50 @@ class FastSingingF0AlignDataset(FastSingingDataset):
                 [s["p2a_f0_alignment"] for s in samples], 0, bucket_quant=bq)
         if "multi_spk_emb" in samples[0]:
             batch["multi_spk_emb"] = np.stack([s["multi_spk_emb"] for s in samples])
+        return batch
+
+
+class FastSpeechWordDataset(FastSpeechDataset):
+    """Word-level inputs (reference: tasks/tts/dataset_utils.py:211-236):
+    adds ``words``, ``word_tokens``, ``mel2word`` and ``ph2word`` where the
+    items carry them (the binarizer's ``with_word``); with
+    ``use_word_input`` the word tokens and ``mel2word`` stand in for the
+    phone tokens and ``mel2ph``."""
+
+    def __getitem__(self, index):
+        sample = super().__getitem__(index)
+        item = self._get_item(index)
+        max_frames = len(sample["mel"])
+        if "words" in item:
+            sample["words"] = item["words"]
+            sample["ph_words"] = item.get("ph_words")
+        if "word_tokens" in item:
+            sample["word_tokens"] = np.asarray(item["word_tokens"], np.int64)
+        if "mel2word" in item:
+            sample["mel2word"] = np.asarray(item["mel2word"], np.int64)[:max_frames]
+        if "ph2word" in item:
+            sample["ph2word"] = np.asarray(item["ph2word"][: self.hparams["max_input_tokens"]],
+                                           np.int64)
+        return sample
+
+    def collater(self, samples):
+        if not samples:
+            return {}
+        batch = super().collater(samples)
+        bq = self.bucket_quant
+        if "word_tokens" in samples[0]:
+            batch["word_tokens"] = collate_1d([s["word_tokens"] for s in samples], 0)
+            batch["word_lengths"] = np.asarray([len(s["word_tokens"]) for s in samples],
+                                               np.int64)
+        if "mel2word" in samples[0]:
+            batch["mel2word"] = collate_1d([s["mel2word"] for s in samples], 0, bucket_quant=bq)
+        if "ph2word" in samples[0]:
+            batch["ph2word"] = collate_1d([s["ph2word"] for s in samples], 0)
+        if "words" in samples[0]:
+            batch["words"] = [s["words"] for s in samples]
+        if self.hparams.get("use_word_input") and "word_tokens" in batch:
+            batch["txt_tokens"] = batch["word_tokens"]
+            batch["txt_lengths"] = batch["word_lengths"]
+            if "mel2word" in batch:
+                batch["mel2ph"] = batch["mel2word"]
         return batch

@@ -8,8 +8,9 @@ professional->amateur frame alignment and a table of speaker embeddings.
 ``write_synthetic_speech_split``: one side per item with phone tokens and
 ``phone_set.json``, the keys ``FastSpeechDataset`` reads (the ASR
 pre-training recipe). ``write_synthetic_speech_corpus``: raw wavs with
-transcripts, the ASR pre-training binarizer's input. Everything comes from
-``numpy.random.RandomState(seed)``.
+transcripts, the ASR pre-training binarizer's input, and optionally an MFA
+TextGrid each (the FastSpeech2 recipes binarize ``with_align``). Everything
+comes from ``numpy.random.RandomState(seed)``.
 """
 
 from __future__ import annotations
@@ -68,11 +69,13 @@ def write_synthetic_split(data_dir: str, frames: Sequence[int], prefix: str = "t
 
 def write_synthetic_speech_split(data_dir: str, frames: Sequence[int], prefix: str = "train",
                                  seed: int = 1234, num_mels: int = 80, n_phones: int = 40,
-                                 frames_per_phone: int = 8) -> None:
+                                 frames_per_phone: int = 8, mel2ph: bool = False) -> None:
     """Write ``<data_dir>/<prefix>.{data,idx}``, ``<prefix>_lengths.npy``,
     ``train_f0s_mean_std.npy`` and ``phone_set.json`` (``n_phones``
     phones); item i has ``frames[i]`` frames and about one phone token per
-    ``frames_per_phone`` frames between ``<BOS>`` and ``<EOS>``."""
+    ``frames_per_phone`` frames between ``<BOS>`` and ``<EOS>``; with
+    ``mel2ph``, the frames spread evenly over the tokens (FastSpeech2's
+    durations) and a speaker id (0 or 1) each."""
     os.makedirs(data_dir, exist_ok=True)
     rng = np.random.RandomState(seed)
     phones = ["<BOS>", "<EOS>"] + [f"p{i}" for i in range(n_phones - 2)]
@@ -85,9 +88,13 @@ def write_synthetic_speech_split(data_dir: str, frames: Sequence[int], prefix: s
         mel, f0 = _side(rng, T, num_mels)
         ph = ["<BOS>"] + [f"p{k}" for k in rng.randint(0, n_phones - 2,
                                                         max(T // frames_per_phone, 1))] + ["<EOS>"]
-        builder.add_item({"item_name": f"Synth#utt{i}", "mel": mel, "f0": f0,
-                          "pitch": f0_to_coarse(f0), "ph": " ".join(ph), "txt": "",
-                          "phone": np.asarray([ids[p] for p in ph])})
+        item = {"item_name": f"Synth#utt{i}", "mel": mel, "f0": f0,
+                "pitch": f0_to_coarse(f0), "ph": " ".join(ph), "txt": "",
+                "phone": np.asarray([ids[p] for p in ph])}
+        if mel2ph:
+            item["mel2ph"] = np.arange(T) * len(ph) // T + 1
+            item["spk_id"] = i % 2
+        builder.add_item(item)
         voiced.append(f0[f0 > 0])
     builder.finalize()
     np.save(f"{data_dir}/{prefix}_lengths.npy", np.asarray(frames))
@@ -103,13 +110,36 @@ WORDS = ("the a of and to in is it that was he she for on are with as his they b
          "than call first who may down side been now find Mr. Dr. 3 7 12 42 2024").split()
 
 
+def write_textgrid(path: str, phones: Sequence[str], seconds: float) -> None:
+    """An MFA-style TextGrid of one phone tier: 50 ms of silence, the
+    non-silence ``phones`` evenly over the rest, 50 ms of silence."""
+    from ..utils.text_encoder import is_sil_phoneme
+    phs = [p for p in phones if not is_sil_phoneme(p)]
+    edges = np.linspace(0.05, seconds - 0.05, len(phs) + 1)
+    ivs = ([(0.0, 0.05, "")] + [(edges[i], edges[i + 1], p) for i, p in enumerate(phs)]
+           + [(seconds - 0.05, seconds, "sil")])
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "",
+             "xmin = 0", f"xmax = {seconds}", "tiers? <exists>", "size = 1", "item []:",
+             "    item [1]:", '        class = "IntervalTier"', '        name = "phones"',
+             "        xmin = 0", f"        xmax = {seconds}",
+             f"        intervals: size = {len(ivs)}"]
+    for i, (a, b, p) in enumerate(ivs):
+        lines += [f"        intervals [{i + 1}]:", f"            xmin = {a}",
+                  f"            xmax = {b}", f'            text = "{p}"']
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
 def write_synthetic_speech_corpus(processed_dir: str, speakers: int, utterances: int,
-                                  seconds=(2.0, 6.0), seed: int = 9, sr: int = 22050) -> None:
+                                  seconds=(2.0, 6.0), seed: int = 9, sr: int = 22050,
+                                  textgrids: bool = False) -> None:
     """``speakers`` x ``utterances`` wavs of a voiced harmonic tone whose
     pitch glides and wavers, with syllable-rate loudness and short pauses,
     as ``<processed_dir>/data/p1/Spk{s}#utt{u}.wav``, and a random English
     sentence each (numbers and abbreviations among the words) as
-    ``text_labels/p1/Spk{s}#utt{u}.txt``."""
+    ``text_labels/p1/Spk{s}#utt{u}.txt``; with ``textgrids``, the
+    sentence's phones (the English txt_processor's) spread evenly over the
+    utterance as ``mfa_outputs/Spk{s}#utt{u}.TextGrid``."""
     from ..ops.audio import save_wav
     data = os.path.join(processed_dir, "data", "p1")
     text = os.path.join(processed_dir, "text_labels", "p1")
@@ -128,5 +158,13 @@ def write_synthetic_speech_corpus(processed_dir: str, speakers: int, utterances:
             name = f"Spk{s}#utt{u:02d}"
             save_wav(0.15 * wav * env + 0.005 * rng.randn(len(t)),
                      os.path.join(data, f"{name}.wav"), sr)
+            sentence = " ".join(rng.choice(WORDS, rng.randint(4, 13))).capitalize() + "."
             with open(os.path.join(text, f"{name}.txt"), "w") as f:
-                f.write(" ".join(rng.choice(WORDS, rng.randint(4, 13))).capitalize() + ".")
+                f.write(sentence)
+            if textgrids:
+                from .txt_processors import get_txt_processor_cls
+                phs, _ = get_txt_processor_cls("en").process(sentence, {})
+                mfa = os.path.join(processed_dir, "mfa_outputs")
+                os.makedirs(mfa, exist_ok=True)
+                write_textgrid(os.path.join(mfa, f"{name}.TextGrid"),
+                               ["<BOS>"] + list(phs) + ["<EOS>"], len(t) / sr)

@@ -204,7 +204,11 @@ def set_hparams(config: str = "", exp_name: str = "", hparams_str: str = "",
     if global_hparams:
         hparams.clear()
         hparams.update(merged)
-    if print_hparams and global_hparams and not _printed_once:
+    # Under torchrun every rank shares one stdout pipe, and a pipe write over
+    # PIPE_BUF (4 KB) is not atomic: the long dump comes from rank 0 alone.
+    # The world is not joined yet, so the rank is torchrun's environment's.
+    if (print_hparams and global_hparams and not _printed_once
+            and int(os.environ.get("RANK", 0)) == 0):
         print("| Hparams chains:", chains)
         print("| Hparams:", {k: merged[k] for k in sorted(merged)})
         _printed_once = True

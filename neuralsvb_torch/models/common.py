@@ -292,19 +292,22 @@ class MultiheadAttention(nn.Module):
     keys are all masked comes out uniform, not NaN; the weights are
     returned. The product is written out rather than left to a fused
     attention call, which differs on fully masked rows. No projection has a
-    bias, and no dropout acts on the weights: every caller applies it
-    without (the JAX package runs the ASR with ``train=False``, and the
-    seg-tech attention's rate is 0).
+    bias. ``dropout`` acts on the weights in training mode (the FS2 FFT
+    blocks' ``attention_dropout``), with a mask from the ``generator``
+    passed to ``forward``; the ASR runs in eval mode and the seg-tech
+    attention's rate is 0.
 
     ``fused_in_proj`` keeps q/k/v in one ``in_proj_weight`` [3C, C], the
     reference's fairseq layout that the JAX package's ``convert_vcasr``
     reads (the ASR decoder head); otherwise ``q_proj``/``k_proj``/
     ``v_proj`` (the seg-tech SVB VAE's names)."""
 
-    def __init__(self, channels: int, num_heads: int, fused_in_proj: bool = False):
+    def __init__(self, channels: int, num_heads: int, fused_in_proj: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.fused_in_proj = fused_in_proj
+        self.attn_dropout = Dropout(dropout)
         if fused_in_proj:
             self.in_proj_weight = nn.Parameter(torch.empty(3 * channels, channels))
             nn.init.xavier_uniform_(self.in_proj_weight)
@@ -320,10 +323,11 @@ class MultiheadAttention(nn.Module):
         C = x.shape[-1]
         return F.linear(x, self.in_proj_weight[i * C:(i + 1) * C])
 
-    def forward(self, query, key, value, key_padding_mask=None, attn_mask=None):
+    def forward(self, query, key, value, key_padding_mask=None, attn_mask=None,
+                generator: Optional[torch.Generator] = None):
         """query [B, Tq, C]; key, value [B, Tk, C]; ``key_padding_mask``
         [B, Tk] bool; ``attn_mask`` additive, broadcast to [B, heads, Tq, Tk]
-        -> (out [B, Tq, C], weights [B, heads, Tq, Tk])."""
+        -> (out [B, Tq, C], weights [B, heads, Tq, Tk], after dropout)."""
         B, Tq, C = query.shape
         H = self.num_heads
         Dh = C // H
@@ -340,7 +344,7 @@ class MultiheadAttention(nn.Module):
         if key_padding_mask is not None:
             logits = logits.masked_fill(key_padding_mask[:, None, None, :],
                                         torch.finfo(logits.dtype).min)
-        weights = torch.softmax(logits, dim=-1)
+        weights = self.attn_dropout(torch.softmax(logits, dim=-1), generator)
         out = (weights @ v.to(acc)).to(query.dtype).transpose(1, 2).reshape(B, Tq, C)
         return self.out_proj(out), weights
 
@@ -382,25 +386,57 @@ class SinusoidalPositionalEmbedding(nn.Module):
 
 
 class TransformerFFNLayer(nn.Module):
-    """The decoder's causal conv FFN (reference: common_layers.py:487-521
-    with ``LEFT`` padding): conv over the last ``kernel_size`` steps, x
-    ``k**-0.5``, gelu (the tanh approximation, as flax's), Linear; the
-    reference's dropout between them never acts, as the ASR runs in eval
-    mode. Parameter names are the reference's: ``ffn_1.1`` behind the pad
-    and ``ffn_2``. The FS2 encoder's ``SAME`` padding and other activations
-    are not ported."""
+    """Conv-in FFN (reference: common_layers.py:487-521): conv of kernel k
+    over ``SAME`` padding (k // 2 before, (k - 1) // 2 after: the FS2 FFT
+    blocks) or ``LEFT`` padding (the last k steps: the ASR decoder), x
+    ``k**-0.5``, gelu (the tanh approximation, as flax's), dropout of
+    ``dropout`` (relu dropout) in training mode, Linear. Parameter names
+    are the reference's: ``ffn_1.1`` behind the pad and ``ffn_2``."""
 
-    def __init__(self, hidden_size: int, filter_size: int, kernel_size: int):
+    def __init__(self, hidden_size: int, filter_size: int, kernel_size: int,
+                 padding: str = "LEFT", dropout: float = 0.0):
         super().__init__()
+        if padding not in ("SAME", "LEFT"):
+            raise ValueError(f"padding {padding!r}: SAME or LEFT")
         self.kernel_size = kernel_size
-        self.ffn_1 = nn.Sequential(nn.ConstantPad1d((kernel_size - 1, 0), 0.0),
+        pad = ((kernel_size // 2, (kernel_size - 1) // 2) if padding == "SAME"
+               else (kernel_size - 1, 0))
+        self.ffn_1 = nn.Sequential(nn.ConstantPad1d(pad, 0.0),
                                    nn.Conv1d(hidden_size, filter_size, kernel_size))
+        self.dropout = Dropout(dropout)
         self.ffn_2 = nn.Linear(filter_size, hidden_size)
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         """x [B, T, C] -> [B, T, C]."""
         h = self.ffn_1(x.transpose(1, 2)).transpose(1, 2) * self.kernel_size ** -0.5
-        return self.ffn_2(F.gelu(h, approximate="tanh"))
+        return self.ffn_2(self.dropout(F.gelu(h, approximate="tanh"), generator))
+
+
+class EncSALayer(nn.Module):
+    """Pre-norm self-attention and ``SAME``-padded conv FFN encoder layer
+    (reference: common_layers.py:543-589; JAX: common.py:325-354), over
+    [B, T, C]: ``dropout`` after each sublayer, 0.1 on the attention weights
+    and in the FFN (the JAX layer's defaults, which every caller keeps),
+    each in training mode; padded frames are zeroed after each residual."""
+
+    def __init__(self, hidden_size: int, num_heads: int, dropout: float = 0.0,
+                 kernel_size: int = 9):
+        super().__init__()
+        C = hidden_size
+        self.layer_norm1 = nn.LayerNorm(C, eps=LN_EPS)
+        self.self_attn = MultiheadAttention(C, num_heads, dropout=0.1)
+        self.layer_norm2 = nn.LayerNorm(C, eps=LN_EPS)
+        self.ffn = TransformerFFNLayer(C, 4 * C, kernel_size, "SAME", dropout=0.1)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x, padding_mask, generator: Optional[torch.Generator] = None):
+        """x [B, T, C]; padding_mask [B, T] bool (True = padded)."""
+        keep = (~padding_mask).to(x.dtype)[:, :, None]
+        h = self.layer_norm1(x)
+        h = self.self_attn(h, h, h, key_padding_mask=padding_mask, generator=generator)[0]
+        x = (x + self.dropout(h, generator)) * keep
+        h = self.ffn(self.layer_norm2(x), generator)
+        return (x + self.dropout(h, generator)) * keep
 
 
 class DecSALayer(nn.Module):

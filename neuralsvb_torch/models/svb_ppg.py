@@ -18,9 +18,11 @@ into the decoder runs without gradients (the exact-length rel-pos in eval,
 the collate-length one in training); only ``train_vc_asr``'s CE loss
 trains it, at exact lengths.
 
-Not ported (they raise, ROADMAP.md queue 1): ``decoder_type: fft`` (the
-FS2 family's ``FastspeechDecoder``), ``ref_attn``, the conv ASR encoder and
-the ``pre_exp``/``aligned_asr`` variants of the SVBPara subclasses.
+``decoder_type: fft`` decodes through the FS2 family's
+``FastspeechDecoder`` (FFT blocks over ``[B, T, C]``), ``conv`` through a
+conv stack. Not ported (they raise, ROADMAP.md queue 1): ``ref_attn``, the
+conv ASR encoder and the ``pre_exp``/``aligned_asr`` variants of the
+SVBPara subclasses.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch.nn.functional as F
 from .asr import VCASR
 from .common import ConvGlobalStacks, ConvStacks, Embedding, linear_ct
 from .svb_vae import CondUpsampler
+from .tts_modules import FastspeechDecoder
 
 
 def _not_ported(what: str):
@@ -47,12 +50,13 @@ class VCPPG(nn.Module):
                  ref_enc_out: int = 256, use_energy: bool = True, use_spk_id: bool = False,
                  num_spk: int = 100, use_tech: bool = False, num_techs: int = 3,
                  decoder_type: str = "conv", dec_layers: int = 4, dropout: float = 0.05,
+                 dec_ffn_kernel_size: int = 9, num_heads: int = 2,
                  ref_attn: bool = False, asr_enc_type: str = "conformer",
                  para: bool = False, pre_exp: bool = False, aligned_asr: bool = False,
                  spk_emb_dim: int = 256):
         super().__init__()
-        if decoder_type != "conv":
-            _not_ported(f"decoder_type {decoder_type!r} (FastspeechDecoder, the FS2 family)")
+        if decoder_type not in ("conv", "fft"):
+            raise ValueError(f"decoder_type {decoder_type!r}: conv or fft")
         if ref_attn:
             _not_ported("ref_attn (banded reference attention)")
         if asr_enc_type != "conformer":
@@ -81,8 +85,10 @@ class VCPPG(nn.Module):
         style = spk_emb_dim if para and not use_spk_id else ref_enc_out
         self.encoded_embed_proj = nn.Linear(
             2 * H + H * use_energy + style + H * use_tech, H)
-        self.decoder = ConvStacks(H, n_layers=dec_layers, n_chans=H, odim=H,
-                                  dropout=dropout)
+        self.decoder_type = decoder_type
+        self.decoder = (FastspeechDecoder(H, dec_layers, dec_ffn_kernel_size, num_heads, dropout)
+                        if decoder_type == "fft" else
+                        ConvStacks(H, n_layers=dec_layers, n_chans=H, odim=H, dropout=dropout))
         self.mel_out = nn.Linear(H, num_mel_bins)
 
     def train(self, mode: bool = True):
@@ -136,7 +142,10 @@ class VCPPG(nn.Module):
         ret["dec_inputs"] = dec_inputs = linear_ct(self.encoded_embed_proj,
                                                    torch.cat(embeds, 1))
         nonpadding = (pitch > 0).to(dec_inputs.dtype)[:, None, :]
-        x = self.decoder(dec_inputs, None, generator)
+        if self.decoder_type == "fft":
+            x = self.decoder(dec_inputs.transpose(1, 2), generator).transpose(1, 2)
+        else:
+            x = self.decoder(dec_inputs, None, generator)
         ret["mel_out"] = (linear_ct(self.mel_out, x) * nonpadding).transpose(1, 2)
         return ret
 

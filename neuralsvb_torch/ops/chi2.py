@@ -19,6 +19,7 @@ Counterpart of ``chi2_dist_pallas`` in ``neuralsvb_tpu/ops/pallas_kernels.py``
 from __future__ import annotations
 
 import ctypes
+import threading
 from pathlib import Path
 
 import torch
@@ -35,6 +36,7 @@ def _bind(lib) -> None:
 
 
 LIBRARY = SharedLibrary("nsvb_chi2_dist", SOURCE, NVCC, NVCC_FLAGS, _bind)
+_COUNT_LOCK = threading.Lock()  # the pitch-alignment harness launches from threads
 
 
 def chi2_dist_plain(a: torch.Tensor, b: torch.Tensor, chunk: int = 512) -> torch.Tensor:
@@ -69,8 +71,15 @@ def _chi2_dist_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"chi2_dist launch failed: CUDA error {err} "
                            f"(S={S} T={T} M={M})")
-    chi2_dist.launches += 1
+    count_launch()
     return out
+
+
+def count_launch() -> None:
+    """One more launch in ``chi2_dist.launches``; a lock makes the
+    read-modify-write whole under the harness's threads."""
+    with _COUNT_LOCK:
+        chi2_dist.launches += 1
 
 
 def chi2_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -14,8 +14,12 @@ enhance_sadtw.py:18-114, align.py:8-37).
   (``native.py``). A cost on the card reaches the host through pinned
   memory.
 
-The Naive/ZMNaive/NNaive/LoN aligners and ``NInterpo`` are not on the
-binarizer's path and are not ported yet (ROADMAP.md).
+The Euclidean aligners of the pitch-alignment harness (``NaiveDTW``,
+``ZMNaiveDTW``, ``NNaiveDTW``, ``LoNDTW``; reference: naive_dtw.py,
+local_norm_dtw.py) build their cost in host float64 numpy, as the JAX
+package does, and take the same ``device`` argument as the shape-aware ones
+only to share ``ALIGN_FUNCS``' signature. ``NInterpo`` (reference:
+naive_interpo.py) has another signature and stays outside ``ALIGN_FUNCS``.
 """
 
 from __future__ import annotations
@@ -103,8 +107,9 @@ def f0_shape_histogram(f0: np.ndarray, max_window: int = 64, scale_factor: float
     return hist
 
 
-def _dtw_from_cost(cost_ts: torch.Tensor, inputs):
-    """cost_ts: [T, S]. Returns (inputs gathered to the T timeline, alignment)."""
+def _dtw_from_cost(cost_ts, inputs):
+    """cost_ts: [T, S] (a tensor, or the Euclidean aligners' host float64
+    array). Returns (inputs gathered to the T timeline, alignment)."""
     alignment = align_from_distances(cost_ts)
     return np.asarray(inputs)[alignment], alignment
 
@@ -134,4 +139,66 @@ def EHSADTW(src, tgt, inputs, device: torch.device):
     return _dtw_from_cost(_chi2_cost(sh, th, device), inputs)
 
 
-ALIGN_FUNCS = {"SADTW": SADTW, "EHSADTW": EHSADTW}
+def _euclid_dist(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Pairwise Euclidean distances of the rows of ``a`` [S(, H)] and ``b``
+    [T(, H)] -> [S, T] float64."""
+    a = np.atleast_2d(np.asarray(a, np.float64).T).T
+    b = np.atleast_2d(np.asarray(b, np.float64).T).T
+    if a.ndim == 1:
+        a, b = a[:, None], b[:, None]
+    d2 = (a ** 2).sum(-1)[:, None] + (b ** 2).sum(-1)[None, :] - 2 * a @ b.T
+    return np.sqrt(np.maximum(d2, 0))
+
+
+def NaiveDTW(src, tgt, inputs, device=None):
+    return _dtw_from_cost(_euclid_dist(src, tgt).T, inputs)
+
+
+def ZMNaiveDTW(src, tgt, inputs, device=None):
+    """Zero-mean contours."""
+    src, tgt = np.asarray(src, np.float64), np.asarray(tgt, np.float64)
+    return _dtw_from_cost(_euclid_dist(src - src.mean(), tgt - tgt.mean()).T, inputs)
+
+
+def NNaiveDTW(src, tgt, inputs, device=None):
+    """Standardized contours."""
+    src, tgt = np.asarray(src, np.float64), np.asarray(tgt, np.float64)
+    src = (src - src.mean()) / (src.std() + 1e-8)
+    tgt = (tgt - tgt.mean()) / (tgt.std() + 1e-8)
+    return _dtw_from_cost(_euclid_dist(src, tgt).T, inputs)
+
+
+def get_local_context(f0: np.ndarray, max_window: int = 32) -> np.ndarray:
+    """[T] -> [T, 2 * max_window] zero-padded sliding windows
+    (reference: local_norm_dtw.py:17-31)."""
+    f0 = np.asarray(f0, np.float64).reshape(-1)
+    T = len(f0)
+    out = np.zeros((T, 2 * max_window))
+    for k, d in enumerate(range(-max_window, max_window)):
+        lo, hi = max(0, -d), min(T, T - d)
+        out[lo:hi, k] = f0[lo + d:hi + d]
+    return out
+
+
+def LoNDTW(src, tgt, inputs, device=None):
+    """Locally normalized DTW: windows of the contour, each minus its mean."""
+    ls, lt = get_local_context(src), get_local_context(tgt)
+    ls = ls - ls.mean(-1, keepdims=True)
+    lt = lt - lt.mean(-1, keepdims=True)
+    return _dtw_from_cost(_euclid_dist(ls, lt).T, inputs)
+
+
+def NInterpo(src, tgt, inputs, amateur_mel2ph=None, amateur_mel=None):
+    """Nearest-neighbour time interpolation baseline (reference:
+    naive_interpo.py:17-26) -> (inputs, mel2ph, mel) on the target timeline
+    (None where not given)."""
+    S, T = len(src), len(tgt)
+    idx = np.minimum(np.arange(T) * S // T, S - 1)
+    output = np.asarray(inputs)[idx]
+    aligned_mel2ph = np.asarray(amateur_mel2ph)[idx] if amateur_mel2ph is not None else None
+    aligned_mel = np.asarray(amateur_mel)[idx] if amateur_mel is not None else None
+    return output, aligned_mel2ph, aligned_mel
+
+
+ALIGN_FUNCS = {"SADTW": SADTW, "EHSADTW": EHSADTW, "NaiveDTW": NaiveDTW,
+               "ZMNaiveDTW": ZMNaiveDTW, "NNaiveDTW": NNaiveDTW, "LoNDTW": LoNDTW}

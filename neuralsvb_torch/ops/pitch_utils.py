@@ -1,8 +1,9 @@
 """Pitch utilities on the inference path; port of the functions of
 ``neuralsvb_tpu/ops/pitch_utils.py`` that it uses (reference:
-utils/pitch_utils.py:130-196): coarse quantization, normalization with
-interpolation through unvoiced frames (numpy, host side) and
-denormalization (numpy or torch, so the task runs it on the device).
+utils/pitch_utils.py:130-196): coarse quantization, normalization and
+denormalization (numpy or torch: FastSpeech2 runs them on the device inside
+its graph) and normalization with interpolation through unvoiced frames
+(numpy, host side).
 """
 
 from __future__ import annotations
@@ -17,8 +18,17 @@ F0_MEL_MIN = 1127 * np.log(1 + F0_MIN / 700)
 F0_MEL_MAX = 1127 * np.log(1 + F0_MAX / 700)
 
 
-def f0_to_coarse(f0) -> np.ndarray:
-    """Quantize f0 (Hz) into bins 1..255 (0 Hz lands in bin 1)."""
+def f0_to_coarse(f0):
+    """Quantize f0 (Hz) into bins 1..255 (0 Hz lands in bin 1). A numpy
+    array gives int64 bins, range-checked; a tensor gives int64 bins on its
+    device, inside the graph, rounded half to even as ``jnp.rint``."""
+    if isinstance(f0, torch.Tensor):
+        f0_mel = 1127 * torch.log(1 + f0 / 700)
+        scaled = (f0_mel - float(F0_MEL_MIN)) * (F0_BIN - 2) / float(F0_MEL_MAX - F0_MEL_MIN) + 1
+        f0_mel = torch.where(f0_mel > 0, scaled, f0_mel)
+        f0_mel = torch.where(f0_mel <= 1, torch.ones_like(f0_mel), f0_mel)
+        f0_mel = torch.where(f0_mel > F0_BIN - 1, torch.full_like(f0_mel, F0_BIN - 1), f0_mel)
+        return torch.round(f0_mel).long()
     f0 = np.asarray(f0)
     f0_mel = 1127 * np.log(1 + f0 / 700)
     scaled = (f0_mel - F0_MEL_MIN) * (F0_BIN - 2) / (F0_MEL_MAX - F0_MEL_MIN) + 1
@@ -31,13 +41,17 @@ def f0_to_coarse(f0) -> np.ndarray:
     return coarse
 
 
-def norm_f0(f0: np.ndarray, uv, hp: dict) -> np.ndarray:
+def norm_f0(f0, uv, hp: dict):
+    """Hz -> normalized f0 (``pitch_norm`` standard or log), zero where
+    ``uv``; numpy arrays or tensors (a tensor stays on its device)."""
+    is_t = isinstance(f0, torch.Tensor)
     if hp["pitch_norm"] == "standard":
         f0 = (f0 - hp["f0_mean"]) / hp["f0_std"]
     elif hp["pitch_norm"] == "log":
-        f0 = np.log2(f0 + 1e-8)
+        f0 = torch.log2(f0 + 1e-8) if is_t else np.log2(f0 + 1e-8)
     if uv is not None and hp.get("use_uv", True):
-        f0 = np.where(uv > 0, 0.0, f0)
+        f0 = (torch.where(uv > 0, torch.zeros_like(f0), f0) if is_t
+              else np.where(uv > 0, 0.0, f0))
     return f0
 
 

@@ -294,7 +294,9 @@ class BaseTask:
         ``max_sentences`` times N, batch sizes a multiple of N, each batch
         trimmed to a multiple of N and empty ones dropped
         (``neuralsvb_tpu/tasks/base_task.py:108-130``). Every rank builds the
-        same global batches and keeps its rows (``ddp.local_batch``)."""
+        same global batches and keeps its rows (``ddp.local_batch``). With
+        ``drop_last_batch`` a shuffled loader keeps only the batches of
+        ``max_sentences`` (else of the largest size) items."""
         if max_tokens is not None:
             max_tokens *= n_devices
         if max_sentences is not None:
@@ -310,6 +312,11 @@ class BaseTask:
         if n_devices > 1:
             batches = [b for b in (ddp.trim_batch_to_multiple(b, n_devices)
                                    for b in batches) if b]
+        if shuffle and hparams.get("drop_last_batch") and batches:
+            # only full batches, or all of them if none is full
+            # (neuralsvb_tpu/tasks/base_task.py:130-136)
+            full = max_sentences or max(len(b) for b in batches)
+            batches = [b for b in batches if len(b) == full] or batches
         prefetch = 4 if shuffle and int(hparams.get("ds_workers", 1) or 0) > 0 else 0
         return DataLoaderLite(dataset, batches, endless=endless, shuffle=shuffle,
                               seed=int(hparams.get("seed", 1234)), prefetch=prefetch)

@@ -18,6 +18,13 @@ def nan_guard(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), x, x.detach())
 
 
+def abs_(x: torch.Tensor) -> torch.Tensor:
+    """|x| whose derivative at exactly 0 is 1, as ``jnp.abs``'s (torch's is
+    0). An unmasked L1 over zero-padded frames of a model with zero biases
+    (flax's init) meets exact zeros."""
+    return torch.where(x >= 0, x, -x)
+
+
 def weights_nonzero_speech(target: torch.Tensor) -> torch.Tensor:
     """[B, T, 80] -> same-shape 0/1 weights of the nonzero frames."""
     w = (target.abs().sum(-1, keepdim=True) > 0).to(target.dtype)

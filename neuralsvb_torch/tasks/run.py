@@ -23,11 +23,41 @@ TF32.
 """
 
 import importlib
+import os
+import shutil
+import sys
+import time
 
 import torch
 
 from ..hparams import hparams, set_hparams
 from ..parallel import ddp
+
+
+def line_buffer_launched_stdout() -> None:
+    """Under torchrun the ranks write into one shared stdout pipe. torchrun
+    starts them with ``python -u``, which writes each piece of a ``print``
+    (the text, then its newline) through at once, and a block-buffered pipe
+    may flush mid-line: either way another rank's output can land inside a
+    line. Line-buffered without write-through, each line of up to PIPE_BUF
+    (4 KB) reaches the pipe in one atomic ``write``."""
+    if ddp.launched():
+        sys.stdout.reconfigure(line_buffering=True, write_through=False)
+
+
+def save_codes() -> None:
+    """``save_codes``: a snapshot of the listed directories under
+    ``work_dir/codes/<timestamp>/``, on rank 0 only (JAX:
+    ``neuralsvb_tpu/tasks/run.py:15-27``; reference: base_task.py:342-349)."""
+    dirs = hparams.get("save_codes") or []
+    if not dirs or not hparams.get("work_dir") or not ddp.is_main():
+        return
+    dst_root = os.path.join(hparams["work_dir"], "codes", time.strftime("%Y%m%d%H%M%S"))
+    for d in dirs:
+        if os.path.isdir(d):
+            shutil.copytree(d, os.path.join(dst_root, os.path.basename(d)),
+                            ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
+    print(f"| Saved codes to {dst_root}")
 
 
 def run_task():
@@ -44,6 +74,8 @@ def run_task():
               f"({torch.distributed.get_backend()})")
     if hparams.get("compute_dtype") == "bfloat16" and device.startswith("cuda"):
         torch.set_float32_matmul_precision("medium")
+    if not hparams.get("infer"):
+        save_codes()
     pkg, cls_name = hparams["task_cls"].rsplit(".", 1)
     task_cls = getattr(importlib.import_module(pkg), cls_name)
     try:
@@ -53,6 +85,7 @@ def run_task():
 
 
 def main():
+    line_buffer_launched_stdout()
     set_hparams()
     run_task()
 

@@ -58,6 +58,7 @@ class SVBParaTask(AdversarialTaskBase):
             ref_attn=bool(hp.get("ref_attn")),
             asr_enc_type=hp.get("asr_enc_type") or "conformer",
             decoder_type=hp["decoder_type"], dec_layers=hp["dec_layers"],
+            dec_ffn_kernel_size=hp.get("dec_ffn_kernel_size", 9), num_heads=hp.get("num_heads", 2),
             dropout=hp["dropout"])
         kw.update(over)
         return self.model_cls(self._dict_size(), **kw)

@@ -61,7 +61,7 @@ class Trainer:
                  tb_log_interval: int = 100, max_updates: int = 1000000,
                  num_ckpt_keep: int = 3, save_best: bool = True,
                  num_sanity_val_steps: int = 5, monitor_mode: str = "min",
-                 max_epochs: int = 1000):
+                 max_epochs: int = 1000, monitor_key: str = "val_loss"):
         self.work_dir = work_dir
         self.val_check_interval = val_check_interval
         self.tb_log_interval = tb_log_interval
@@ -70,12 +70,14 @@ class Trainer:
         self.save_best = save_best
         self.num_sanity_val_steps = num_sanity_val_steps
         self.monitor_mode = monitor_mode
+        self.monitor_key = monitor_key
         self.max_epochs = max_epochs
         self.global_step = 0
         self.current_epoch = 0
         self.best_val = None
         self.logger = None
         self.is_main = ddp.is_main()
+        self._times, self._val_seconds, self._validations = {}, 0.0, 0
 
     @classmethod
     def from_hparams(cls, hp: dict) -> "Trainer":
@@ -84,7 +86,8 @@ class Trainer:
                    num_ckpt_keep=hp["num_ckpt_keep"], save_best=hp["save_best"],
                    num_sanity_val_steps=hp["num_sanity_val_steps"],
                    monitor_mode=hp["valid_monitor_mode"],
-                   max_epochs=hp.get("max_epochs") or 1000)
+                   max_epochs=hp.get("max_epochs") or 1000,
+                   monitor_key=hp.get("valid_monitor_key") or "val_loss")
 
     # ------------------------------------------------------------------
     def _sync(self, task):
@@ -206,7 +209,10 @@ class Trainer:
         if self.logger is not None:
             self.logger.log_metrics(result["tb_log"], self.global_step)
         if save and self.work_dir:
-            val, is_best = result["val_loss"], False
+            # the JAX trainer's lookup: 'val/x' reads the result's 'val_x',
+            # and a key the result lacks falls back to val_loss
+            val = result.get(self.monitor_key.replace("val/", "val_"), result["val_loss"])
+            is_best = False
             if self.save_best and (self.best_val is None
                                    or (self.monitor_mode == "min" and val < self.best_val)
                                    or (self.monitor_mode == "max" and val > self.best_val)):

@@ -1,1 +1,2 @@
-"""Host-side text utilities of the port (no torch, no JAX)."""
+"""Host-side utilities of the port: text encoders and evaluation metrics
+(numpy and scipy; no torch, no JAX)."""

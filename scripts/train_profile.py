@@ -13,7 +13,10 @@ reports its generator + discriminator step as phase 2; the ASR
 pre-training recipe (``VCPPGTask``, ``egs/egs_bases/vc/vc_ppg_torch.yaml``)
 on a synthetic speech split with phone tokens at its token budget (40
 utterances of 750 frames: ``max_tokens`` 30000), its generator +
-discriminator step as phase 2. Then:
+discriminator step as phase 2; a FastSpeech2 recipe (``FastSpeech2Task``,
+e.g. ``egs/egs_bases/tts/fs2_adv_torch.yaml``) on such a split with
+``mel2ph`` at its budget (30 utterances of 1000 frames, 12 frames per
+phone: 85 tokens each), likewise. Then:
 
 - times warm phase-2 steps (generator + discriminator) and, for an SVB
   recipe, phase-3 steps (latent map), each between two
@@ -48,6 +51,7 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = (1034, 2412, 1241, 2171)
 SPEECH_FRAMES = (750,) * 40
+FS2_FRAMES = (1000,) * 30
 
 
 def main():
@@ -104,9 +108,13 @@ def profile_recipe(config, data, warm, extra=""):
         raise NotImplementedError(f"{cls_name}: no synthetic split for its paired singing "
                                   "dataset; the ASR pre-training recipe (VCPPGTask) is the "
                                   "adversarial task this script profiles")
+    from neuralsvb_torch.tasks.fs2 import FastSpeech2Task
+    fs2 = issubclass(task_cls, FastSpeech2Task)
+    frames = FS2_FRAMES if fs2 else SPEECH_FRAMES if speech else FRAMES
     if speech:
         data = os.path.join(REPO, "build", "train_profile_speech")
-        write_synthetic_speech_split(data, SPEECH_FRAMES)
+        write_synthetic_speech_split(data, frames, frames_per_phone=12 if fs2 else 8,
+                                     mel2ph=fs2)
     hp = set_hparams(config=config,
                      hparams_str=f"binary_data_dir={data},pretrain_asr_ckpt=,ds_workers=0"
                                  + (f",{extra}" if extra else ""),
@@ -168,7 +176,7 @@ def profile_recipe(config, data, warm, extra=""):
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "torch": torch.__version__, "batch": [int(batch["nsamples"]), int(batch["mels"].shape[1])],
         "samples": int(batch["wavs"].shape[1]) if vocoder else None,
-        "frames": None if vocoder else list(SPEECH_FRAMES if speech else FRAMES),
+        "frames": None if vocoder else list(frames),
         "tf32": False,
         "phase2_first_step_s": first2, "phase2_warm_steps_s": times2[1:],
         "phase2_median_s": statistics.median(times2[1:]),

@@ -202,7 +202,6 @@ def test_dataset_collates_the_port_split(binarized):
 @pytest.mark.parametrize("change,error", [
     ({"device": None}, ValueError),                     # device is required
     ({"device": "cuda"}, RuntimeError),                 # and must exist
-    ({"binarization_args": {"with_f0cwt": True}}, NotImplementedError),
     ({"text_labels": True}, NotImplementedError),       # the pairs have no text branch
 ])
 def test_binarizer_refuses(tmp_path, change, error):

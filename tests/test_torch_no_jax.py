@@ -78,3 +78,32 @@ def test_port_builds_and_names_only_its_own_files():
                   if isinstance(node, ast.Constant) and isinstance(node.value, str)
                   and id(node) not in docs and path.search(node.value)]
     assert named == [], named
+
+
+def test_chip_smoke_imports_no_jax():
+    """``chip_smoke.py`` (every phase, the FS2 and harness phases included)
+    imports nothing of jax, flax, msgpack or the JAX package, at its top or
+    inside a phase, and importing it with its phases' modules pulls none in."""
+    smoke = ROOT.parent / "chip_smoke.py"
+    tree = ast.parse(smoke.read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "flax", "neuralsvb_tpu", "msgpack"}, roots
+    phases = sorted(n.name for n in tree.body
+                    if isinstance(n, ast.FunctionDef) and n.name.startswith("phase_"))
+    assert {"phase_fs2_binarize", "phase_fs2_train", "phase_fs2_step_time",
+            "phase_fs2_card_vs_cpu", "phase_pitch_alignment", "phase_mcd"} <= set(phases)
+    code = ("import json, sys\n"
+            "import chip_smoke\n"
+            "import neuralsvb_torch.tasks.fs2_adv, neuralsvb_torch.tasks.mcd_eval\n"
+            "import neuralsvb_torch.tasks.pitch_alignment_task\n"
+            "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'neuralsvb_tpu', 'msgpack'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, cwd=ROOT.parent)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

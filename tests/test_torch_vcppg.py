@@ -276,7 +276,7 @@ def test_train_vc_asr():
     agree(tl, jl, TOL, "logits")
 
 
-@pytest.mark.parametrize("option", [dict(decoder_type="fft"), dict(ref_attn=True),
+@pytest.mark.parametrize("option", [dict(asr_enc_type="conv"), dict(ref_attn=True),
                                     dict(pre_exp=True), dict(aligned_asr=True)])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

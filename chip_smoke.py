@@ -190,7 +190,8 @@ Every phase prints one JSON line; any failure raises.
 22. bf16 card vs CPU: phase 9's steps with ``compute_dtype: bfloat16`` on
    the card against phase 9's CPU float64 run (``phase_bf16_card_vs_cpu``:
    losses, gradients in L2 and the update's sign, at the bounds
-   ``BF16_*``);
+   ``BF16_*``; the map step also from the float64 run's parameters, and
+   every BatchNorm call against float64 on its own input);
 23. accumulation: ``accumulate_grad_batches: 2`` in float64, card vs CPU;
    parameters move only at even micro-steps (``phase_accum_card_vs_cpu``);
 24. the bf16 vocoder: one ``vocoder_compute_dtype: bfloat16`` call beside
@@ -225,7 +226,23 @@ Every phase prints one JSON line; any failure raises.
    accuracies equal, the two χ² aligners' differences reported;
 31. MCD: phase 4's ``--infer`` on one utterance at zero noise on the card
    and on the CPU, ``python -m neuralsvb_torch.tasks.mcd_eval`` between the
-   a2p mels, gated at 0.1 dB.
+   a2p mels, gated at 0.1 dB;
+32. the SVBPara family at ``vc_ppg_torch.yaml``'s full width on phase 6's
+   para splits, the pretrained tasks warm-started from phase 17: each of
+   the six subclasses and ``SVBParaTask`` with ``ref_attn`` and with the
+   conv ASR takes two generator + discriminator steps in this process
+   (finite losses with the task's keys, every discriminator changed, the
+   frozen ASR phase 17's bit for bit); then the CLI trains
+   ``ParaPPGSpkConsistentTask`` 4 steps, resumes to 6 and ``--infer``s the
+   test split through HiFiGAN-NSF (every way per item, frames x 128, not
+   silent, 54 + 3 bf16 launches per vocoder call);
+33. SVBPara card vs CPU: one step of each of phase 32's eight
+   configurations, float64 gated as phase 9, float32 printed;
+34. serving leftovers: ``shard_infer`` (the flagship's ``--infer`` on
+   phase 8's checkpoint over two torchrun ranks on the card, a ragged last
+   batch, against one process: mels within 1e-4, the same wav tree, each
+   rank's launches per vocoder call) and the vocoder denoiser (card vs CPU
+   at phase 5's bf16 gates, 54 + 3 launches).
 
 The line before the last is the kernel table: per kernel its launches on
 the main path (the bf16 ResBlock kernel's also on the training path's
@@ -237,7 +254,10 @@ the technique-prior recipes' training and ``--infer`` processes,
 phase 20's warm-started flagship, ``vcppg_warm_start_launches``, on
 phase 24's bf16 vocoder call, ``bf16_vocoder_launches``, on phase
 25's rank 0 under torchrun, ``data_parallel_train_launches``, and on phase
-27's HiFiGAN ``--infer`` of FS2, ``fs2_infer_launches``; the χ² kernel's
+27's HiFiGAN ``--infer`` of FS2, ``fs2_infer_launches``, on phase 32's
+``--infer``, ``svb_para_infer_launches``, on each rank of phase 34's
+sharded ``--infer``, ``shard_infer_launches``, and on its denoised call,
+``denoise_launches``; the χ² kernel's
 also in the vocoder's binarize pass and in phase 30's harness,
 ``harness_launches``), worst error, time per call (``ms``; for the
 χ² kernel also ``device_ms``), plain time and bound (``bound_ms``,
@@ -904,10 +924,35 @@ def train_config(voc_dir, device="cuda", recipe=FLAGSHIP, name="train.yaml", **o
     return cfg
 
 
-def run_train_cli(cfg, work, *args, hp=""):
+def run_train_cli(cfg, work, *args, hp="", in_process=False):
+    """``python -m neuralsvb_torch.tasks.run --config cfg [--infer] --hparams
+    work_dir=work...`` -> (its stdout, wall s). With ``in_process`` the same
+    entry (``tasks.run.run_task``) runs in this process with its stdout
+    captured: a resume or a render after a process of the same recipe, which
+    spares an interpreter's and a card context's start-up (about 6 s)."""
+    t0 = time.perf_counter()
+    if in_process:
+        import contextlib
+        import gc
+        import io
+        import torch
+        from neuralsvb_torch.hparams import hparams_scope, set_hparams
+        from neuralsvb_torch.tasks.run import run_task
+        h = set_hparams(config=cfg, hparams_str=f"work_dir={work}{hp}", print_hparams=False,
+                        global_hparams=False)
+        h["infer"] = "--infer" in args
+        precision = torch.get_float32_matmul_precision()  # bf16 recipes set it
+        out = io.StringIO()
+        try:
+            with hparams_scope(h), contextlib.redirect_stdout(out):
+                run_task()
+        finally:
+            torch.set_float32_matmul_precision(precision)
+            gc.collect()
+            torch.cuda.empty_cache()
+        return out.getvalue(), time.perf_counter() - t0
     cmd = [sys.executable, "-m", "neuralsvb_torch.tasks.run", "--config", cfg, *args,
            "--hparams", f"work_dir={work}{hp}"]
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -974,6 +1019,8 @@ def phase_train(voc, device="cuda"):
             "lrelu_bf16_launches": stages * calls * on_card, "resblock_conv1d_launches": 0}
     launches = {k: s[k] for k in want}
 
+    # a fresh process restores the checkpoint (the later recipes resume in
+    # this one)
     resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={TRAIN_RESUME}")
     rs = summary_of(resumed, "train")
     c10 = load(TRAIN_RESUME)
@@ -988,7 +1035,7 @@ def phase_train(voc, device="cuda"):
         "phase3_keeps_disc": not changed(c8["mel_disc"], c10["mel_disc"]),
         "asr_never_changes": not any(k.startswith("vc_asr.") for k in changed(
             init.model.state_dict(), c10["model"]))}
-    infer, wall_infer = run_train_cli(cfg, work, "--infer")
+    infer, wall_infer = run_train_cli(cfg, work, "--infer", in_process=True)
     isum = summary_of(infer, "infer")
     gen_dir = os.path.join(work, f"generated_{TRAIN_RESUME}_", "wavs")
     wavs = {k: len(glob.glob(os.path.join(gen_dir, f"{k}_wavout", "*.wav")))
@@ -999,7 +1046,8 @@ def phase_train(voc, device="cuda"):
           and (rs["start_step"], rs["end_step"]) == (TRAIN_STEPS, TRAIN_RESUME)
           and f"model_ckpt_steps_{TRAIN_STEPS}.ckpt" in resumed
           and all(n == n_test for n in wavs.values()))
-    emit("train", ok=ok, wall_s=wall, resume_wall_s=wall_resume, infer_wall_s=wall_infer,
+    emit("train", ok=ok, wall_s=wall, resume_wall_s=wall_resume,
+         infer_in_process_wall_s=wall_infer,
          summary=s, resume_summary=rs, infer_rtf=isum["rtf"], invariants=invariants,
          problems=bad, validation_wavs=audio, launches=launches, expected_launches=want,
          wav_tree=wavs, last_step_losses=steps.get(TRAIN_STEPS))
@@ -1011,14 +1059,22 @@ def phase_train(voc, device="cuda"):
 
 
 def train_step_runs(task_cls, dtypes, devices=("cpu", "cuda"), sides=("cpu", "card"),
-                    deltas=None, **over):
+                    deltas=None, states=None, map_from=None, names=None, on_task=None,
+                    **over):
     """One gen+disc step and one map step of ``task_cls`` on the CPU and on
     the card, per dtype, from the same seeded float32 weights, at zero noise
     with pinned discriminator windows and the same dropout masks (drawn on
     the CPU); the four train items cropped to 640 frames. Returns ({(side,
     dtype): (losses, gradients by group)}, the batch). With a dict
     ``deltas``, each run's parameter change per group (after its
-    optimizer's step minus before) lands in ``deltas[side, dtype]``."""
+    optimizer's step minus before) lands in ``deltas[side, dtype]``. With a
+    dict ``states``, the model's and the discriminator's state after the
+    gen+disc step lands in ``states[side, dtype]``; ``map_from``, such a
+    state, is loaded (cast to the run's dtype) before the map step, so the
+    map step starts from another run's parameters. A dict ``names`` gets
+    each group's parameter names, in the gradients' order, and under
+    ``"batchnorm"`` the names of the model's BatchNorm modules.
+    ``on_task(task)`` runs after each task is built, before its steps."""
     import torch
     from neuralsvb_torch.hparams import hparams_scope, set_hparams
     runs = {}
@@ -1035,10 +1091,19 @@ def train_step_runs(task_cls, dtypes, devices=("cpu", "cuda"), sides=("cpu", "ca
                 task.mel_disc.to(dtype)
                 task.rand_device = torch.device("cpu")  # the same dropout masks on all
                 task.disc_start_frames_wins = [100, 200, 300]
+                if on_task is not None:
+                    on_task(task)
                 grads, before, params = {}, {}, {}
+                ids = {id(p): n for m in (task.model, task.mel_disc)
+                       for n, p in m.named_parameters()}
+                if names is not None:
+                    names["batchnorm"] = {n for n, m in task.model.named_modules()
+                                          if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)}
 
                 def hook(group, ps, grads=grads, before=before, params=params):
                     grads[group] = [p.grad.detach().cpu().double().clone() for p in ps]
+                    if names is not None:
+                        names[group] = [ids[id(p)] for p in ps]
                     if deltas is not None:
                         before[group] = [p.detach().cpu().double().clone() for p in ps]
                         params[group] = ps
@@ -1050,6 +1115,15 @@ def train_step_runs(task_cls, dtypes, devices=("cpu", "cuda"), sides=("cpu", "ca
                 torch.set_default_dtype(dtype)
                 try:
                     for step, idx in ((1, 0), (1, 1), (TRAIN_PHASE2 + 1, 2)):
+                        if idx == 2 and states is not None:
+                            states[side, dtype] = {
+                                part: {k: v.detach().cpu().clone()
+                                       for k, v in m.state_dict().items()}
+                                for part, m in (("model", task.model),
+                                                ("disc", task.mel_disc))}
+                        if idx == 2 and map_from is not None:
+                            task.model.load_state_dict(map_from["model"])
+                            task.mel_disc.load_state_dict(map_from["disc"])
                         logs.update({f"{idx}/{k}": float(torch.as_tensor(v).detach())
                                      for k, v in task.training_step(batch, step, idx)[1].items()})
                 finally:
@@ -1076,17 +1150,77 @@ def grads_over_scale(a, b, scales):
     return max(float((x - y).abs().max()) / s for x, y, s in zip(a, b, scales))
 
 
+def after_last_batchnorm(names):
+    """The slice of the map's gradients from its last BatchNorm on (that
+    norm's scale and shift, then the output conv), by ``train_step_runs``'
+    ``names``: the tensors that no BatchNorm's backward lies between and
+    the loss."""
+    mods = [n.rsplit(".", 1)[0] for n in names["map"]]
+    last = max(i for i, m in enumerate(mods) if m in names["batchnorm"])
+    return slice(mods.index(mods[last]), None)
+
+
+class NormStatsCheck:
+    """Forward hooks on every training-mode BatchNorm of a task's model and
+    discriminator: each call's output against the same normalisation in
+    float64 of the same input (flax's batch statistics, the module's scale
+    and shift as the call saw them). ``worst`` maps a module to its largest
+    max |out - ref| / max |ref| over its calls. bf16 rounds the output
+    (2^-9 relative); statistics taken in bf16 instead of float32 are off by
+    2^-9 of E[x^2], which swamps the variance of a channel whose rows are
+    nearly equal, as the latent map's four global latents are."""
+
+    def __init__(self, task):
+        import torch
+        self.worst = {}
+        self.handles = [
+            m.register_forward_hook(self._hook(f"{part}.{n}"))
+            for part, root in (("model", task.model), ("disc", task.mel_disc))
+            for n, m in root.named_modules()
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+
+    def _hook(self, name):
+        import torch
+
+        def hook(mod, args, out):
+            if not mod.training:
+                return
+            with torch.no_grad():
+                x, y = args[0].double(), out.double()
+                shape = [1, -1] + [1] * (x.dim() - 2)
+                dims = [0] + list(range(2, x.dim()))
+                mean = x.mean(dims).view(shape)
+                var = ((x * x).mean(dims).view(shape) - mean * mean).clamp_min(0.0)
+                ref = ((x - mean) * torch.rsqrt(var + mod.eps) * mod.weight.double().view(shape)
+                       + mod.bias.double().view(shape))
+                err = float((y - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+            self.worst[name] = max(self.worst.get(name, 0.0), err)
+        return hook
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def grad_cosine(a, b):
+    """The cosine of two lists of tensors, taken as one vector each."""
+    dot = sum(float((x * y).sum()) for x, y in zip(a, b))
+    na = math.sqrt(sum(float((x * x).sum()) for x in a))
+    nb = math.sqrt(sum(float((y * y).sum()) for y in b))
+    return dot / max(na * nb, 1e-300)
+
+
 def phase_train_card_vs_cpu(devices=("cpu", "cuda")):
     """One gen+disc step and one map step on the card and on the CPU, in
     float32 and in float64 from the same float32 weights; returns the row,
-    the runs and the CPU float64 run's parameter changes (phase 22 holds the
-    bf16 step against them)."""
+    the runs, the CPU float64 run's parameter changes and its state before
+    the map step (phase 22 holds the bf16 steps against them)."""
     import torch
     from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
     t0 = time.perf_counter()
-    deltas = {}
+    deltas, states = {}, {}
     runs, batch = train_step_runs(SVBVAEMleTask, (torch.float32, torch.float64), devices,
-                                  deltas=deltas)
+                                  deltas=deltas, states=states)
     f32, f64 = torch.float32, torch.float64
     rel32 = loss_rel(runs["card", f32][0], runs["cpu", f32][0])
     rel64 = loss_rel(runs["card", f64][0], runs["cpu", f64][0])
@@ -1112,7 +1246,7 @@ def phase_train_card_vs_cpu(devices=("cpu", "cuda")):
     emit("train_card_vs_cpu", **row)
     if not ok:
         raise AssertionError(f"train card vs CPU: {rel32} {rel64} {groups}")
-    return row, runs, deltas["cpu", torch.float64]
+    return row, runs, deltas["cpu", torch.float64], states["cpu", torch.float64]
 
 
 VOC_STEPS, VOC_RESUME, VOC_DISC_START, VOC_VAL_EVERY = 4, 6, 1, 4
@@ -1236,7 +1370,8 @@ def phase_vocoder_train(device="cuda"):
     if not all(changed_groups.values()):
         bad.append(f"unchanged parameter groups: {changed_groups}")
 
-    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={VOC_RESUME}")
+    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={VOC_RESUME}",
+                                         in_process=True)
     rs = summary_of(resumed, "train")
     if (rs["start_step"], rs["end_step"]) != (VOC_STEPS, VOC_RESUME) \
             or f"model_ckpt_steps_{VOC_STEPS}.ckpt" not in resumed:
@@ -1245,7 +1380,8 @@ def phase_vocoder_train(device="cuda"):
     # the SVB test split rendered through the trained vocoder
     svb_cfg = train_config(os.path.join(WORK, "voc"), device=device)
     infer, wall_infer = run_train_cli(svb_cfg, os.path.join(WORK, "train_work"), "--infer",
-                                      hp=f",vocoder_ckpt={work},gen_dir_name=trained_vocoder")
+                                      hp=f",vocoder_ckpt={work},gen_dir_name=trained_vocoder",
+                                      in_process=True)
     if f"| Loaded HifiGAN weights from {work}" not in infer:
         bad.append("--infer did not load the trained vocoder")
     wavs = glob.glob(os.path.join(WORK, "train_work", f"generated_{TRAIN_RESUME}_trained_vocoder",
@@ -1258,8 +1394,8 @@ def phase_vocoder_train(device="cuda"):
     if len(wavs) != 5 * 4 or min(rms) < 1.0:
         bad.append(f"{len(wavs)} wavs rendered, rms {rms}")
     emit("vocoder_train", ok=not bad, problems=bad, binarize_wall_s=wall_bin,
-         binarize_summary=bsum, wall_s=wall, resume_wall_s=wall_resume,
-         infer_wall_s=wall_infer, summary=s, resume_summary=rs, validations=validations,
+         binarize_summary=bsum, wall_s=wall, resume_in_process_wall_s=wall_resume,
+         infer_in_process_wall_s=wall_infer, summary=s, resume_summary=rs, validations=validations,
          generator_calls=calls, launches=launches, expected_launches=want,
          changed_groups=changed_groups, rendered_wavs=len(wavs), min_rms_int16=min(rms or [0]),
          last_step_losses=steps.get(VOC_STEPS))
@@ -1551,7 +1687,7 @@ def phase_variants_train(voc, device="cuda"):
                            max_updates=VAR_PHASE2 + 1)
         work = os.path.join(WORK, f"train_{variant}")
         out2, wall2 = run_train_cli(cfg, work)
-        out3, wall3 = run_train_cli(cfg, work, hp=f",max_updates={VAR_STEPS}")
+        out3, wall3 = run_train_cli(cfg, work, hp=f",max_updates={VAR_STEPS}", in_process=True)
         runs = {"2": summary_of(out2, "train"), "3": summary_of(out3, "train")}
         steps = {int(m.group(1)): json.loads(m.group(2))
                  for out in (out2, out3)
@@ -1608,7 +1744,7 @@ def phase_variants_train(voc, device="cuda"):
             os.path.join(work, "lightning_logs", "version_*", "audio", "*.wav")))
         if len(audio) != sum(calls.values()):
             bad.append(f"validation wavs {audio}")
-        infer, wall_infer = run_train_cli(cfg, work, "--infer")
+        infer, wall_infer = run_train_cli(cfg, work, "--infer", in_process=True)
         isum = summary_of(infer, "infer")
         gen_dir = os.path.join(work, f"generated_{VAR_STEPS}_", "wavs")
         wavs = {k: sorted(glob.glob(os.path.join(gen_dir, f"{k}_wavout", "*.wav")))
@@ -1622,7 +1758,7 @@ def phase_variants_train(voc, device="cuda"):
             infer_total[k] += got[k]
         rows[variant] = dict(
             recipe=recipe, ok=not bad and all(invariants.values()), problems=bad,
-            invariants=invariants, wall_s={"phase2_run": wall2, "phase3_run": wall3,
+            invariants=invariants, wall_s={"phase2_run": wall2, "phase3_run_in_process": wall3,
                                           "infer": wall_infer},
             step_s={p: r["phases"][p] for p, r in runs.items()},
             max_memory_allocated={p: r.get("max_memory_allocated") for p, r in runs.items()},
@@ -1788,7 +1924,8 @@ def phase_pwg_train(device="cuda"):
                                                c3["state_dict"]["model_gen"])),
         "disc_unchanged_by_3": not changed(init.disc.state_dict(), c3["state_dict"]["disc"]),
         "disc_changes_by_6": bool(changed(c3["state_dict"]["disc"], c6["state_dict"]["disc"]))}
-    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={PWG_RESUME}")
+    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={PWG_RESUME}",
+                                         in_process=True)
     rs = summary_of(resumed, "train")
     if (rs["start_step"], rs["end_step"]) != (PWG_STEPS, PWG_RESUME) \
             or f"model_ckpt_steps_{PWG_STEPS}.ckpt" not in resumed:
@@ -1808,7 +1945,7 @@ def phase_pwg_train(device="cuda"):
     svb_cfg = train_config(os.path.join(WORK, "voc"), device=device)
     infer, wall_infer = run_train_cli(
         svb_cfg, os.path.join(WORK, "train_work"), "--infer",
-        hp=f",vocoder=PWG,vocoder_ckpt={work},gen_dir_name=pwg")
+        hp=f",vocoder=PWG,vocoder_ckpt={work},gen_dir_name=pwg", in_process=True)
     if f"| Loaded PWG weights from {work}/model_ckpt_steps_{PWG_RESUME}.ckpt" not in infer:
         bad.append("--infer did not load the trained PWG")
     gen = os.path.join(WORK, "train_work", f"generated_{TRAIN_RESUME}_pwg")
@@ -1826,7 +1963,8 @@ def phase_pwg_train(device="cuda"):
     if rendered != 5 * 4 or min(rms or [0]) < 1.0:
         bad.append(f"{rendered} wavs rendered, rms {rms}")
     row = dict(ok=not bad and all(invariants.values()), problems=bad, invariants=invariants,
-               wall_s=wall, resume_wall_s=wall_resume, infer_wall_s=wall_infer, summary=s,
+               wall_s=wall, resume_in_process_wall_s=wall_resume,
+               infer_in_process_wall_s=wall_infer, summary=s,
                resume_summary=rs, validations=validations, optimizer_step_counts=counts,
                rendered_wavs=rendered, min_rms_int16=min(rms or [0]),
                infer_rtf=summary_of(infer, "infer")["rtf"],
@@ -2164,7 +2302,8 @@ def phase_vcppg_train(cfg):
     work = os.path.join(WORK, "vcppg_work")
     out, wall = run_train_cli(cfg, work)
     s = summary_of(out, "train")
-    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={VC_RESUME}")
+    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={VC_RESUME}",
+                                         in_process=True)
     rs = summary_of(resumed, "train")
     bad = []
     steps = {int(m.group(1)): json.loads(m.group(2))
@@ -2204,7 +2343,8 @@ def phase_vcppg_train(cfg):
         "mel_decoder_trains": any(k.startswith("decoder.") for k in moved),
         "disc_trains": bool(changed(init.mel_disc.state_dict(), c4["mel_disc"]))}
     row = dict(ok=not bad and all(invariants.values()), problems=bad, invariants=invariants,
-               wall_s=wall, resume_wall_s=wall_resume, summary=s, resume_summary=rs,
+               wall_s=wall, resume_in_process_wall_s=wall_resume, summary=s,
+               resume_summary=rs,
                validations=valid, last_step_losses=steps.get(VC_RESUME))
     emit("vcppg_train", **row)
     print(f"| train summary: {json.dumps(s)}", flush=True)
@@ -2361,7 +2501,10 @@ def phase_vcppg_warm_start(voc, vc_work, device="cuda"):
 BF16_LOSS_REL, BF16_LOSS_ABS = 0.1, 1e-4  # per logged loss: |d| <= rel |ref| + abs
 BF16_GRAD_COS = 0.8       # gen and disc: cosine of the gradient to float64's
 BF16_UPDATE_COS = 0.5     # gen and disc: cosine of the parameter change to float64's
-BF16_MAP_GRAD_COS = 0.5   # the map: its gradient's cosine (bf16 norm statistics gave < 0)
+# every training-mode BatchNorm call: max |out - float64| / max |float64|
+# on its own input (``NormStatsCheck``; sound runs and a planted bf16
+# statistics fault measured by ``scripts/bf16_map_spread.py``, PERF.md §6)
+BF16_NORM_ERR = 0.03
 # phase 24: the bf16 vocoder against the float32 one (CPU at full width:
 # 0.0058 and 0.015 of the float32 wav's mean and max magnitude)
 BF16_WAV_MEAN_REL, BF16_WAV_MAX_REL = 0.03, 0.05
@@ -2400,51 +2543,72 @@ def phase_bf16_step_time():
     return row
 
 
-def phase_bf16_card_vs_cpu(runs, cpu64_deltas, devices=("cuda",)):
+def phase_bf16_card_vs_cpu(runs, cpu64_deltas, cpu64_state, devices=("cuda",)):
     """Phase 9's gen+disc and map steps with ``compute_dtype: bfloat16`` on
     the card (float32 master weights, the same batch, masks and windows)
-    against phase 9's CPU float64 run. Gates: every logged loss within
-    BF16_LOSS_REL x |ref| + BF16_LOSS_ABS; for the generator and the
-    discriminator the gradient's cosine to float64's at least BF16_GRAD_COS
-    and the parameter change's at least BF16_UPDATE_COS; the map's
-    gradient's cosine at least BF16_MAP_GRAD_COS (its float32 gradient is
-    already ill-conditioned); every step finite and moving its parameters."""
+    against phase 9's CPU float64 run, then the map step again from the
+    float64 run's parameters before its map step (``map_from_f64``), where
+    bf16's rounding in that step is all that differs. Gates: every logged
+    loss within BF16_LOSS_REL x |ref| + BF16_LOSS_ABS; for the generator and
+    the discriminator the gradient's cosine to float64's at least
+    BF16_GRAD_COS and the parameter change's at least BF16_UPDATE_COS; for
+    the map from float64's parameters, the cosine of its tensors from its
+    last BatchNorm on (``after_last_batchnorm``) at least BF16_GRAD_COS;
+    every training-mode BatchNorm call of both runs within BF16_NORM_ERR of
+    float64 on its own input (``NormStatsCheck``); every step finite and
+    moving its parameters. The whole map's cosines are reported, not gated:
+    its BatchNorms normalise over four nearly equal global latents, and
+    their backward leaves sound bf16 anywhere in 0.1-0.85 (PERF.md §6)."""
     import torch
     from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
     f32, f64 = torch.float32, torch.float64
     t0 = time.perf_counter()
-    deltas = {}
+    deltas, names, checks = {}, {}, []
+
+    def check_norms(task):
+        checks.append(NormStatsCheck(task))
     bf, _ = train_step_runs(SVBVAEMleTask, (f32,), devices, sides=("bf16",), deltas=deltas,
-                            compute_dtype="bfloat16")
+                            on_task=check_norms, compute_dtype="bfloat16")
+    sharp, _ = train_step_runs(SVBVAEMleTask, (f32,), devices, sides=("bf16",), names=names,
+                               map_from=cpu64_state, on_task=check_norms,
+                               compute_dtype="bfloat16")
+    for c in checks:
+        c.close()
+    norm_err = {k: max(c.worst.get(k, 0.0) for c in checks) for c in checks for k in c.worst}
     ref_logs, ref_grads = runs["cpu", f64]
     logs, grads = bf["bf16", f32]
     over = {k: abs(logs[k] - v) / (BF16_LOSS_REL * abs(v) + BF16_LOSS_ABS)
             for k, v in ref_logs.items() if k in logs}
-
-    def cos(a, b):
-        dot = sum(float((x * y).sum()) for x, y in zip(a, b))
-        na = math.sqrt(sum(float((x * x).sum()) for x in a))
-        nb = math.sqrt(sum(float((y * y).sum()) for y in b))
-        return dot / max(na * nb, 1e-300)
     groups = {}
     for group, ref in ref_grads.items():
         got, d_bf, d_ref = grads[group], deltas["bf16", f32][group], cpu64_deltas[group]
         groups[group] = dict(
-            grad_cos=cos(got, ref), update_cos=cos(d_bf, d_ref),
+            grad_cos=grad_cosine(got, ref), update_cos=grad_cosine(d_bf, d_ref),
             grad_l2_rel=math.sqrt(sum(float(((a - b) ** 2).sum()) for a, b in zip(got, ref))
                                   / sum(float((b ** 2).sum()) for b in ref)),
             finite=all(bool(torch.isfinite(x).all()) for x in got + d_bf),
             moved=any(bool((x != 0).any()) for x in d_bf))
+    got, ref, tail = sharp["bf16", f32][1]["map"], ref_grads["map"], after_last_batchnorm(names)
+    groups["map_from_f64"] = dict(grad_cos=grad_cosine(got, ref),
+                                  tail_grad_cos=grad_cosine(got[tail], ref[tail]),
+                                  tail=names["map"][tail],
+                                  finite=all(bool(torch.isfinite(x).all()) for x in got),
+                                  moved=True)
     gated = ("gen", "disc")
     ok = (logs.keys() == ref_logs.keys() and max(over.values()) <= 1.0
           and all(g["finite"] and g["moved"] for g in groups.values())
           and all(groups[g]["grad_cos"] >= BF16_GRAD_COS
                   and groups[g]["update_cos"] >= BF16_UPDATE_COS for g in gated)
-          and groups["map"]["grad_cos"] >= BF16_MAP_GRAD_COS)
+          and groups["map_from_f64"]["tail_grad_cos"] >= BF16_GRAD_COS
+          and len(norm_err) > 0 and max(norm_err.values()) <= BF16_NORM_ERR)
     row = dict(ok=ok, frames=640, losses_over_tol=max(over.values()),
                loss_rel_err=loss_rel(logs, ref_logs), groups=groups,
+               norm_err_max=max(norm_err.values(), default=None),
+               norm_err_worst=max(norm_err, key=norm_err.get, default=None),
+               norm_calls_checked=len(norm_err),
                tol=dict(loss_rel=BF16_LOSS_REL, loss_abs=BF16_LOSS_ABS, grad_cos=BF16_GRAD_COS,
-                        update_cos=BF16_UPDATE_COS, map_grad_cos=BF16_MAP_GRAD_COS),
+                        update_cos=BF16_UPDATE_COS, map_tail_grad_cos=BF16_GRAD_COS,
+                        norm_err=BF16_NORM_ERR),
                seconds=time.perf_counter() - t0)
     emit("bf16_card_vs_cpu", **row)
     if not ok:
@@ -2864,7 +3028,8 @@ def phase_fs2_train(cfg, voc, pwg_work, device="cuda"):
     work = os.path.join(WORK, "fs2_work")
     out, wall = run_train_cli(cfg, work)
     s = summary_of(out, "train")
-    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={FS2_RESUME}")
+    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={FS2_RESUME}",
+                                         in_process=True)
     rs = summary_of(resumed, "train")
     bad = []
     steps = {int(m.group(1)): json.loads(m.group(2))
@@ -2902,7 +3067,7 @@ def phase_fs2_train(cfg, voc, pwg_work, device="cuda"):
     infers = {}
     for name, ckpt in (("PWG", pwg_work), ("HifiGAN", os.path.join(WORK, "voc"))):
         io, iwall = run_train_cli(cfg, work, "--infer", hp=f",vocoder={name},vocoder_ckpt="
-                                  f"{ckpt},gen_dir_name={name}")
+                                  f"{ckpt},gen_dir_name={name}", in_process=True)
         summary = summary_of(io, "infer")
         gen = os.path.join(work, f"generated_{FS2_RESUME}_{name}")
         problems = wav_frames_check(gen, test_frames, ("p_wavout", "g_wavout"))
@@ -2920,11 +3085,11 @@ def phase_fs2_train(cfg, voc, pwg_work, device="cuda"):
         launches = {k: summary[f"{k}_launches"] for k in want}
         if launches != want or summary["vocoder_calls"] != calls:
             problems.append(f"launches {launches} != {want}, calls {summary['vocoder_calls']}")
-        infers[name] = dict(ok=not problems, problems=problems, wall_s=iwall,
+        infers[name] = dict(ok=not problems, problems=problems, in_process_wall_s=iwall,
                             launches=launches, expected_launches=want, summary=summary)
     ok = not bad and all(invariants.values()) and all(r["ok"] for r in infers.values())
     row = dict(ok=ok, problems=bad, invariants=invariants, wall_s=wall,
-               resume_wall_s=wall_resume, summary=s, resume_summary=rs,
+               resume_in_process_wall_s=wall_resume, summary=s, resume_summary=rs,
                validations=valid, last_step_losses=steps.get(FS2_RESUME), infer=infers)
     emit("fs2_train", **row)
     print(f"| train summary: {json.dumps(s)}", flush=True)
@@ -3128,6 +3293,414 @@ def phase_mcd(devices=("cuda", "cpu")):
     return mcd
 
 
+# ---------------------------------------------------------------------------
+# the SVBPara family and the serving leftovers (phases 32-34)
+# ---------------------------------------------------------------------------
+
+PARA_TASKS = ("ParaPPGConstraintTask", "ParaPPGPreExpTask", "ParaAlignedPPGTask",
+              "ParaPPGPretrainedTask", "ParaPPGSpkConsistentTask", "AmtSpkTask")
+PARA_PRETRAINED = ("ParaPPGPretrainedTask", "ParaPPGSpkConsistentTask", "AmtSpkTask")
+# name -> (task class, hparams): the six subclasses and SVBParaTask's two
+# model options; AmtSpkTask runs without energy, its JAX task's only setting
+PARA_CONFIGS = dict(
+    {name: (name, {"use_energy": False} if name == "AmtSpkTask" else {})
+     for name in PARA_TASKS},
+    ref_attn=("SVBParaTask", {"ref_attn": True}),
+    conv_asr=("SVBParaTask", {"asr_enc_type": "conv"}))
+PARA_CLI_TASK = "ParaPPGSpkConsistentTask"
+PARA_STEPS, PARA_RESUME = 4, 6
+PARA_CARD_VS_CPU = dict(items=2, frames=192, starts=[20, 40, 60])
+PARA_TOKENS = (4, 5, 6, 7, 0, 0)  # injected phones (tests/test_tasks2.py:283-284)
+
+
+def para_config(vc_work, device="cuda", name="svb_para.yaml", **over):
+    """The ASR pre-training recipe's full widths (``vc_ppg_torch.yaml``:
+    hidden 256, two conformer and two ASR decoder layers, four decoder conv
+    layers, discriminator 3 windows x 128 channels) on phase 6's para splits
+    with phase 16's phone set (so the ASR's token table is phase 17's),
+    ``pretrain_asr_ckpt`` at phase 17's work dir, vocoded through the
+    registry's HiFiGAN-NSF (phase 4's generator keys)."""
+    import yaml
+    root = os.path.join(WORK, "svb_para_bin")
+    if not os.path.isdir(root):
+        os.makedirs(root)
+        src = os.path.join(WORK, "binarize", "binary")
+        for f in os.listdir(src):
+            os.symlink(os.path.join(src, f), os.path.join(root, f))
+        shutil.copy(os.path.join(WORK, "vcppg", "binary", "phone_set.json"), root)
+    cfg = os.path.join(WORK, name)
+    with open(cfg, "w") as f:
+        yaml.safe_dump(dict({
+            "base_config": [os.path.join(REPO, VC_RECIPE)],
+            "binary_data_dir": root, "device": device, "pretrain_asr_ckpt": vc_work,
+            "vocoder": "HifiGAN", "vocoder_ckpt": os.path.join(WORK, "voc"),
+            "ds_workers": 0, "disc_start_steps": 0, "max_updates": PARA_STEPS,
+            "val_check_interval": PARA_STEPS, "valid_infer_interval": PARA_STEPS,
+            "num_sanity_val_steps": 1, "num_valid_plots": 1, "tb_log_interval": 1},
+            **over), f)
+    return cfg
+
+
+def para_task(cls_name, cfg_over, vc_work, device, **over):
+    """A built and trainable SVBPara task of ``PARA_CONFIGS``' kind."""
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.tasks import svb_para
+    cfg = para_config(vc_work, device=device, name=f"para_{device.replace(':', '')}.yaml",
+                      **dict(cfg_over, **over))
+    hp = set_hparams(config=cfg, print_hparams=False, global_hparams=False)
+    with hparams_scope(hp):
+        task = getattr(svb_para, cls_name)()
+        task.build_model()
+        task.build_train()
+    return task, hp
+
+
+def para_expected_keys(task, tokens):
+    """The generator's and the discriminator's log keys of ``task``."""
+    ways = task.concurrent_ways
+    gen = {f"{k}{w}" for k in task.loss_and_lambda for w in ways} | {"lr_0"}
+    gen |= {f"{w}_{d}a" for w in ways for d in task.discriminators}
+    disc = {f"{w}_{d}{x}" for w in ways for d in task.discriminators for x in "rf"} | {"lr_1"}
+    if tokens and type(task).__name__ not in PARA_PRETRAINED:
+        gen |= {"asr_a", "asr_p"}
+    if tokens and type(task).__name__ == "ParaPPGConstraintTask":
+        gen |= {"ppg_constraint"}
+    return gen, disc
+
+
+def phase_svb_para(voc, vc_work, device="cuda"):
+    """The SVBPara family at full width on the card.
+
+    (a) In this process, every configuration of ``PARA_CONFIGS`` takes two
+    generator + discriminator steps (steps 1 and 2, the discriminators on)
+    on the task's first train batch (phones injected for the constraint
+    task, whose batches have none). Checks: every loss finite, with the
+    task's keys (``_spk`` ones for the speaker-consistency task); every
+    discriminator changed; the three pretrained tasks' ASR equal to phase
+    17's checkpoint bit for bit after the steps.
+
+    (b) The CLI (``task_cls`` on the recipe) for ``ParaPPGSpkConsistentTask``:
+    train 4 steps (validating and vocoding at 0 and 4), resume to 6,
+    ``--infer`` the test split through HiFiGAN-NSF: ``gt_a``, ``gt_p`` and
+    every way per item, frames x 128 samples, not silent; the bf16 ResBlock
+    kernel launches 18 x stages convs and one pre-pass per stage per vocoder
+    call, in training and in ``--infer``. Returns the ``--infer`` launches."""
+    import math
+    import numpy as np
+    import torch
+    from neuralsvb_torch.convert.checkpoint import newest_checkpoint
+    from neuralsvb_torch.hparams import hparams_scope
+    t0 = time.perf_counter()
+    vc = torch.load(newest_checkpoint(vc_work), map_location="cpu",
+                    weights_only=True)["state_dict"]["model"]
+    rows, bad = {}, []
+    for name, (cls_name, over) in PARA_CONFIGS.items():
+        t1 = time.perf_counter()
+        task, hp = para_task(cls_name, over, vc_work, device)
+        with hparams_scope(hp):
+            batch = next(iter(task.train_dataloader()))
+            tokens = cls_name == "ParaPPGConstraintTask"
+            if tokens:
+                batch["txt_tokens"] = np.tile(np.asarray(PARA_TOKENS), (batch["nsamples"], 1))
+            discs0 = {d: {k: v.detach().clone() for k, v in m.state_dict().items()}
+                      for d, m in task.discriminators.items()}
+            logs = []
+            for step in (1, 2):
+                for idx in (0, 1):
+                    out = task.training_step(batch, step, idx)
+                    logs.append({k: float(torch.as_tensor(v).detach())
+                                 for k, v in out[1].items()})
+            if device.startswith("cuda"):
+                torch.cuda.synchronize()
+        want_gen, want_disc = para_expected_keys(task, tokens)
+        problems = []
+        for i, lg in enumerate(logs):
+            want = want_gen if i % 2 == 0 else want_disc
+            if set(lg) != want:
+                problems.append(f"log {i} keys {sorted(set(lg) ^ want)}")
+            if not all(math.isfinite(v) for v in lg.values()):
+                problems.append(f"log {i} non-finite")
+        unchanged = [d for d, m in task.discriminators.items() if not changed(discs0[d],
+                                                                              m.state_dict())]
+        if unchanged:
+            problems.append(f"discriminators unchanged: {unchanged}")
+        if cls_name in PARA_PRETRAINED:
+            asr = {k: v for k, v in task.model.state_dict().items() if k.startswith("vc_asr.")}
+            differ = [k for k, v in asr.items() if not torch.equal(v.cpu(), vc[k])]
+            if not asr or differ:
+                problems.append(f"frozen ASR differs from phase 17's: {differ[:5]}")
+        rows[name] = dict(ok=not problems, problems=problems, task=cls_name, over=over,
+                          batch=list(batch["mels"].shape[:2]),
+                          discriminators=list(task.discriminators),
+                          last_losses=logs[-2], seconds=time.perf_counter() - t1)
+        bad += [f"{name}: {p}" for p in problems]
+        del task
+    in_process_s = time.perf_counter() - t0
+
+    # (b) the CLI
+    stages = len(voc["upsample_rates"])
+    on_card = device.startswith("cuda")
+
+    def want(calls):
+        return {"resblock_conv1d_bf16_launches": 18 * stages * calls * on_card,
+                "lrelu_bf16_launches": stages * calls * on_card, "resblock_conv1d_launches": 0}
+    cfg = para_config(vc_work, device=device, name="para_cli.yaml",
+                      task_cls=f"neuralsvb_torch.tasks.svb_para.{PARA_CLI_TASK}")
+    work = os.path.join(WORK, "para_cli_work")
+    out, wall = run_train_cli(cfg, work)
+    s = summary_of(out, "train")
+    resumed, wall_resume = run_train_cli(cfg, work, hp=f",max_updates={PARA_RESUME}",
+                                         in_process=True)
+    rs = summary_of(resumed, "train")
+    infer, wall_infer = run_train_cli(cfg, work, "--infer", in_process=True)
+    isum = summary_of(infer, "infer")
+    steps = {int(m.group(1)): json.loads(m.group(2))
+             for m in re.finditer(r"^\| step (\d+): (\{.*\})$", out + resumed, re.M)}
+    cli_bad = []
+    if sorted(steps) != list(range(1, PARA_RESUME + 1)):
+        cli_bad.append(f"logged steps {sorted(steps)}")
+    for n, lg in steps.items():  # "step n" logs step n - 1: the discriminators from step 1
+        spk = {k for k in lg if "_spk" in k}
+        if not all(math.isfinite(v) for v in lg.values()) or (n > 1 and len(spk) != 9):
+            cli_bad.append(f"step {n}: {lg}")
+    if (rs["start_step"], rs["end_step"]) != (PARA_STEPS, PARA_RESUME):
+        cli_bad.append(f"resume {rs['start_step']} -> {rs['end_step']}")
+    for summ in (s, rs):
+        if {k: summ[k] for k in want(0)} != want(summ["vocoder_calls"]):
+            cli_bad.append(f"train launches {summ}")
+    gen_dir = os.path.join(work, f"generated_{PARA_RESUME}_", "wavs")
+    wavs = {k: sorted(glob.glob(os.path.join(gen_dir, f"{k}_wavout", "*.wav")))
+            for k in ("gt_a", "gt_p", "a2a", "p2p", "a2p")}
+    lengths = {}
+    for k, paths in wavs.items():
+        lengths[k] = []
+        for p in paths:
+            with wave.open(p) as f:
+                lengths[k].append(f.getnframes())
+    silent = [os.path.basename(p) for v in wavs.values() for p in v if wav_rms(p) < 1.0]
+    n_test = len(read_split(os.path.join(WORK, "binarize", "binary"), "test"))
+    shapes_ok = (all(len(v) == n_test for v in lengths.values())
+                 and all(n > 0 and n % 128 == 0 for v in lengths.values() for n in v)
+                 and lengths["gt_a"] == lengths["a2a"]
+                 and lengths["gt_p"] == lengths["p2p"] == lengths["a2p"])
+    launches = {k: isum[k] for k in want(0)}
+    if (not shapes_ok or silent or isum["vocoder_calls"] != 5 * n_test
+            or launches != want(isum["vocoder_calls"])):
+        cli_bad.append(f"--infer: lengths {lengths}, silent {silent}, {isum}")
+    ckpt = torch.load(os.path.join(work, f"model_ckpt_steps_{PARA_RESUME}.ckpt"),
+                      map_location="cpu", weights_only=True)["state_dict"]
+    if "mel_disc_spk" not in ckpt or f"model_ckpt_steps_{PARA_STEPS}.ckpt" not in resumed:
+        cli_bad.append("the resume did not carry the speaker discriminator")
+    row = dict(ok=not bad and not cli_bad, problems=bad + cli_bad, in_process=rows,
+               in_process_s=in_process_s, cli=dict(
+                   task=PARA_CLI_TASK, wall_s=wall, resume_in_process_wall_s=wall_resume,
+                   infer_in_process_wall_s=wall_infer, summary=s, resume_summary=rs,
+                   infer_summary=isum,
+                   wav_lengths=lengths, last_step_losses=steps.get(PARA_RESUME)),
+               seconds=time.perf_counter() - t0)
+    emit("svb_para", **row)
+    if not row["ok"]:
+        raise AssertionError(f"svb_para: {row['problems']}")
+    return {"resblock_conv1d_bf16": launches["resblock_conv1d_bf16_launches"],
+            "lrelu_bf16": launches["lrelu_bf16_launches"]}
+
+
+def phase_svb_para_card_vs_cpu(vc_work, devices=("cpu", "cuda")):
+    """One generator + discriminator step of every configuration of
+    ``PARA_CONFIGS`` on the CPU and on the card, from the same seeded
+    weights (the pretrained tasks' ASR from phase 17), on two train items
+    cropped to 192 frames (phones injected for the constraint task), with
+    pinned discriminator windows and the same dropout masks (drawn on the
+    CPU), TF32 off, in float64 and float32. Gates, float64 only (phase 9's):
+    losses within 1e-4 relative, gradients per tensor within 1e-3 of its
+    scale; the float32 differences are printed beside them."""
+    import numpy as np
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope
+    t0 = time.perf_counter()
+    f32, f64 = torch.float32, torch.float64
+    rows, bad = {}, []
+    for name, (cls_name, over) in PARA_CONFIGS.items():
+        runs = {}
+        for dtype in (f32, f64):
+            for side, dev in zip(("cpu", "card"), devices):
+                task, hp = para_task(cls_name, over, vc_work, dev,
+                                     max_frames=PARA_CARD_VS_CPU["frames"])
+                with hparams_scope(hp):
+                    task.model.to(dtype)
+                    for d in task.discriminators.values():
+                        d.to(dtype)
+                    task.rand_device = torch.device("cpu")
+                    task.disc_start_frames_wins = PARA_CARD_VS_CPU["starts"]
+                    grads = {}
+                    task.grad_hook = lambda group, params, grads=grads: grads.__setitem__(
+                        group, [p.grad.detach().cpu().double().clone() for p in params])
+                    ds = task.dataset_cls("train", shuffle=False)
+                    batch = ds.collater([ds[i] for i in range(PARA_CARD_VS_CPU["items"])])
+                    if cls_name == "ParaPPGConstraintTask":
+                        batch["txt_tokens"] = np.tile(np.asarray(PARA_TOKENS),
+                                                      (batch["nsamples"], 1))
+                    torch.set_default_dtype(dtype)
+                    try:
+                        logs = {}
+                        for idx in (0, 1):
+                            logs.update({f"{idx}/{k}": float(torch.as_tensor(v).detach())
+                                         for k, v in task.training_step(batch, 1, idx)[1].items()})
+                    finally:
+                        torch.set_default_dtype(f32)
+                runs[side, dtype] = logs, grads
+                del task
+        rel = {dt: loss_rel(runs["card", dt][0], runs["cpu", dt][0]) for dt in (f32, f64)}
+        groups = {}
+        for group in ("gen", "disc"):
+            scales = grad_scales(runs["cpu", f64][1][group])
+            groups[group] = {
+                "card_vs_cpu_f64": grads_over_scale(runs["card", f64][1][group],
+                                                    runs["cpu", f64][1][group], scales),
+                "card_vs_cpu_f32": grads_over_scale(runs["card", f32][1][group],
+                                                    runs["cpu", f32][1][group], scales)}
+        ok = (runs["card", f64][0].keys() == runs["cpu", f64][0].keys()
+              and max(rel[f64].values()) <= 1e-4
+              and all(g["card_vs_cpu_f64"] <= 1e-3 for g in groups.values()))
+        rows[name] = dict(ok=ok, task=cls_name, over=over,
+                          max_loss_rel_err_f64=max(rel[f64].values()),
+                          max_loss_rel_err_f32=max(rel[f32].values()),
+                          grads_over_scale=groups, losses=len(runs["cpu", f64][0]))
+        if not ok:
+            bad.append(name)
+    emit("svb_para_card_vs_cpu", ok=not bad, failed=bad, items=PARA_CARD_VS_CPU["items"],
+         frames=PARA_CARD_VS_CPU["frames"], tol_loss=1e-4, tol_grad_f64=1e-3, **rows,
+         seconds=time.perf_counter() - t0)
+    if bad:
+        raise AssertionError(f"svb_para card vs CPU: { {n: rows[n] for n in bad} }")
+
+
+SHARD_INFER = dict(items=3, batch=2)  # batches (2, 1): the last one ragged
+DENOISE_C = 0.01
+
+
+def phase_serving_leftovers(voc, device="cuda:0"):
+    """(a) ``shard_infer``: the flagship's ``--infer`` on phase 8's
+    checkpoint through ``torchrun --nproc_per_node 2`` (both ranks on
+    ``device``, over gloo) at ``mesh_shape: data:2``, ``infer_batch_size:
+    2`` and three test items (a ragged last batch, run whole by rank 0),
+    at zero noise, beside the same ``--infer`` in this process. Checks: the
+    mel trees hold the same files, within 1e-4; the wav trees the same names
+    and lengths; each rank launches 18 x stages convs and one pre-pass per
+    stage per vocoder call it made, and the ranks' calls sum to this
+    process's.
+
+    (b) The denoiser: one vocoder call with ``vocoder_denoise_c`` on the card
+    and on the CPU (a 1000-frame mel, phase 4's generator): the card's
+    denoised wav against the CPU's at phase 5's bf16 gates, its launches,
+    that denoising changed the wav, and the card call's median time with
+    and without the denoiser (5 calls). Returns (the ranks' launches, the
+    denoised call's launches)."""
+    import numpy as np
+    import torch
+    from neuralsvb_torch.hparams import hparams_scope, set_hparams
+    from neuralsvb_torch.ops import fused_resblock as fr
+    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
+    from neuralsvb_torch.vocoders.hifigan import HifiGAN
+    t0 = time.perf_counter()
+    stages = len(voc["upsample_rates"])
+    on_card = device.startswith("cuda")
+    work = os.path.join(WORK, "train_work")  # phase 8's checkpoints
+    cfg = train_config(os.path.join(WORK, "voc"), device=device, name="shard_infer.yaml",
+                       zero_noise=True, infer_batch_size=SHARD_INFER["batch"],
+                       num_test_samples=SHARD_INFER["items"], shard_infer=True, ds_workers=0)
+    hp = set_hparams(config=cfg, hparams_str=f"work_dir={work},gen_dir_name=one",
+                     print_hparams=False, global_hparams=False)
+    hp["infer"] = True
+    t1 = time.perf_counter()
+    with hparams_scope(hp):
+        one = SVBVAEMleTask.start()
+    one_s = time.perf_counter() - t1
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "2", "-m", "neuralsvb_torch.tasks.run", "--config", cfg, "--infer", "--hparams",
+           f"work_dir={work},gen_dir_name=two,mesh_shape=data:2"]
+    t1 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    two_s = time.perf_counter() - t1
+    if proc.returncode != 0:
+        raise RuntimeError(f"sharded --infer failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    ranks = {s["rank"]: s for s in (json.loads(m.group(1)) for m in re.finditer(
+        r"^\| infer summary: (\{.*\})$", proc.stdout, re.M))}
+
+    def tree(gen, kind, ext):
+        root = os.path.join(work, f"generated_{TRAIN_RESUME}_{gen}", kind)
+        return {os.path.relpath(p, root): p
+                for p in sorted(glob.glob(os.path.join(root, "*", f"*.{ext}")))}
+    mels = {g: tree(g, "mels", "npy") for g in ("one", "two")}
+    wavs = {g: tree(g, "wavs", "wav") for g in ("one", "two")}
+    mel_err = max((float(np.abs(np.load(mels["two"][k]) - np.load(p)).max())
+                   for k, p in mels["one"].items() if k in mels["two"]), default=float("inf"))
+
+    def n_frames(p):
+        with wave.open(p) as f:
+            return f.getnframes()
+    same_wavs = (wavs["one"].keys() == wavs["two"].keys()
+                 and all(n_frames(p) == n_frames(wavs["two"][k]) for k, p in wavs["one"].items()))
+    keys = ("resblock_conv1d_bf16_launches", "lrelu_bf16_launches", "resblock_conv1d_launches")
+
+    def want(calls):
+        return dict(zip(keys, (18 * stages * calls * on_card, stages * calls * on_card, 0)))
+    rank_launches = {r: {k: s[k] for k in keys} for r, s in ranks.items()}
+    shard = dict(
+        ranks=sorted(ranks), utts={r: s["utts"] for r, s in ranks.items()},
+        vocoder_calls={r: s["vocoder_calls"] for r, s in ranks.items()},
+        one_vocoder_calls=one["vocoder_calls"], launches=rank_launches,
+        mel_files=len(mels["one"]), mel_max_abs_err=mel_err, same_wav_tree=same_wavs,
+        one_process_s=one_s, two_ranks_s=two_s, one_rtf=one["rtf"],
+        rank_rtf={r: s["rtf"] for r, s in ranks.items()})
+    shard_ok = (sorted(ranks) == [0, 1] and mels["one"].keys() == mels["two"].keys()
+                and len(mels["one"]) == 5 * SHARD_INFER["items"] and mel_err <= 1e-4
+                and same_wavs and all(s["world"] == 2 for s in ranks.values())
+                and sum(s["vocoder_calls"] for s in ranks.values()) == one["vocoder_calls"]
+                and all(rank_launches[r] == want(s["vocoder_calls"]) for r, s in ranks.items()))
+
+    # (b) the denoiser
+    T = 1000
+    t = np.arange(T) * 128 / SR
+    f0 = (220.0 * (1 + 0.02 * np.sin(2 * np.pi * 5 * t))).astype(np.float32)
+    mel = (np.random.RandomState(5).randn(T, voc["audio_num_mel_bins"]) - 4).astype(np.float32)
+    base = dict(voc, vocoder_ckpt="", seed=7, fft_size=1024, hop_size=128, win_size=1024)
+    out, card_ms = {}, {}
+    for dev, mm in ((device, None), ("cpu", torch.bfloat16), ("cpu", torch.float32)):
+        for c in (0.0, DENOISE_C):
+            vocoder = HifiGAN(dict(base, device=dev, vocoder_denoise_c=c))
+            vocoder.model.mm_dtype = mm
+            for k in fr.KERNEL_COUNTERS:
+                k.launches = 0
+            out[dev, mm, c] = vocoder.spec2wav(mel, f0=f0, zero_noise=True).cpu()
+            if dev == device and c > 0:
+                den_launches = {k.__name__: k.launches for k in fr.KERNEL_COUNTERS}
+            if dev == device and on_card:  # the call's time, with and without the denoiser
+                card_ms[c] = median_ms(lambda v=vocoder: v.spec2wav(mel, f0=f0, zero_noise=True),
+                                       n=5, warmup=1)
+    card, cpu_bf16, cpu_f32 = (out[device, None, DENOISE_C], out["cpu", torch.bfloat16, DENOISE_C],
+                               out["cpu", torch.float32, DENOISE_C])
+    den = dict(c=DENOISE_C, frames=T, launches=den_launches,
+               call_ms=card_ms.get(0.0), denoised_call_ms=card_ms.get(DENOISE_C),
+               wav_max_abs_err=float((card - cpu_bf16).abs().max()),
+               wav_mean_abs_err=float((card - cpu_bf16).abs().mean()),
+               cpu_bf16_f32_gap=float((cpu_bf16 - cpu_f32).abs().mean()),
+               denoise_change=float((card - out[device, None, 0.0]).abs().max()))
+    den["ratio"] = den["wav_mean_abs_err"] / den["cpu_bf16_f32_gap"]
+    den_ok = (den["wav_max_abs_err"] <= 2e-3 and den["ratio"] <= WAV_MEAN_RATIO
+              and den["denoise_change"] > 1e-4 and bool(torch.isfinite(card).all())
+              and card.shape == (T * 128,)
+              and den_launches == {"resblock_conv1d_bf16": 18 * stages * on_card,
+                                   "lrelu_bf16": stages * on_card, "resblock_conv1d": 0})
+    row = dict(ok=shard_ok and den_ok, shard_infer=dict(shard, ok=shard_ok),
+               denoise=dict(den, ok=den_ok), seconds=time.perf_counter() - t0)
+    emit("serving_leftovers", **row)
+    if not row["ok"]:
+        raise AssertionError(f"serving leftovers: {row}")
+    return rank_launches, den_launches
+
+
 def build_all():
     """nvcc for each CUDA source and g++ for the host library, all started
     together."""
@@ -3190,7 +3763,7 @@ def main():
     # the training process zeroes its counts when fit starts and reports them
     # in its summary: the counts cover the training path (its validation)
     train_launches = phase_train(voc)
-    _, runs9, cpu64_deltas = phase_train_card_vs_cpu()
+    _, runs9, cpu64_deltas, cpu64_state = phase_train_card_vs_cpu()
     # the vocoder's training process zeroes its counts when fit starts and
     # reports them in its summary: the counts cover that training path
     voc_launches, voc_chi2_launches, voc_cfg = phase_vocoder_train()
@@ -3223,8 +3796,8 @@ def main():
     # options on (rank 0's training process zeroes its counts when fit
     # starts and reports its validation's)
     phase_bf16_step_time()
-    phase_bf16_card_vs_cpu(runs9, cpu64_deltas)
-    del runs9, cpu64_deltas
+    phase_bf16_card_vs_cpu(runs9, cpu64_deltas, cpu64_state)
+    del runs9, cpu64_deltas, cpu64_state
     phase_accum_card_vs_cpu()
     bf16_voc_launches = phase_bf16_vocoder(voc)
     dp_launches = phase_data_parallel(voc)
@@ -3239,6 +3812,14 @@ def main():
     # of each aligner's pass in its summary
     harness_launches = phase_pitch_alignment(cfgs)
     phase_mcd()
+    # the SVBPara family: the CLI's training and --infer processes zero their
+    # counts when their loops start and report them in their summaries
+    para_launches = phase_svb_para(voc, vc_work)
+    phase_svb_para_card_vs_cpu(vc_work)
+    # shard_infer: each rank's --infer process zeroes its counts at
+    # test_start and reports them at test_end; the denoised vocoder call's
+    # counts are zeroed just before it
+    shard_launches, denoise_launches = phase_serving_leftovers(voc)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -3267,6 +3848,14 @@ def main():
         "data_parallel_train_prepass_launches": dp_launches["lrelu_bf16_launches"],
         "fs2_infer_launches": fs2_launches["resblock_conv1d_bf16"],
         "fs2_infer_prepass_launches": fs2_launches["lrelu_bf16"],
+        "svb_para_infer_launches": para_launches["resblock_conv1d_bf16"],
+        "svb_para_infer_prepass_launches": para_launches["lrelu_bf16"],
+        "shard_infer_launches": {r: v["resblock_conv1d_bf16_launches"]
+                                 for r, v in shard_launches.items()},
+        "shard_infer_prepass_launches": {r: v["lrelu_bf16_launches"]
+                                         for r, v in shard_launches.items()},
+        "denoise_launches": denoise_launches["resblock_conv1d_bf16"],
+        "denoise_prepass_launches": denoise_launches["lrelu_bf16"],
         "vocoder_train_shapes_ms": total(train_rows, "kernel_ms"),
         "vocoder_train_shapes_plain_ms": total(train_rows, "plain_ms"),
         "vocoder_train_shapes_bound_ms": total(train_rows, "bound_ms"),

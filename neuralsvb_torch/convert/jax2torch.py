@@ -145,8 +145,11 @@ def _vcasr(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
         sd.bn(f"{prefix}.mel_prenet.layers.{i}.2", pn[f"BatchNorm1d_{i}"],
               None if s is None else s["mel_prenet"][f"BatchNorm1d_{i}"])
     sd.dense(f"{prefix}.mel_prenet.out_proj", pn["Dense_0"])
-    _conformer(sd, f"{prefix}.content_encoder", p["content_encoder"],
-               None if s is None else s["content_encoder"])
+    if "Dense_0" in p["content_encoder"]:  # asr_enc_type: conv
+        _conv_stacks(sd, f"{prefix}.content_encoder", p["content_encoder"])
+    else:
+        _conformer(sd, f"{prefix}.content_encoder", p["content_encoder"],
+                   None if s is None else s["content_encoder"])
     if "asr_decoder" in p:
         sd.put(f"{prefix}.token_embed.weight", p["token_embed"]["Embed_0"]["embedding"])
         _asr_decoder(sd, f"{prefix}.asr_decoder", p["asr_decoder"])
@@ -163,13 +166,23 @@ def vcasr_from_jax(params: Tree, batch_stats: Tree = None) -> Dict[str, torch.Te
     return {k[len("vc_asr."):]: v for k, v in sd.items()}
 
 
-def _conv_stacks(sd: _SD, prefix: str, p: Tree) -> None:
+def _conv_stacks(sd: _SD, prefix: str, p: Tree, s: Tree = None) -> None:
+    """``ConvStacks`` of any norm: ``gn`` (GroupNorm_0), ``bn``
+    (BatchNorm1d_0, with its statistics from ``s``), ``in`` (the block's
+    in_scale/in_bias) or ``none``; each is ``conv.{i}.norm`` in the port."""
     sd.dense(f"{prefix}.in_proj", p["Dense_0"])
     n = sum(1 for k in p if k.startswith("ConvBlock_"))
     for i in range(n):
-        blk = p[f"ConvBlock_{i}"]
-        sd.conv(f"{prefix}.conv.{i}.conv.conv", blk["ConvNorm_0"]["Conv_0"])
-        sd.norm(f"{prefix}.conv.{i}.norm", blk["GroupNorm_0"])
+        blk, base = p[f"ConvBlock_{i}"], f"{prefix}.conv.{i}"
+        sd.conv(f"{base}.conv.conv", blk["ConvNorm_0"]["Conv_0"])
+        if "GroupNorm_0" in blk:
+            sd.norm(f"{base}.norm", blk["GroupNorm_0"])
+        elif "BatchNorm1d_0" in blk:
+            sd.bn(f"{base}.norm", blk["BatchNorm1d_0"],
+                  None if s is None else s[f"ConvBlock_{i}"]["BatchNorm1d_0"])
+        elif "in_scale" in blk:
+            sd.put(f"{base}.norm.weight", blk["in_scale"])
+            sd.put(f"{base}.norm.bias", blk["in_bias"])
     sd.dense(f"{prefix}.out_proj", p["Dense_1"])
 
 
@@ -183,6 +196,8 @@ def _fvae(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
     sd.convt(f"{prefix}.decoder.pre_net.0", dec["pre_0"])
     _wn(sd, f"{prefix}.decoder.wn", dec["wn"])
     sd.conv(f"{prefix}.decoder.out_proj", dec["out_proj"])
+    if "prior_flow" in p:  # use_prior_glow
+        _glow(sd, f"{prefix}.prior_flow", p["prior_flow"])
     if "pool_0" not in enc:
         return
     for i, ci in enumerate((0, 3, 6)):
@@ -192,8 +207,34 @@ def _fvae(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
               s["encoder"][f"pool_bn_{i}"])
 
 
+def _glow(sd: _SD, prefix: str, p: Tree) -> None:
+    """``ResidualCouplingBlock``: ``flow_{i}`` -> ``flows.{2i}`` (the flips
+    between them hold no weights)."""
+    n = sum(1 for k in p if k.startswith("flow_"))
+    for i in range(n):
+        fp, base = p[f"flow_{i}"], f"{prefix}.flows.{2 * i}"
+        sd.conv(f"{base}.pre", fp["pre"])
+        _wn(sd, f"{base}.enc", fp["enc"])
+        sd.conv(f"{base}.post", fp["post"])
+
+
+def glow_from_jax(params: Tree) -> Dict[str, torch.Tensor]:
+    """``ResidualCouplingBlock`` params -> the port's state_dict."""
+    sd = _SD()
+    _glow(sd, "b", params)
+    return {k[2:]: v for k, v in sd.items()}
+
+
+def tech_classifier_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+    """``TechClassifier`` params + batch_stats -> the port's state_dict."""
+    sd = _SD()
+    _latent_map(sd, "t", params, batch_stats)
+    return {k[2:]: v for k, v in sd.items()}
+
+
 def _latent_map(sd: _SD, prefix: str, p: Tree, s: Tree) -> None:
-    """``LatentMap`` and ``GlobalLatentMap`` (the same layout)."""
+    """``LatentMap``, ``GlobalLatentMap`` and ``TechClassifier`` (the same
+    layout)."""
     for i, ci in enumerate((0, 3, 6)):
         sd.conv(f"{prefix}.convs.{ci}", p[f"conv_{i}"])
     for i, bi in enumerate((1, 4)):
@@ -250,6 +291,10 @@ def vcppg_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
     sd.conv(f"upsample_layer.{n}", up["conv_out"])
     if "ref_encoder" in params:  # ConvGlobalStacks: the ConvStacks layout
         _conv_stacks(sd, "ref_encoder", params["ref_encoder"])
+    if "ref_attn_kv_encoder" in params:  # ref_attn
+        _conv_stacks(sd, "ref_attn_kv_encoder", params["ref_attn_kv_encoder"])
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd.dense(f"ref_attn_mha.{name}", params["ref_attn_mha"][name])
     sd.dense("encoded_embed_proj", params["encoded_embed_proj"])
     if "blocks" in params["decoder"]:  # decoder_type: fft
         _fft_blocks(sd, "decoder.blocks", params["decoder"]["blocks"])
@@ -332,6 +377,15 @@ def pitch_extractor_from_jax(params: Tree, batch_stats: Tree = None) -> Dict[str
 def svbvae_mle_from_jax(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
     """``SVBVAE(variant="mle")`` params + batch_stats -> port state_dict."""
     return svbvae_from_jax(params, batch_stats, "mle")
+
+
+def discs_from_jax(disc_params: Tree, disc_batch_stats: Tree,
+                   freq_length: int = 80) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX adversarial task's ``disc_params``/``disc_batch_stats`` dicts
+    (one entry per discriminator: ``''`` the mel discriminator, ``'_spk'``
+    the speaker-consistency one) -> {name: state_dict}."""
+    return {name: disc_from_jax(p, (disc_batch_stats or {}).get(name, {}), freq_length)
+            for name, p in disc_params.items()}
 
 
 def disc_from_jax(params: Tree, batch_stats: Tree,

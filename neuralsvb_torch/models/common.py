@@ -192,46 +192,89 @@ class ConvNorm(nn.Module):
         return self.conv(x)
 
 
-class ConvBlock(nn.Module):
-    """conv -> GroupNorm -> ReLU -> dropout (reference:
-    common_layers.py:736-772). With ``x_mask`` the GroupNorm statistics
-    cover the valid frames only; without, every frame, padding included."""
+class InstanceNorm1d(nn.Module):
+    """Affine instance norm over time with flax's epsilon 1e-5 (the JAX
+    ``ConvBlock``'s ``in``); with ``x_mask`` the moments cover valid frames
+    only."""
 
-    def __init__(self, c_in, c_out, kernel_size=3, stride=1, dropout=0.0):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x, x_mask):
+        n = x_mask.sum(-1, keepdim=True).clamp_min(1.0)
+        mean = (x * x_mask).sum(-1, keepdim=True) / n
+        var = (((x - mean) ** 2) * x_mask).sum(-1, keepdim=True) / n
+        y = (x - mean) * torch.rsqrt(var + BN_EPS)
+        return y * self.weight[None, :, None] + self.bias[None, :, None]
+
+
+class ConvBlock(nn.Module):
+    """conv -> norm -> ReLU -> dropout (reference:
+    common_layers.py:736-772). ``norm``: ``gn`` (GroupNorm of 16-channel
+    groups), ``bn`` (BatchNorm), ``in`` (affine instance norm) or ``none``.
+    With ``x_mask`` the GroupNorm and instance-norm statistics cover the
+    valid frames only; without, every frame, padding included."""
+
+    def __init__(self, c_in, c_out, kernel_size=3, stride=1, dropout=0.0, norm: str = "gn"):
         super().__init__()
         self.conv = ConvNorm(c_in, c_out, kernel_size, stride)
-        self.norm = nn.GroupNorm(c_out // 16, c_out, eps=LN_EPS)
+        self.norm_type = norm
+        if norm == "gn":
+            self.norm = nn.GroupNorm(c_out // 16, c_out, eps=LN_EPS)
+        elif norm == "bn":
+            self.norm = BatchNorm1d(c_out, eps=BN_EPS)
+        elif norm == "in":
+            self.norm = InstanceNorm1d(c_out)
+        elif norm != "none":
+            raise ValueError(f"ConvBlock norm {norm!r}: gn, bn, in or none")
         self.dropout = Dropout(dropout)
 
     def forward(self, x, x_mask=None, generator=None):
         x = self.conv(x)
         if x_mask is None:
             x_mask = torch.ones_like(x[:, :1])
-        return self.dropout(F.relu(masked_group_norm(x, x_mask, self.norm)), generator)
+        if self.norm_type == "gn":
+            x = masked_group_norm(x, x_mask, self.norm)
+        elif self.norm_type == "bn":
+            x = self.norm(x)
+        elif self.norm_type == "in":
+            x = self.norm(x, x_mask)
+        return self.dropout(F.relu(x), generator)
 
 
 class ConvStacks(nn.Module):
-    """Residual conv stack (reference: common_layers.py:672-707).
-    x [B, idim, T] -> [B, odim, T]; ``x_mask`` [B, 1, T] re-zeroes padded
-    frames after every layer (None: no masking, as the JAX package's PPG
-    models call it)."""
+    """Conv stack (reference: common_layers.py:672-707).
+    x [B, idim, T] -> [B, odim, T / prod(strides)]; ``x_mask`` [B, 1, T]
+    re-zeroes padded frames after every layer (None: no masking, as the
+    JAX package's PPG models call it). A layer of stride 1 adds to its input
+    when ``res``; a strided layer, or any layer without ``res``, replaces it
+    (and subsamples the mask)."""
 
     def __init__(self, idim, n_layers=5, n_chans=256, odim=32, kernel_size=5,
-                 dropout=0.0):
+                 dropout=0.0, strides: Optional[Sequence[int]] = None, res: bool = True,
+                 norm: str = "gn"):
         super().__init__()
+        self.strides = list(strides) if strides is not None else [1] * n_layers
+        self.res = res
         self.in_proj = nn.Linear(idim, n_chans)
         self.conv = nn.ModuleList(
-            [ConvBlock(n_chans, n_chans, kernel_size, dropout=dropout)
-             for _ in range(n_layers)])
+            [ConvBlock(n_chans, n_chans, kernel_size, s, dropout=dropout, norm=norm)
+             for s in self.strides])
         self.out_proj = nn.Linear(n_chans, odim)
 
     def forward(self, x, x_mask=None, generator=None):
         x = linear_ct(self.in_proj, x)
         if x_mask is not None:
             x = x * x_mask
-        for blk in self.conv:
+        for s, blk in zip(self.strides, self.conv):
+            if x_mask is not None and s > 1:
+                x_mask = x_mask[:, :, ::s]
             h = blk(x, x_mask, generator)
-            x = x + (h if x_mask is None else h * x_mask)
+            if x_mask is not None:
+                h = h * x_mask
+            x = x + h if (self.res and s == 1) else h
         x = linear_ct(self.out_proj, x)
         return x if x_mask is None else x * x_mask
 

@@ -5,7 +5,10 @@ modules/fastspeech/multi_window_disc.py:6-199).
 Per window length (32/64/128 frames) a clip ``[B, 1, win, 80]`` of the mel
 goes through three stride-2 3x3 conv blocks (leaky-ReLU 0.2, dropout 0.25 in
 training, a norm after the second and third) and a linear head; reduction
-``stack`` returns the validities ``[B, n_windows]``. Parameter names are the
+``stack`` returns the validities ``[B, n_windows]``, ``sum`` their sum
+``[B, 1]``, and ``none`` a validity per time row of every window's last
+block, concatenated ``[B, sum_w ceil(w / 8)]`` (the head then reads one
+row, ``C x F'`` in torch's order). Parameter names are the
 reference's (``discriminator.discriminators.0.model.1.3.weight``, ...), and
 the head reads the conv output flattened in torch's NCHW order, as the
 reference does; ``convert.jax2torch.disc_from_jax`` permutes the JAX head
@@ -54,8 +57,9 @@ class Discriminator2D(nn.Module):
     """Three stride-2 conv blocks and the linear validity head."""
 
     def __init__(self, time_length: int, freq_length: int = 80, hidden_size: int = 128,
-                 norm_type: str = "bn", dropout: float = 0.25):
+                 norm_type: str = "bn", dropout: float = 0.25, reduction: str = "stack"):
         super().__init__()
+        self.per_row = reduction == "none"
         blocks = []
         for i in range(3):
             layers = [nn.Conv2d(1 if i == 0 else hidden_size, hidden_size, 3,
@@ -75,10 +79,11 @@ class Discriminator2D(nn.Module):
         t, f = time_length, freq_length
         for _ in range(3):
             t, f = (t + 1) // 2, (f + 1) // 2
-        self.adv_layer = nn.Linear(hidden_size * t * f, 1)
+        self.adv_layer = nn.Linear(hidden_size * (1 if self.per_row else t) * f, 1)
 
     def forward(self, x, generator=None):
-        """x [B, 1, win, F] -> (validity [B, 1], per-block hiddens)."""
+        """x [B, 1, win, F] -> (validity [B, 1], or [B, win'] per time row
+        with reduction ``none``; per-block hiddens)."""
         hiddens = []
         for block in self.model:
             conv, act, drop, *norm = block
@@ -86,16 +91,22 @@ class Discriminator2D(nn.Module):
             for n in norm:
                 x = n(x)
             hiddens.append(x)
+        if self.per_row:  # [B, C, t, f] -> a validity per time row t
+            return self.adv_layer(x.transpose(1, 2).flatten(2))[..., 0], hiddens
         return self.adv_layer(x.flatten(1)), hiddens
 
 
 class MultiWindowDiscriminator(nn.Module):
     def __init__(self, time_lengths: Sequence[int] = (32, 64, 128), freq_length: int = 80,
-                 hidden_size: int = 128, norm_type: str = "bn", cond_size: int = 0):
+                 hidden_size: int = 128, norm_type: str = "bn", cond_size: int = 0,
+                 reduction: str = "stack"):
         super().__init__()
+        if reduction not in ("stack", "sum", "none"):
+            raise ValueError(f"disc_reduction {reduction!r}: stack, sum or none")
         self.time_lengths = tuple(time_lengths)
+        self.reduction = reduction
         self.discriminators = nn.ModuleList(
-            [Discriminator2D(w, freq_length, hidden_size, norm_type)
+            [Discriminator2D(w, freq_length, hidden_size, norm_type, reduction=reduction)
              for w in self.time_lengths])
         if cond_size > 0:
             self.mel_proj_layers = nn.ModuleList(
@@ -107,8 +118,8 @@ class MultiWindowDiscriminator(nn.Module):
         """x [B, T, F]; x_len [B] valid frames; ``cond`` [B, T, cond_size]
         for the conditional branch. A window starts at
         ``floor(u * (max(x_len) - win + 1))`` for u from ``generator``, or
-        at ``start_frames_wins[i]``. Returns (validity [B, W] or None when
-        a window exceeds the padded T, starts, hiddens)."""
+        at ``start_frames_wins[i]``. Returns (validity of the reduction, or
+        None when a window exceeds the padded T, starts, hiddens)."""
         B, T, _ = x.shape
         if any(win > T for win in self.time_lengths):
             return None, [], []
@@ -130,9 +141,13 @@ class MultiWindowDiscriminator(nn.Module):
             if cond is not None:
                 clip = self.mel_proj_layers[i](clip) + self.cond_proj_layers[i](cond[:, frames])
             v, hs = disc(clip[:, None], generator)
-            validity.append(v[:, 0])
+            validity.append(v)
             hiddens.extend(hs)
-        return torch.stack(validity, -1), starts, hiddens
+        if self.reduction == "sum":
+            return sum(validity), starts, hiddens
+        if self.reduction == "stack":
+            return torch.stack([v[:, 0] for v in validity], -1), starts, hiddens
+        return torch.cat(validity, -1), starts, hiddens
 
 
 class Discriminator(nn.Module):
@@ -142,11 +157,9 @@ class Discriminator(nn.Module):
                  hidden_size: int = 128, norm_type: str = "bn",
                  reduction: str = "stack", cond_size: int = 0):
         super().__init__()
-        if reduction != "stack":
-            raise NotImplementedError(f"disc_reduction {reduction!r}")
         self.config = (tuple(time_lengths), freq_length, hidden_size, norm_type)
-        self.cond_size = cond_size
-        self.discriminator = MultiWindowDiscriminator(*self.config)
+        self.cond_size, self.reduction = cond_size, reduction
+        self.discriminator = MultiWindowDiscriminator(*self.config, reduction=reduction)
         self.cond_disc = None  # built at the first call with a cond (see above)
 
     def build_cond_disc(self) -> nn.Module:
@@ -154,14 +167,15 @@ class Discriminator(nn.Module):
         if self.cond_disc is None:
             p = next(self.discriminator.parameters())
             self.cond_disc = MultiWindowDiscriminator(
-                *self.config, cond_size=self.cond_size).to(p.device, p.dtype)
+                *self.config, cond_size=self.cond_size,
+                reduction=self.reduction).to(p.device, p.dtype)
             self.cond_disc.train(self.training)
         return self.cond_disc
 
     def forward(self, x, start_frames_wins=None, generator=None, cond=None):
         """x [B, T, 80] (or [B, 1, T, 80]); ``cond`` [B, T, cond_size] or
-        None -> {'y': [B, W] or None, 'y_c': the conditional branch's or
-        None, ...}."""
+        None -> {'y': the validity (``[B, W]`` for ``stack``) or None, 'y_c':
+        the conditional branch's or None, ...}."""
         if x.dim() == 4:
             x = x[:, 0]
         x_len = (x.abs().sum(-1) > 0).long().sum(-1)

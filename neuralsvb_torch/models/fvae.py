@@ -1,9 +1,15 @@
-"""Frame-level and global conditional VAEs over mel-spectrograms and the
-amateur -> professional latent maps; port of ``neuralsvb_tpu/models/fvae.py``
-without its prior flow and technique classifier (reference:
+"""Frame-level and global conditional VAEs over mel-spectrograms, the
+amateur -> professional latent maps and the technique classifier; port of
+``neuralsvb_tpu/models/fvae.py`` (reference:
 modules/fastspeech/fs2_vae.py:103-237, modules/voice_conversion/vae_models.py).
-Training and inference share the posterior branch; the BatchNorms follow
-the module's train/eval mode.
+The SVB tasks run the posterior branch (``forward``) in training and
+inference; ``infer`` decodes a prior sample. ``use_prior_glow`` puts a
+residual coupling flow (``models/glow.py``) on the prior, with explicit
+``glow_hidden``/``glow_kernel_size``/``glow_n_blocks``: the KL becomes
+log q(z) - log p(flow(z)) and ``infer`` runs the flow in reverse (a
+frame-level latent only: the JAX flow broadcasts a global latent against
+the frame mask and fails). The BatchNorms follow the module's train/eval
+mode.
 
 Layout ``[B, C, T]``: a latent is ``[B, latent, T / stride]``, a global one
 ``[B, latent, 1]`` (the JAX package keeps ``[B, Tz, latent]``).
@@ -35,6 +41,8 @@ def gaussian_kl(m_q, logs_q, m_p=0.0, logs_p=0.0):
 
 def normal_log_prob(x, mean, logs):
     """log N(x; mean, e^logs), elementwise."""
+    if not torch.is_tensor(logs):  # a constant scale, as the prior's 0
+        logs = torch.tensor(logs, dtype=x.dtype, device=x.device)
     return -0.5 * (math.log(2 * math.pi) + 2 * logs + (x - mean) ** 2 / torch.exp(2 * logs))
 
 
@@ -139,9 +147,22 @@ class FVAE(nn.Module):
 
     def __init__(self, in_out_channels, hidden_channels, latent_size, kernel_size,
                  enc_n_layers, dec_n_layers, gin_channels, stride: int = 4,
-                 global_latent: bool = True):
+                 global_latent: bool = True, use_prior_glow: bool = False,
+                 glow_hidden: Optional[int] = None, glow_kernel_size: Optional[int] = None,
+                 glow_n_blocks: Optional[int] = None):
         super().__init__()
         self.stride = stride
+        self.latent_size = latent_size
+        self.global_latent = global_latent
+        self.use_prior_glow = use_prior_glow
+        if use_prior_glow:
+            if None in (glow_hidden, glow_kernel_size, glow_n_blocks):
+                raise ValueError("use_prior_glow needs glow_hidden, glow_kernel_size and "
+                                 "glow_n_blocks (neuralsvb_tpu/models/fvae.py:179-183)")
+            from .glow import ResidualCouplingBlock
+            self.prior_flow = ResidualCouplingBlock(latent_size, glow_hidden,
+                                                    glow_kernel_size, 1, glow_n_blocks, 4,
+                                                    gin_channels=gin_channels)
         self.g_pre_net = nn.Sequential(nn.Conv1d(
             gin_channels, gin_channels, 2 * stride, stride=stride,
             padding=stride // 2))
@@ -155,8 +176,9 @@ class FVAE(nn.Module):
     def forward(self, x, x_mask, g, generator: Optional[torch.Generator] = None,
                 zero_noise=False, prior_mean: float = 0.0):
         """x [B, C, T]; x_mask [B, 1, T]; g [B, gin, T] ->
-        dict(mel_out, kl, m_q, logs_q, x_mask_sqz, z_q); the KL is against
-        the prior N(prior_mean, 1)."""
+        dict(mel_out, kl, m_q, logs_q, x_mask_sqz, z_q, z_p); the KL is
+        against the prior N(prior_mean, 1), through the prior flow with
+        ``use_prior_glow`` (``z_p`` its image of ``z_q``, else None)."""
         if x.shape[-1] % self.stride:
             raise ValueError(f"FVAE input frames ({x.shape[-1]}) must be a "
                              f"multiple of the latent stride ({self.stride})")
@@ -168,13 +190,33 @@ class FVAE(nn.Module):
         s = torch.exp(logs_q)
         logs_q = torch.where(torch.isfinite(s) & (s > 0), logs_q,
                              torch.zeros_like(logs_q))
-        kl_elem = gaussian_kl(m_q, logs_q, prior_mean, 0.0)  # [B, L, Tz]
+        z_p = None
+        if self.use_prior_glow:
+            z_p, _ = self.prior_flow(z_q, x_mask_sqz, g_sqz)
+            kl_elem = (normal_log_prob(z_q, m_q, logs_q)
+                       - normal_log_prob(z_p, prior_mean, 0.0))
+        else:
+            kl_elem = gaussian_kl(m_q, logs_q, prior_mean, 0.0)  # [B, L, Tz]
         # length-weighted batch mean, as the reference computes it (a global
         # latent's [B, L, 1] broadcasts against the frame mask)
         loss_kl = (ddp.all_sum((kl_elem * x_mask_sqz).sum()) / ddp.all_sum(x_mask_sqz.sum())
                    / kl_elem.shape[1])
         return dict(mel_out=x_recon, kl=loss_kl, m_q=m_q, logs_q=logs_q,
-                    x_mask_sqz=x_mask_sqz, z_q=z_q)
+                    x_mask_sqz=x_mask_sqz, z_q=z_q, z_p=z_p)
+
+    def infer(self, g, x_mask=None, generator: Optional[torch.Generator] = None,
+              zero_noise=False, prior_mean: float = 0.0):
+        """A prior sample decoded: g [B, gin, T]; x_mask [B, 1, T] (None: every
+        frame) -> (x_recon [B, C, T], z_p [B, latent, Tz]); the prior flow
+        runs in reverse with ``use_prior_glow`` (JAX: fvae.py:222-233)."""
+        g_sqz = self.g_pre_net(g)
+        Tz = 1 if self.global_latent else g_sqz.shape[-1]
+        z_p = prior_mean + draw_normal((g.shape[0], self.latent_size, Tz), g, generator,
+                                       zero_noise)
+        if self.use_prior_glow:
+            z_p, _ = self.prior_flow(z_p, torch.ones_like(z_p[:, :1]), g_sqz, reverse=True)
+        x_mask = torch.ones_like(g[:, :1]) if x_mask is None else x_mask
+        return self.decoder(z_p, x_mask, g), z_p
 
 
 class LatentMap(nn.Module):
@@ -208,3 +250,24 @@ class GlobalLatentMap(LatentMap):
     def __init__(self, latent_size: int, style_channels: int):
         super().__init__(latent_size, style_channels, kernel_size=1,
                          spk_hidden=latent_size, spk_out=latent_size)
+
+
+class TechClassifier(nn.Module):
+    """Latent -> amateur/professional logits: 1x1 convs with a projected
+    speaker style added (reference: vae_models.py:238-261; JAX:
+    fvae.py:278-295). No task of either package builds it."""
+
+    def __init__(self, latent_size: int, style_channels: int):
+        super().__init__()
+        L = latent_size
+        self.spk_proj = nn.Sequential(nn.Conv1d(style_channels, L, 1), nn.ReLU(),
+                                      nn.Conv1d(L, L, 1))
+        self.convs = nn.Sequential(
+            nn.Conv1d(L, L // 2, 1), BatchNorm1d(L // 2, eps=BN_EPS), nn.ReLU(),
+            nn.Conv1d(L // 2, L // 4, 1), BatchNorm1d(L // 4, eps=BN_EPS), nn.ReLU(),
+            nn.Conv1d(L // 4, 2, 1))
+
+    def forward(self, x, style):
+        """x [B, L, Tz]; style [B, H, T] (its first Tz frames are read) ->
+        the first frame's logits [B, 2]."""
+        return self.convs(x + self.spk_proj(style[:, :, : x.shape[-1]]))[:, :, 0]

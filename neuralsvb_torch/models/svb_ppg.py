@@ -20,9 +20,19 @@ trains it, at exact lengths.
 
 ``decoder_type: fft`` decodes through the FS2 family's
 ``FastspeechDecoder`` (FFT blocks over ``[B, T, C]``), ``conv`` through a
-conv stack. Not ported (they raise, ROADMAP.md queue 1): ``ref_attn``, the
-conv ASR encoder and the ``pre_exp``/``aligned_asr`` variants of the
-SVBPara subclasses.
+conv stack.
+
+The SVBPara subclasses' variants (JAX: svb_ppg.py:93-117,173-216):
+``ParaPPGPreExp`` (``pre_exp``) gathers the raw mel through the alignment
+before the ASR; ``ParaAlignedPPG`` and ``ParaPPGConstraint``
+(``aligned_asr``) realign the content rows inside the ASR
+(``models/asr.py`` ``realign``) and skip the gather after the upsampler.
+``ref_attn`` adds a banded attention over the timbre mel to the decoder's
+input: a stride-8 ``ConvStacks`` (strides 2, 2, 2, 1, 1, no residual, no
+norm) encodes the keys, and query frame t sees key k only where
+``|t - 8k| < 32`` (an additive mask of 0 and -1e9), four heads; it acts
+only without ``use_spk_id``. ``asr_enc_type: conv`` gives the ASR a conv
+content encoder.
 """
 
 from __future__ import annotations
@@ -34,13 +44,27 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .asr import VCASR
-from .common import ConvGlobalStacks, ConvStacks, Embedding, linear_ct
+from .common import ConvGlobalStacks, ConvStacks, Embedding, MultiheadAttention, linear_ct
 from .svb_vae import CondUpsampler
 from .tts_modules import FastspeechDecoder
 
+REF_ATTN_HEADS = 4
+REF_ATTN_STRIDE, REF_ATTN_BAND = 8, 32  # keys every 8 frames, |t - 8k| < 32
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet (ROADMAP.md queue 1)")
+
+def ref_attn_mask(q_len: int, kv_len: int, dtype, device) -> torch.Tensor:
+    """The additive banded mask [q_len, kv_len] of ``ref_attn``: 0 where
+    ``|t - 8k| < 32``, -1e9 elsewhere (JAX: svb_ppg.py:160-163)."""
+    band = (torch.arange(q_len, device=device)[:, None]
+            - REF_ATTN_STRIDE * torch.arange(kv_len, device=device)[None, :])
+    inside = (band < REF_ATTN_BAND) & (band > -REF_ATTN_BAND)
+    return torch.where(inside, torch.zeros((), dtype=dtype, device=device),
+                       torch.full((), -1e9, dtype=dtype, device=device))
+
+
+def gather_frames(x: torch.Tensor, conversion_alignment: torch.Tensor) -> torch.Tensor:
+    """x [B, C, T] -> x[:, :, alignment] [B, C, T'] per batch row."""
+    return torch.gather(x, 2, conversion_alignment[:, None, :].expand(-1, x.shape[1], -1))
 
 
 class VCPPG(nn.Module):
@@ -57,20 +81,16 @@ class VCPPG(nn.Module):
         super().__init__()
         if decoder_type not in ("conv", "fft"):
             raise ValueError(f"decoder_type {decoder_type!r}: conv or fft")
-        if ref_attn:
-            _not_ported("ref_attn (banded reference attention)")
-        if asr_enc_type != "conformer":
-            _not_ported(f"asr_enc_type {asr_enc_type!r}")
-        if pre_exp or aligned_asr:
-            _not_ported("the pre_exp/aligned_asr PPG variants (SVBParaTask's subclasses)")
         H = hidden_size
         self.use_energy, self.use_spk_id, self.use_tech, self.para = (
             use_energy, use_spk_id, use_tech, para)
+        self.pre_exp, self.aligned_asr, self.ref_attn = pre_exp, aligned_asr, ref_attn
         self.pitch_embed = Embedding(300, H, 0)
         self.pitch_encoder = ConvStacks(H, n_layers=3, n_chans=H, odim=H)
         self.vc_asr = VCASR(dict_size, H, asr_enc_layers, mel_strides,
                             asr_last_norm=asr_last_norm, num_mels=num_mel_bins,
-                            asr_dec_layers=asr_dec_layers, with_decoder=True)
+                            asr_dec_layers=asr_dec_layers, with_decoder=True,
+                            asr_enc_type=asr_enc_type)
         self.upsample_layer = CondUpsampler(H, mel_strides)
         if use_energy:
             self.energy_embed = Embedding(256, H, 0)
@@ -81,6 +101,11 @@ class VCPPG(nn.Module):
                                                 odim=ref_enc_out)
         if use_tech:
             self.tech_embed = nn.Embedding(num_techs, H)
+        if ref_attn:
+            self.ref_attn_kv_encoder = ConvStacks(
+                num_mel_bins, n_layers=5, n_chans=H, odim=H, strides=(2, 2, 2, 1, 1),
+                res=False, norm="none")
+            self.ref_attn_mha = MultiheadAttention(H, REF_ATTN_HEADS)
         # the parallel task's style is speaker embedding 0 of multi_spk_emb
         style = spk_emb_dim if para and not use_spk_id else ref_enc_out
         self.encoded_embed_proj = nn.Linear(
@@ -98,14 +123,19 @@ class VCPPG(nn.Module):
 
     def _ppg(self, mels_content, conversion_alignment, T: int):
         """The ASR's content rows without gradients, upsampled, optionally
-        gathered onto the target timeline -> [B, H, <= T]."""
+        gathered onto the target timeline -> [B, H, <= T] (before the ASR
+        with ``pre_exp``, inside it with ``aligned_asr``, else after the
+        upsampler)."""
+        mel = mels_content.transpose(1, 2)
+        if self.pre_exp and conversion_alignment is not None:
+            mel, conversion_alignment = gather_frames(mel, conversion_alignment), None
         with torch.no_grad():
-            h = self.vc_asr(mels_content.transpose(1, 2),
-                            exact_lengths=not self.training)["h_content"]
+            h = self.vc_asr(mel, exact_lengths=not self.training,
+                            conversion_alignment=(conversion_alignment if self.aligned_asr
+                                                  else None))["h_content"]
         h = self.upsample_layer(h)
-        if self.para and conversion_alignment is not None:
-            h = h[:, :, : mels_content.shape[1]]
-            h = torch.gather(h, 2, conversion_alignment[:, None, :].expand(-1, h.shape[1], -1))
+        if self.para and not self.aligned_asr and conversion_alignment is not None:
+            h = gather_frames(h[:, :, : mel.shape[-1]], conversion_alignment)
         return h[:, :, :T]
 
     def forward(self, mels_content, mels_timbre=None, pitch=None, energy=None,
@@ -141,6 +171,12 @@ class VCPPG(nn.Module):
             embeds.append(self.tech_embed(tech_ids)[:, :, None].expand(-1, -1, T))
         ret["dec_inputs"] = dec_inputs = linear_ct(self.encoded_embed_proj,
                                                    torch.cat(embeds, 1))
+        if self.ref_attn and not self.use_spk_id:
+            kv = self.ref_attn_kv_encoder(mels_timbre.transpose(1, 2)).transpose(1, 2)
+            mask = ref_attn_mask(T, kv.shape[1], dec_inputs.dtype, dec_inputs.device)
+            attn, _ = self.ref_attn_mha(dec_inputs.transpose(1, 2), kv, kv, attn_mask=mask,
+                                        generator=generator)
+            dec_inputs = dec_inputs + attn.transpose(1, 2)
         nonpadding = (pitch > 0).to(dec_inputs.dtype)[:, None, :]
         if self.decoder_type == "fft":
             x = self.decoder(dec_inputs.transpose(1, 2), generator).transpose(1, 2)
@@ -149,12 +185,23 @@ class VCPPG(nn.Module):
         ret["mel_out"] = (linear_ct(self.mel_out, x) * nonpadding).transpose(1, 2)
         return ret
 
-    def train_vc_asr(self, mels, tokens):
+    def train_vc_asr(self, mels, tokens, conversion_alignment=None, with_hidden: bool = False):
         """Teacher-forced token logits [B, L, dict_size] of ``tokens`` [B, L]
-        from mels [B, T, 80] (JAX: svb_ppg.py:162-187), at exact lengths."""
+        from mels [B, T, 80] (JAX: svb_ppg.py:173-192), at exact lengths.
+        ``pre_exp`` gathers the mel through ``conversion_alignment`` first,
+        ``aligned_asr`` realigns the content rows inside the ASR (else the
+        alignment is unused). ``with_hidden`` also returns the content rows
+        [B, T', H] the decoder attended to, with their gradient."""
+        mel = mels.transpose(1, 2)
+        if self.pre_exp and conversion_alignment is not None:
+            mel, conversion_alignment = gather_frames(mel, conversion_alignment), None
         prev_tokens = F.pad(tokens[:, :-1], (1, 0))  # shifted right, 0 first
-        return self.vc_asr(mels.transpose(1, 2), exact_lengths=True,
-                           prev_tokens=prev_tokens)["tokens"]
+        out = self.vc_asr(mel, exact_lengths=True, prev_tokens=prev_tokens,
+                          conversion_alignment=(conversion_alignment if self.aligned_asr
+                                                else None))
+        if with_hidden:
+            return out["tokens"], out["h_content"].transpose(1, 2)
+        return out["tokens"]
 
 
 class SVBPPG(VCPPG):
@@ -169,4 +216,27 @@ class ParaSVBPPG(SVBPPG):
     """PPG gathered through the DTW alignment (reference: svb_ppg.py:63-114)."""
 
     def __init__(self, dict_size: int, **kw):
-        super().__init__(dict_size, para=True, **kw)
+        kw.setdefault("para", True)
+        super().__init__(dict_size, **kw)
+
+
+class ParaPPGPreExp(ParaSVBPPG):
+    """Raw mel gathered before the ASR (reference: svb_ppg.py:117-175)."""
+
+    def __init__(self, dict_size: int, **kw):
+        kw.setdefault("pre_exp", True)
+        super().__init__(dict_size, **kw)
+
+
+class ParaAlignedPPG(ParaSVBPPG):
+    """PPG repeated x stride, gathered, mean-pooled inside the ASR
+    (reference: svb_ppg.py:178-249)."""
+
+    def __init__(self, dict_size: int, **kw):
+        kw.setdefault("aligned_asr", True)
+        super().__init__(dict_size, **kw)
+
+
+class ParaPPGConstraint(ParaAlignedPPG):
+    """``ParaAlignedPPG`` whose task reads ``train_vc_asr``'s content rows
+    for the PPG constraint loss."""

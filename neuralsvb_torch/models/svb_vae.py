@@ -82,10 +82,20 @@ class SVBVAE(nn.Module):
                  fvae_enc_layers: int = 8, fvae_dec_layers: int = 4,
                  frames_multiple: int = 4, mel_strides: Sequence[int] = (2, 1, 1),
                  asr_enc_layers: int = 2, asr_last_norm: bool = False,
-                 spk_emb_dim: int = 256, variant: str = "mle"):
+                 spk_emb_dim: int = 256, variant: str = "mle", use_prior_glow: bool = False):
         super().__init__()
         if variant not in VARIANTS:
             raise ValueError(f"variant {variant!r} is not one of {VARIANTS}")
+        if use_prior_glow:
+            # the JAX model builds its FVAE without glow widths
+            # (neuralsvb_tpu/models/svb_vae.py:84-90), so its first forward
+            # through a way fails: a Conv of None features in the prior flow
+            raise ValueError(
+                "use_prior_glow: the JAX SVBVAE passes no glow_hidden, "
+                "glow_kernel_size or glow_n_blocks to its FVAE "
+                "(neuralsvb_tpu/models/svb_vae.py:84-90; fvae.py:179-183) and fails at its "
+                "first forward, so there is no result to match; models/fvae.py FVAE takes "
+                "the prior flow with explicit widths")
         if variant == "local" and latent_size != 16:
             raise ValueError("the local variant's LatentMap adds a 16-channel speaker "
                              f"projection to the latent: latent_size must be 16, not "

@@ -20,7 +20,8 @@ class WN(nn.Module):
         C = hidden_channels
         self.hidden_channels = C
         self.n_layers = n_layers
-        self.cond_layer = nn.Conv1d(gin_channels, 2 * C * n_layers, 1)
+        if gin_channels > 0:
+            self.cond_layer = nn.Conv1d(gin_channels, 2 * C * n_layers, 1)
         self.in_layers = nn.ModuleList()
         self.res_skip_layers = nn.ModuleList()
         for i in range(n_layers):
@@ -31,14 +32,18 @@ class WN(nn.Module):
             self.res_skip_layers.append(
                 nn.Conv1d(C, 2 * C if i < n_layers - 1 else C, 1))
 
-    def forward(self, x, x_mask, g):
-        """x [B, C, T]; x_mask [B, 1, T]; g [B, gin, T] -> [B, C, T].
-        Padded frames are re-zeroed after every layer."""
+    def forward(self, x, x_mask, g=None):
+        """x [B, C, T]; x_mask [B, 1, T]; g [B, gin, T] or None (no
+        conditioning) -> [B, C, T]. Padded frames are re-zeroed after every
+        layer."""
         C = self.hidden_channels
-        g = self.cond_layer(g)
+        if g is not None:
+            g = self.cond_layer(g)
         output = torch.zeros_like(x)
         for i in range(self.n_layers):
-            acts_in = self.in_layers[i](x) + g[:, i * 2 * C:(i + 1) * 2 * C]
+            acts_in = self.in_layers[i](x)
+            if g is not None:
+                acts_in = acts_in + g[:, i * 2 * C:(i + 1) * 2 * C]
             acts = torch.tanh(acts_in[:, :C]) * torch.sigmoid(acts_in[:, C:])
             res_skip = self.res_skip_layers[i](acts)
             if i < self.n_layers - 1:

@@ -11,6 +11,10 @@ Slaney mel basis and ``log10(max(eps, .))``. Two entry points:
 - ``log_mel_batch``: the vocoder training loss's, a batch in float32 with
   gradients (``log_mel_jax``).
 
+The host float64 STFT pair of the JAX package's Griffin-Lim and
+denoiser (``stft_np``, ``stft_mag_np``, ``istft``) and the vocoder's
+denoiser on its device (``spectral_subtract``) complete the module.
+
 No Pallas kernel is involved: the FFT and the mel matmul are library calls.
 """
 
@@ -87,3 +91,65 @@ def log_mel_batch(wav: torch.Tensor, *, sample_rate: int, fft_size: int, hop_siz
                       return_complex=True)                # [B, bins, T]
     mel = torch.einsum("mf,bft->btm", basis, spec.abs())
     return torch.log10(torch.maximum(mel.new_tensor(eps), mel))
+
+
+def _padded_window(win_size: int, fft_size: int) -> np.ndarray:
+    """The periodic hann window centred in ``fft_size`` (float64)."""
+    window = hann_window(win_size)
+    if win_size < fft_size:
+        lpad = (fft_size - win_size) // 2
+        window = np.pad(window, (lpad, fft_size - win_size - lpad))
+    return window
+
+
+def stft_np(wav: np.ndarray, fft_size: int, hop_size: int, win_size: int) -> np.ndarray:
+    """Centred complex STFT with zero padding -> [n_bins, T], float64 on the
+    host (JAX: ``ops/audio.py`` ``_stft_complex``)."""
+    pad = fft_size // 2
+    y = np.pad(np.asarray(wav, dtype=np.float64), (pad, pad), mode="constant")
+    n_frames = 1 + (len(y) - fft_size) // hop_size
+    idx = np.arange(fft_size)[None, :] + hop_size * np.arange(n_frames)[:, None]
+    return np.fft.rfft(y[idx] * _padded_window(win_size, fft_size)[None, :], n=fft_size,
+                       axis=-1).T
+
+
+def stft_mag_np(wav: np.ndarray, fft_size: int, hop_size: int, win_size: int) -> np.ndarray:
+    """|``stft_np``| -> [n_bins, T] (JAX: ``ops/stft.py`` ``stft_mag_np``)."""
+    return np.abs(stft_np(wav, fft_size, hop_size, win_size))
+
+
+def istft(spec: np.ndarray, hop_size: int, win_size: int) -> np.ndarray:
+    """Inverse STFT of a complex spec [n_bins, T] with a hann synthesis
+    window, normalised by the overlap-added squared window (floored at
+    1e-10) and trimmed by ``n_fft // 2`` on each side; host float64 (JAX:
+    ``ops/stft.py:139-158`` ``istft_np``)."""
+    n_fft = (spec.shape[0] - 1) * 2
+    frames = np.fft.irfft(spec.T, n=n_fft, axis=-1)  # [T, n_fft]
+    window = _padded_window(win_size, n_fft)
+    T = frames.shape[0]
+    out_len = n_fft + hop_size * (T - 1)
+    out = np.zeros(out_len)
+    wsum = np.zeros(out_len)
+    for t in range(T):
+        s = t * hop_size
+        out[s:s + n_fft] += frames[t] * window
+        wsum[s:s + n_fft] += window ** 2
+    out = out / np.maximum(wsum, 1e-10)
+    return out[n_fft // 2: -(n_fft // 2)]
+
+
+def spectral_subtract(wav: torch.Tensor, fft_size: int, hop_size: int, win_size: int,
+                      c: float) -> torch.Tensor:
+    """The vocoder's denoiser on ``wav``'s device, in float64: the centred
+    STFT's magnitude less ``c``, clipped at 0, with the phase kept, then
+    ``torch.istft``, whose hann synthesis, overlap-added squared-window
+    normalisation and ``n_fft // 2`` trim on each side are ``istft``'s
+    (JAX: ``ops/audio.py:100-118`` ``denoise_spectral_subtract``).
+    wav [N] -> float32 [hop x (N // hop)]."""
+    window = torch.as_tensor(_padded_window(win_size, fft_size), device=wav.device)
+    spec = torch.stft(wav.to(torch.float64), n_fft=fft_size, hop_length=hop_size,
+                      window=window, center=True, pad_mode="constant",
+                      return_complex=True)                       # [bins, T]
+    spec = torch.polar((spec.abs() - c).clamp_min(0.0), spec.angle())
+    return torch.istft(spec, n_fft=fft_size, hop_length=hop_size, window=window,
+                       center=True).to(torch.float32)

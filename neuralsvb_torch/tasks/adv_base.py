@@ -5,25 +5,37 @@ and the training loop's multi-optimizer dispatch, utils/trainer.py:269-342).
 A subclass builds its generator (``build_generator``), moves a collated
 batch to the device (``prep_batch``) and computes its losses with the fakes
 and real mels the discriminator sees (``forward_losses``); this class owns
-the multi-window discriminator, the two optimizer chains, their schedules
-and the steps:
+the discriminators, the two optimizer chains, their schedules and the
+steps. ``discriminators`` maps a name to a multi-window discriminator:
+``''`` is the mel discriminator (``mel_disc``), and ``build_extra_discs``
+adds others (the speaker-consistency task's ``'_spk'``), as the JAX base's
+dict (``neuralsvb_tpu/tasks/adv_base.py:78-110``). Every fake meets every
+discriminator:
 
 - generator (optimizer 0): the subclass's losses plus, once the step
   exceeds ``disc_start_steps``, ``lambda_mel_adv * mse(D(fake), 1)`` per
   fake, the discriminator in eval mode (``{name}a``); a chain of an
   optional value clip, a clip by global norm (``generator_grad_norm`` or
   ``clip_grad_norm``) and AdamW at ``rsqrt_schedule(lr, warmup_updates,
-  hidden_size)``;
+  hidden_size)``; the loss of fake ``name`` against discriminator
+  ``dname`` is ``{name}{dname}a``;
 - discriminator (optimizer 1, every ``disc_interval`` steps once on): LSGAN
-  on the generator step's detached fakes (``{name}r``, ``{name}f``), eps
-  from ``discriminator_optimizer_params``, the step schedule at
-  ``max(step - disc_start_steps, 1)``.
+  on the generator step's detached fakes (``{name}{dname}r``,
+  ``{name}{dname}f``), eps from ``discriminator_optimizer_params``, the step
+  schedule at ``max(step - disc_start_steps, 1)``. One chain spans every
+  discriminator's parameters, as the JAX package's one ``tx_disc`` over its
+  ``disc_params`` dict: the clip by global norm and AdamW see their union.
+
+Discriminator ``j`` initialises from ``seed + 1 + j``: the JAX package
+seeds each from ``hash(name) % 100``, which Python salts per process, so
+its initialisation cannot be reproduced; the tests carry its weights
+across with ``convert.jax2torch.discs_from_jax``.
 
 As the flagship's task, random draws of a step (the discriminator's
 windows and dropout, the generator's dropout) come from a ``torch.Generator``
 seeded by (seed, step), so a resumed run draws what the uninterrupted run
-draws; checkpoints hold the model, the discriminator, both optimizers and
-the host random stream.
+draws; checkpoints hold the model, every discriminator (``mel_disc``,
+``mel_disc_spk``, ...), both optimizers and the host random stream.
 
 The JAX package's training options: ``accumulate_grad_batches`` (one
 ``MultiSteps`` per optimizer, each counting its own micro-steps),
@@ -38,7 +50,7 @@ cast, and neither has this one.
 from __future__ import annotations
 
 import os
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -77,7 +89,7 @@ class AdversarialTaskBase(BaseTask):
         # run on the card the draws of a CPU run
         self.rand_device = self.device
         self.disc_start_frames_wins = None  # pins the discriminator's windows
-        self.mel_disc = None
+        self.discriminators: Dict[str, torch.nn.Module] = {}
         self.vocoder = None
         self.vocoder_calls = 0
         self._last_fakes = None
@@ -98,6 +110,26 @@ class AdversarialTaskBase(BaseTask):
     def frozen_keys(self) -> Tuple[str, ...]:
         """Top-level modules of the generator that no optimizer updates."""
         return ()
+
+    def build_extra_discs(self) -> Dict[str, Callable[[], torch.nn.Module]]:
+        """Builders of the discriminators beyond the mel discriminator, by
+        name (the speaker-consistency task's ``'_spk'``)."""
+        return {}
+
+    @property
+    def mel_disc(self):
+        """``discriminators['']``, under the name the flagship's task gives
+        its one discriminator (None before ``build_train``)."""
+        return self.discriminators.get("")
+
+    def new_disc(self) -> Discriminator:
+        """A multi-window mel discriminator of the recipe's settings."""
+        hp = hparams
+        return Discriminator(
+            time_lengths=(32, 64, 128)[: hp["disc_win_num"]],
+            freq_length=hp["audio_num_mel_bins"], hidden_size=hp["mel_disc_hidden_size"],
+            norm_type=hp["disc_norm"], reduction=hp["disc_reduction"],
+            cond_size=hp["hidden_size"] if hp.get("use_cond_disc") else 0)
 
     def _from_jax(self, state: dict) -> Dict[str, torch.Tensor]:
         """A JAX package checkpoint's ``state`` -> the model's state_dict."""
@@ -120,22 +152,18 @@ class AdversarialTaskBase(BaseTask):
         """Discriminator, optimizers and schedules (JAX: adv_base.py:74-160)."""
         hp = hparams
         if hp.get("mel_gan"):
-            with torch.random.fork_rng(devices=[]):
-                torch.manual_seed(self.seed + 1)
-                self.mel_disc = Discriminator(
-                    time_lengths=(32, 64, 128)[: hp["disc_win_num"]],
-                    freq_length=hp["audio_num_mel_bins"],
-                    hidden_size=hp["mel_disc_hidden_size"], norm_type=hp["disc_norm"],
-                    reduction=hp["disc_reduction"],
-                    cond_size=hp["hidden_size"] if hp.get("use_cond_disc") else 0
-                ).to(self.device)
+            builders = dict({"": self.new_disc}, **self.build_extra_discs())
+            for j, (name, build) in enumerate(builders.items()):
+                with torch.random.fork_rng(devices=[]):
+                    torch.manual_seed(self.seed + 1 + j)
+                    self.discriminators[name] = build().to(self.device)
         self.model.requires_grad_(True)
         frozen = tuple(f"{k}." for k in self.frozen_keys())
         for k in self.frozen_keys():
             getattr(self.model, k).requires_grad_(False)
         self.gen_params = [p for n, p in self.model.named_parameters()
                            if not n.startswith(frozen)]
-        self.disc_params = [] if self.mel_disc is None else list(self.mel_disc.parameters())
+        self.disc_params = [p for d in self.discriminators.values() for p in d.parameters()]
         b1, b2 = hp["optimizer_adam_beta1"], hp["optimizer_adam_beta2"]
         disc_p = hp.get("discriminator_optimizer_params") or {}
         self.opt_gen = torch.optim.AdamW(self.gen_params, lr=0.0, betas=(b1, b2), eps=1e-8,
@@ -181,16 +209,17 @@ class AdversarialTaskBase(BaseTask):
     def checkpoint_state(self) -> dict:
         sd = {"model": self.model.state_dict()}
         opts = [self.opt_gen.state_dict()]
-        if self.mel_disc is not None:
-            sd["mel_disc"] = self.mel_disc.state_dict()
+        for name, d in self.discriminators.items():
+            sd[f"mel_disc{name}"] = d.state_dict()
+        if self.opt_disc is not None:
             opts.append(self.opt_disc.state_dict())
         return {"state_dict": sd, "optimizer_states": opts,
                 "np_rng": np_rng_state(self._np_rng), "accumulators": self.accumulator_state()}
 
     def load_checkpoint_state(self, ckpt: dict):
         self.model.load_state_dict(ckpt["state_dict"]["model"])
-        if self.mel_disc is not None:
-            self.mel_disc.load_state_dict(ckpt["state_dict"]["mel_disc"])
+        for name, d in self.discriminators.items():
+            d.load_state_dict(ckpt["state_dict"][f"mel_disc{name}"])
         for opt, st in zip((self.opt_gen, self.opt_disc), ckpt.get("optimizer_states") or []):
             opt.load_state_dict(st)
         set_np_rng_state(self._np_rng, ckpt["np_rng"])
@@ -202,35 +231,38 @@ class AdversarialTaskBase(BaseTask):
         return bool(hparams.get("mel_gan", False) and step > hparams["disc_start_steps"]
                     and hparams["lambda_mel_adv"] > 0)
 
-    def _adv_loss(self, mel, generator, target: float):
-        o = self.mel_disc(mel, self.disc_start_frames_wins, generator)
+    def _adv_loss(self, disc, mel, generator, target: float):
+        o = disc(mel, self.disc_start_frames_wins, generator)
         return None if o["y"] is None else mse(o["y"], target)
 
     def gen_step(self, b, disc_on: bool, lr: float, generator):
         self.model.train()
-        if self.mel_disc is not None:
-            self.mel_disc.eval()
+        for d in self.discriminators.values():
+            d.eval()
         losses, fakes, gts = self.forward_losses(b, generator, train=True)
-        if disc_on and self.mel_disc is not None:
+        if disc_on and self.discriminators:
             with no_grad_for(self.disc_params):
                 for name, mel in fakes.items():
-                    adv = self._adv_loss(mel, generator, 1.0)
-                    if adv is not None:
-                        losses[f"{name}a"] = adv * hparams["lambda_mel_adv"]
+                    for dname, disc in self.discriminators.items():
+                        adv = self._adv_loss(disc, mel, generator, 1.0)
+                        if adv is not None:
+                            losses[f"{name}{dname}a"] = adv * hparams["lambda_mel_adv"]
         self.update("gen", self.opt_gen, self.gen_params, sum(losses.values()), lr,
                     self.gen_grad_norm, hparams.get("clip_grad_value"))
         return losses, {k: v.detach() for k, v in fakes.items()}, gts
 
     def disc_step(self, fakes, gts, lr: float, generator):
-        self.mel_disc.train()
+        for d in self.discriminators.values():
+            d.train()
         losses: Dict[str, torch.Tensor] = {}
         for name in fakes:
-            real = self._adv_loss(gts[name], generator, 1.0)
-            fake = self._adv_loss(fakes[name], generator, 0.0)
-            if real is not None:
-                losses[f"{name}r"] = real
-            if fake is not None:
-                losses[f"{name}f"] = fake
+            for dname, disc in self.discriminators.items():
+                real = self._adv_loss(disc, gts[name], generator, 1.0)
+                fake = self._adv_loss(disc, fakes[name], generator, 0.0)
+                if real is not None:
+                    losses[f"{name}{dname}r"] = real
+                if fake is not None:
+                    losses[f"{name}{dname}f"] = fake
         self.update("disc", self.opt_disc, self.disc_params,
                     sum(losses.values()) if losses else 0.0, lr,
                     hparams.get("discriminator_grad_norm", 0), hparams.get("clip_grad_value"))
@@ -248,7 +280,7 @@ class AdversarialTaskBase(BaseTask):
             self._last_fakes = (fakes, gts, g)
             return sum(losses.values()), dict(losses, lr_0=lr)
         if optimizer_idx == 1:
-            if (self.mel_disc is None or not disc_on or self._last_fakes is None
+            if (not self.discriminators or not disc_on or self._last_fakes is None
                     or step % hparams["disc_interval"] != 0):
                 return None
             fakes, gts, g = self._last_fakes

@@ -12,13 +12,28 @@ ASR's CE losses on the amateur and professional mels (``asr_a``,
 batches' fakes through the registry's vocoder where the batch has a
 professional side; ``--infer`` renders every way and both ground truths.
 
-Its six subclasses (PPG constraint, pre-expansion, aligned ASR, frozen
-pretrained ASR, speaker consistency, amateur speaker;
-``svb_para.py:290-390`` in the JAX package) are not ported (ROADMAP.md).
+The six subclasses (JAX: ``svb_para.py:290-390``; no recipe names them,
+they run through ``task_cls`` on ``egs/egs_bases/vc/vc_ppg_torch.yaml``):
+
+- ``ParaPPGPreExpTask`` and ``ParaAlignedPPGTask``: the models that gather
+  the mel before the ASR, or realign its content rows inside it;
+- ``ParaPPGConstraintTask``: the amateur CE through the aligned ASR and
+  ``ppg_constraint``, 0.1 x the masked MSE between the realigned amateur
+  rows and the detached professional ones (both in the ASR's eval mode, as
+  the JAX package calls ``train_vc_asr`` without ``train``);
+- ``ParaPPGPretrainedTask``: the ASR loaded from ``pretrain_asr_ckpt`` (the
+  port's ``VCPPGTask`` work dir or a JAX checkpoint) and frozen; its CE runs
+  in validation only, without gradients;
+- ``ParaPPGSpkConsistentTask``: the pretrained task with a second
+  discriminator, ``'_spk'`` (``adv_base.py``), over the same fakes;
+- ``AmtSpkTask``: the pretrained task whose every way takes its timbre from
+  the amateur mel through the reference encoder, with no energy and no
+  speaker embedding.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from multiprocessing.pool import ThreadPool
 from typing import Dict
@@ -28,8 +43,10 @@ import torch
 from ..convert.jax2torch import vcppg_from_jax
 from ..data.datasets import FastSingingF0AlignDataset, maybe_concat_dataset
 from ..hparams import hparams
-from ..models.svb_ppg import ParaSVBPPG
+from ..models.svb_ppg import ParaAlignedPPG, ParaPPGConstraint, ParaPPGPreExp, ParaSVBPPG
+from ..ops.fused_resblock import KERNEL_COUNTERS
 from ..ops.pitch_utils import denorm_f0
+from ..parallel import ddp
 from .adv_base import AdversarialTaskBase, cross_entropy_ignore0
 from .losses import add_mel_loss
 
@@ -40,6 +57,7 @@ WAY_SRC = {"a2a": ("", ""), "p2p": ("prof_", "prof_"),
 class SVBParaTask(AdversarialTaskBase):
     model_cls = ParaSVBPPG
     dataset_cls = FastSingingF0AlignDataset
+    freeze_asr = False
 
     def __init__(self):
         super().__init__()
@@ -66,6 +84,18 @@ class SVBParaTask(AdversarialTaskBase):
     def _from_jax(self, state: dict):
         return vcppg_from_jax(state["params"], state.get("batch_stats") or {})
 
+    def build_model(self):
+        """The generator; with ``freeze_asr`` its ASR comes from
+        ``pretrain_asr_ckpt`` (JAX: svb_para.py:88-92)."""
+        model = super().build_model()
+        if self.freeze_asr:
+            from .svb_vae_task import load_pretrained_asr
+            load_pretrained_asr(model.vc_asr, hparams.get("pretrain_asr_ckpt") or "")
+        return model
+
+    def frozen_keys(self):
+        return ("vc_asr",) if self.freeze_asr else ()
+
     # ------------------------------------------------------------------
     def prep_batch(self, batch, infer: bool = False):
         real = torch.get_default_dtype()
@@ -81,13 +111,19 @@ class SVBParaTask(AdversarialTaskBase):
                                           device=self.device))
         return b
 
-    def _one_way(self, b, way, generator):
+    def _way_inputs(self, b, way):
+        """(content mel, tech ids, alignment) of ``way``."""
         src, tgt = WAY_SRC[way]
         mels_content = b[f"{src}mels"]
         B = mels_content.shape[0]
         tech = torch.full((B,), int(tgt == "prof_"), dtype=torch.long, device=self.device)
         align = {"a2p": b.get("a2p_f0_alignment"),
                  "p2a": b.get("p2a_f0_alignment")}.get(way)
+        return mels_content, tech, align
+
+    def _one_way(self, b, way, generator):
+        mels_content, tech, align = self._way_inputs(b, way)
+        tgt = WAY_SRC[way][1]
         return self.model(mels_content, mels_content, b[f"{tgt}pitch"], b.get(f"{tgt}energy"),
                           b["multi_spk_emb"], tech, align, generator=generator)
 
@@ -99,10 +135,10 @@ class SVBParaTask(AdversarialTaskBase):
             mel_g = b[f"{WAY_SRC[way][1]}mels"]
             add_mel_loss(self.loss_and_lambda, out["mel_out"], mel_g, losses, postfix=way)
             fakes[f"{way}_"], gts[f"{way}_"] = out["mel_out"], mel_g
-        self.add_asr_losses(b, losses)
+        self.add_asr_losses(b, losses, train)
         return losses, fakes, gts
 
-    def add_asr_losses(self, b, losses):
+    def add_asr_losses(self, b, losses, train: bool):
         """CE over the amateur and the professional mels (reference:
         svb_para.py:358-369)."""
         if "txt_tokens" not in b:
@@ -159,6 +195,9 @@ class SVBParaTask(AdversarialTaskBase):
         self.saving_results_futures = []
         self._get_vocoder()
         self.results_id = 0
+        self.vocoder_calls = 0
+        for c in KERNEL_COUNTERS:  # test_end reports the test loop's launches
+            c.launches = 0
 
     @torch.no_grad()
     def test_step(self, batch, batch_idx: int):
@@ -191,7 +230,11 @@ class SVBParaTask(AdversarialTaskBase):
         for f in self.saving_results_futures:
             f.get()
         self.saving_result_pool.join()
-        return {}
+        summary = {"device": str(self.device), "utts": self.results_id,
+                   "vocoder_calls": self.vocoder_calls,
+                   **{f"{c.__name__}_launches": c.launches for c in KERNEL_COUNTERS}}
+        print(f"| infer summary: {json.dumps(summary)}")
+        return summary
 
     # ------------------------------------------------------------------
     def train_dataloader(self):
@@ -209,3 +252,92 @@ class SVBParaTask(AdversarialTaskBase):
     def test_dataloader(self):
         ds = self.dataset_cls(hparams["test_set_name"], shuffle=False)
         return self.build_dataloader(ds, max_sentences=1, use_batch_by_size=False)
+
+
+class ParaPPGConstraintTask(SVBParaTask):
+    """+ a PPG consistency constraint between the realigned amateur and the
+    professional content rows (JAX: svb_para.py:290-321; reference:
+    svb_para.py:371-407)."""
+    model_cls = ParaPPGConstraint
+
+    def add_asr_losses(self, b, losses, train: bool):
+        if "txt_tokens" not in b:
+            return
+        tokens = b["txt_tokens"]
+        logits_a, h_a = self.model.train_vc_asr(b["mels"], tokens, b["a2p_f0_alignment"],
+                                                with_hidden=True)
+        logits_p, h_p = self.model.train_vc_asr(b["prof_mels"], tokens, with_hidden=True)
+        losses["asr_a"] = cross_entropy_ignore0(logits_a, tokens)
+        losses["asr_p"] = cross_entropy_ignore0(logits_p, tokens)
+        T = h_p.shape[1]
+        scale = 1
+        for s in hparams["mel_strides"]:
+            scale *= int(s)
+        mel_lengths = (b["prof_mels"].abs().sum(-1) > 0).sum(-1) // scale
+        mask = (torch.arange(T, device=h_p.device)[None] < mel_lengths[:, None]).to(h_p.dtype)
+        # the realigned rows' extra pooled frame (models/asr.py realign) drops off
+        h_a = torch.nn.functional.pad(h_a[:, :T], (0, 0, 0, max(T - h_a.shape[1], 0)))
+        diff = ((h_a - h_p.detach()) ** 2) * mask[:, :, None]
+        losses["ppg_constraint"] = (ddp.all_sum(diff.sum())
+                                    / (ddp.all_sum(mask.sum()) * h_p.shape[-1]).clamp_min(1.0)
+                                    * 0.1)
+
+
+class ParaPPGPreExpTask(SVBParaTask):
+    model_cls = ParaPPGPreExp
+
+
+class ParaAlignedPPGTask(SVBParaTask):
+    model_cls = ParaAlignedPPG
+
+
+class ParaPPGPretrainedTask(SVBParaTask):
+    """The warm-started ASR, frozen; its CE is only watched, without
+    gradients, in validation (JAX: svb_para.py:332-347; reference:
+    svb_para.py:431-530)."""
+    freeze_asr = True
+
+    def add_asr_losses(self, b, losses, train: bool):
+        if train or "txt_tokens" not in b:
+            return
+        tokens = b["txt_tokens"]
+        with torch.no_grad():
+            for name, key in (("asr_a", "mels"), ("asr_p", "prof_mels")):
+                losses[name] = cross_entropy_ignore0(
+                    self.model.train_vc_asr(b[key], tokens), tokens)
+
+
+class ParaPPGSpkConsistentTask(ParaPPGPretrainedTask):
+    """+ a second, speaker-consistency discriminator ``'_spk'`` over the
+    generated mels (JAX: svb_para.py:350-366; reference: svb_para.py:533-631):
+    with ``use_cond_disc`` off, the recipe's setting, it is a second
+    unconditional multi-window mel discriminator."""
+
+    def build_extra_discs(self):
+        return {"_spk": self.new_disc}
+
+
+class AmtSpkTask(ParaPPGPretrainedTask):
+    """The amateur mel is the timbre of every way, through the reference
+    encoder, with no energy and no speaker embedding (JAX:
+    svb_para.py:369-390; reference: svb_para.py:632-687). The model's input
+    projection is sized for the 256-wide speaker embedding and the energy
+    embedding of the parallel task, so this path needs ``ref_enc_out: 256``
+    and ``use_energy: false`` (the JAX task fails at its first step
+    otherwise, a shape mismatch in ``encoded_embed_proj``)."""
+
+    def __init__(self):
+        super().__init__()
+        if hparams["ref_enc_out"] != 256 or hparams["use_energy"] or hparams["use_spk_id"]:
+            raise ValueError(
+                "AmtSpkTask feeds the reference encoder's style and no energy into an "
+                "input projection sized for the 256-wide speaker embedding and the "
+                "energy embedding (neuralsvb_tpu/tasks/svb_para.py:369-390): set "
+                "ref_enc_out: 256, use_energy: false and use_spk_id: false (got "
+                f"{hparams['ref_enc_out']}, {hparams['use_energy']}, "
+                f"{hparams['use_spk_id']})")
+
+    def _one_way(self, b, way, generator):
+        mels_content, tech, align = self._way_inputs(b, way)
+        return self.model(mels_content, b["mels"], b[f"{WAY_SRC[way][1]}pitch"], None, None,
+                          tech, align, generator=generator)

@@ -38,6 +38,16 @@ three ways -> HiFiGAN-NSF ->
 ``generated_{step}_{gen_dir_name}/wavs/{gt_a,gt_p,a2a,p2p,a2p}_wavout`` and
 ``mels/*_mel``. Everything after the collated numpy batch runs on the
 ``device`` hparam's device, f0 denormalization and the NSF source included.
+
+``shard_infer: true`` under a launched world of ``mesh_shape: data:N``
+(JAX: ``svb_vae_task.py:1032-1056``): with ``infer_batch_size`` a multiple
+of N, every rank runs its rows of each test and validation batch inside
+``ddp.sharded``, so its noise is its rows of the global batch's draw and its
+losses are the global batch's, as the GSPMD forward computes; each rank
+vocodes and writes its own items, under their global indices. A test batch
+that does not divide (the ragged tail) runs whole on rank 0, as the JAX
+package falls back to one device; a ragged validation batch runs whole on
+every rank. Without a launched world the option changes nothing.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from ..models.disc import Discriminator
 from ..models.svb_vae import SVBVAE, WAYS
 from ..ops.fused_resblock import KERNEL_COUNTERS
 from ..ops.pitch_utils import denorm_f0
+from ..parallel import ddp
 from ..training.schedulers import rsqrt_schedule, step_lr_schedule
 from .base_task import (BaseTask, apply_in_dtype, compute_dtype, copy_parameters,
                         no_grad_for, np_rng_state, set_np_rng_state, step_generator)
@@ -70,6 +81,42 @@ from .losses import add_mel_loss, mse, nan_guard, parse_mel_losses
 
 def _off(v) -> bool:
     return v in (False, 0, None, "", "off", "false", "0")
+
+
+def load_pretrained_asr(vc_asr: torch.nn.Module, path: str) -> None:
+    """Load a frozen ASR's weights from a reference torch checkpoint
+    directory (the lexicographically last ``*.ckpt``, as the JAX package
+    picks it) or, as the JAX package's ``load_sub_params``, from the
+    ``state.params.vc_asr`` parameters of its own checkpoint (a file, or the
+    newest in a directory); BatchNorm statistics keep their init on that
+    path, as in the JAX package. An empty ``path`` does nothing."""
+    if not path:
+        return
+    ckpts = (sorted(glob.glob(os.path.join(path, "*.ckpt"))) if os.path.isdir(path)
+             else [path] if os.path.isfile(path) else [])
+    if not ckpts:
+        print(f"| WARNING: no checkpoint at {path}; keeping the ASR's init.")
+        return
+    if not is_torch_file(ckpts[-1]):
+        ckpt = newest_checkpoint(path) if os.path.isdir(path) else path
+        if ckpt is None:
+            print(f"| WARNING: no model_ckpt_steps_*.ckpt in {path}; keeping the "
+                  "ASR's init.")
+            return
+        node = msgpack_ckpt.load(ckpt)
+        for k in ("state", "params", "vc_asr"):
+            node = node.get(k, node) if isinstance(node, dict) else node
+        copy_parameters(vc_asr, vcasr_from_jax(node))
+        print(f"| Loaded the ASR's parameters from the JAX checkpoint {ckpt}")
+        return
+    sd = load_state_dict(ckpts[-1], "model")
+    if any(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
+    if not any(k.startswith("vc_asr.") for k in sd):
+        sd = {f"vc_asr.{k}": v for k, v in sd.items()}
+    load_into(vc_asr, {k[len("vc_asr."):]: v for k, v in sd.items()
+                       if k.startswith("vc_asr.")}, "VCASR")
+    print(f"| Loaded the ASR from {ckpts[-1]}")
 
 
 class SVBVAEMleTask(BaseTask):
@@ -151,7 +198,8 @@ class SVBVAEMleTask(BaseTask):
             ).to(self.device)
         self.model.requires_grad_(True)
         self.model.vc_asr.requires_grad_(False)
-        self._load_pretrained_asr()
+        # the frozen ASR's warm start (reference: svb_vae_task.py:558)
+        load_pretrained_asr(self.model.vc_asr, hp.get("pretrain_asr_ckpt") or "")
         maps = self.model.mapping_keys
         skip = ("vc_asr.",) + tuple(f"{k}." for k in maps)
         self.gen_params = [p for n, p in self.model.named_parameters()
@@ -182,42 +230,6 @@ class SVBVAEMleTask(BaseTask):
     def _from_jax(self, state: dict) -> Dict[str, torch.Tensor]:
         """A JAX package checkpoint's ``state`` -> the model's state_dict."""
         return svbvae_from_jax(state["params"], state.get("batch_stats") or {}, self.variant)
-
-    def _load_pretrained_asr(self):
-        """Warm-start the frozen ASR (reference: svb_vae_task.py:558) from a
-        reference torch checkpoint directory (the lexicographically last
-        ``*.ckpt``, as the JAX package picks it) or, as the JAX package's
-        ``load_sub_params``, from the ``state.params.vc_asr`` parameters of
-        its own checkpoint (a file, or the newest in a directory); BatchNorm
-        statistics keep their init on that path, as in the JAX package."""
-        path = hparams.get("pretrain_asr_ckpt") or ""
-        if not path:
-            return
-        ckpts = (sorted(glob.glob(os.path.join(path, "*.ckpt"))) if os.path.isdir(path)
-                 else [path] if os.path.isfile(path) else [])
-        if not ckpts:
-            print(f"| WARNING: no checkpoint at {path}; keeping the ASR's init.")
-            return
-        if not is_torch_file(ckpts[-1]):
-            ckpt = newest_checkpoint(path) if os.path.isdir(path) else path
-            if ckpt is None:
-                print(f"| WARNING: no model_ckpt_steps_*.ckpt in {path}; keeping the "
-                      "ASR's init.")
-                return
-            node = msgpack_ckpt.load(ckpt)
-            for k in ("state", "params", "vc_asr"):
-                node = node.get(k, node) if isinstance(node, dict) else node
-            copy_parameters(self.model.vc_asr, vcasr_from_jax(node))
-            print(f"| Loaded the ASR's parameters from the JAX checkpoint {ckpt}")
-            return
-        sd = load_state_dict(ckpts[-1], "model")
-        if any(k.startswith("model.") for k in sd):
-            sd = {k[len("model."):]: v for k, v in sd.items() if k.startswith("model.")}
-        if not any(k.startswith("vc_asr.") for k in sd):
-            sd = {f"vc_asr.{k}": v for k, v in sd.items()}
-        load_into(self.model.vc_asr, {k[len("vc_asr."):]: v for k, v in sd.items()
-                                      if k.startswith("vc_asr.")}, "VCASR")
-        print(f"| Loaded the ASR from {ckpts[-1]}")
 
     def warm_start(self, path: str):
         """``load_ckpt``: the SVB model's parameters from another run's
@@ -488,20 +500,28 @@ class SVBVAEMleTask(BaseTask):
         return None
 
     # ------------------------------------------------------------------
+    def _shards(self, batch) -> bool:
+        """Whether ``batch`` runs sharded over the ranks (``shard_infer``
+        under a launched world, a batch that divides over it)."""
+        return (bool(hparams.get("shard_infer")) and self.n_devices > 1
+                and batch["nsamples"] % self.n_devices == 0)
+
     @torch.no_grad()
     def validation_step(self, batch, batch_idx: int):
         ways = self._val_ways(self.global_step)
         self.model.eval()
-        b = self._prep_batch(batch)
-        out = self._run_model(b, ways, self.generator)
-        losses = self._model_losses(out, b, ways)
+        n = batch["nsamples"]
+        with ddp.sharded(self.n_devices if self._shards(batch) else 1):
+            batch = ddp.local_batch(batch)
+            b = self._prep_batch(batch)
+            out = self._run_model(b, ways, self.generator)
+            losses = self._model_losses(out, b, ways)
         for way in ways:
             if "mle" in out[way]:
                 losses[f"{way}_mle"] = out[way]["mle"]
         losses = {k: float(v) for k, v in losses.items()}
         self._vis_validation(out, batch, batch_idx, ways)
-        return {"losses": losses, "total_loss": sum(losses.values()),
-                "nsamples": batch["nsamples"]}
+        return {"losses": losses, "total_loss": sum(losses.values()), "nsamples": n}
 
     def _vis_validation(self, out, batch, batch_idx, ways):
         """Vocoded validation audio of the first ``num_valid_plots``
@@ -545,6 +565,7 @@ class SVBVAEMleTask(BaseTask):
         self.vocoder = get_vocoder_cls(hparams)(dict(hparams), device=self.device)
         self.results_id = 0
         self._n_infer_utts = 0
+        self.vocoder_calls = 0
         self._audio_sec = 0.0
         self._compute_sec = 0.0
         # test_end reports the test loop's launches
@@ -555,10 +576,17 @@ class SVBVAEMleTask(BaseTask):
 
     def test_step(self, batch, batch_idx: int):
         t0 = time.perf_counter()
-        # the reference resets the result index at every test_step
-        self.results_id = 0
-        b = self._prep_batch(batch)
-        out = self.forward(b)
+        shards = self._shards(batch)
+        if (hparams.get("shard_infer") and self.n_devices > 1 and not shards
+                and not ddp.is_main()):
+            return {"item_name": batch["item_name"][0]}  # rank 0 runs the ragged batch
+        with ddp.sharded(self.n_devices if shards else 1):
+            batch = ddp.local_batch(batch)
+            # the reference resets the result index at every test_step; a
+            # rank's items keep their index in the global batch
+            self.results_id = ddp.rank() * batch["nsamples"] if shards else 0
+            b = self._prep_batch(batch)
+            out = self.forward(b)
 
         def dev(k):
             return torch.as_tensor(batch[k], device=self.device)
@@ -595,6 +623,7 @@ class SVBVAEMleTask(BaseTask):
             base_fn = f"[{self.results_id:06d}][{batch['item_name'][i]}][P]".replace(" ", "_")
             self.results_id += 1
             self._n_infer_utts += 1
+            self.vocoder_calls += len(wavs)
             self._audio_sec += Tp * hparams["hop_size"] / hparams["audio_sample_rate"]
             self.saving_results_futures.append(
                 self.saving_result_pool.apply_async(
@@ -622,8 +651,8 @@ class SVBVAEMleTask(BaseTask):
             f.get()
         self.saving_result_pool.join()
         summary = {
-            "device": str(self.device),
-            "utts": self._n_infer_utts,
+            "device": str(self.device), "rank": ddp.rank(), "world": ddp.world_size(),
+            "utts": self._n_infer_utts, "vocoder_calls": self.vocoder_calls,
             "audio_sec": self._audio_sec,
             "compute_sec": self._compute_sec,
             "rtf": self._compute_sec / max(self._audio_sec, 1e-9),

@@ -11,8 +11,8 @@ import numpy as np
 
 from ..hparams import hparams as global_hparams
 from ..hparams import resolve_device
-from ..ops.audio import load_wav
-from ..ops.stft import log_mel, pad_wav_to_frames
+from ..ops.audio import amp_to_db, load_wav, normalize
+from ..ops.stft import log_mel, pad_wav_to_frames, stft_mag_np
 
 VOCODERS = {}
 
@@ -37,9 +37,12 @@ class BaseVocoder:
         raise NotImplementedError
 
     @staticmethod
-    def wav2spec(wav_fn):
+    def wav2spec(wav_fn, return_linear: bool = False):
         """wav file (or samples) -> (wav [T * hop] float32, log-mel [T, 80]
-        float32), the mel computed on the ``device`` the hparams name."""
+        float32), the mel computed on the ``device`` the hparams name; with
+        ``return_linear`` also the normalised dB linear spectrogram of that
+        wav [T', n_bins] float32, on the host (``vocoders/hifigan.py:139-151``
+        and ``vocoders/pwg.py:130-144`` in the JAX package)."""
         hp = global_hparams
         if isinstance(wav_fn, str):
             wav, _ = load_wav(wav_fn, sr=hp["audio_sample_rate"])
@@ -48,4 +51,8 @@ class BaseVocoder:
         mel = log_mel(wav, hp, resolve_device(hp.get("device"))).cpu().numpy()
         wav = pad_wav_to_frames(np.asarray(wav, np.float32), hp["fft_size"],
                                 hp["hop_size"])
-        return wav[: mel.shape[0] * hp["hop_size"]], mel
+        wav = wav[: mel.shape[0] * hp["hop_size"]]
+        if not return_linear:
+            return wav, mel
+        spc = stft_mag_np(wav, hp["fft_size"], hp["hop_size"], hp["win_size"])
+        return wav, mel, normalize(amp_to_db(spc), hp).T.astype(np.float32)

@@ -20,6 +20,10 @@ the weights are cast once, the mel enters as bf16, f0 and the NSF phase
 cumsum stay f32 and the sine source is cast to bf16 before ``noise_conv``,
 so every activation after the injection is bf16 and the ResBlock kernel
 takes them as they are (``ops/fused_resblock.py``).
+
+``vocoder_denoise_c > 0`` denoises every wav by spectral subtraction of
+that magnitude on the vocoder's device (``ops/stft.py``
+``spectral_subtract``; JAX: ``vocoders/hifigan.py:133-135``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ..convert.jax2torch import hifigan_from_jax
 from ..hparams import hparams as global_hparams
 from ..hparams import resolve_device
 from ..models.hifigan import HifiGanGenerator
+from ..ops.stft import spectral_subtract
 from .base import BaseVocoder, register_vocoder
 
 BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192)
@@ -88,10 +93,6 @@ class HifiGAN(BaseVocoder):
         hp = hp if hp is not None else dict(global_hparams)
         self.hp = hp
         self.device = resolve_device(device or hp.get("device"))
-        if hp.get("vocoder_denoise_c", 0.0) > 0:
-            raise NotImplementedError(
-                "vocoder_denoise_c > 0 needs the STFT denoiser, which is not "
-                "ported yet (ROADMAP.md); set vocoder_denoise_c: 0.0")
         base_dir = hp.get("vocoder_ckpt", "")
         self.model, self.config, loaded = load_hifigan(base_dir, hp, self.device)
         cdt = hp.get("vocoder_compute_dtype") or hp.get("compute_dtype")
@@ -116,4 +117,9 @@ class HifiGAN(BaseVocoder):
         f0_p = torch.nn.functional.pad(f0, (0, Tb - T))
         wav = self.model(mel_p[None].to(self.dtype), f0_p[None], generator=self.generator,
                          zero_noise=zero_noise)
-        return wav[0, : T * self.model.hop].to(torch.float32)
+        wav = wav[0, : T * self.model.hop].to(torch.float32)
+        c = float(self.hp.get("vocoder_denoise_c", 0.0) or 0.0)
+        if c > 0:
+            wav = spectral_subtract(wav, self.hp["fft_size"], self.hp["hop_size"],
+                                    self.hp["win_size"], c)
+        return wav

@@ -13,9 +13,12 @@ reports its generator + discriminator step as phase 2; the ASR
 pre-training recipe (``VCPPGTask``, ``egs/egs_bases/vc/vc_ppg_torch.yaml``)
 on a synthetic speech split with phone tokens at its token budget (40
 utterances of 750 frames: ``max_tokens`` 30000), its generator +
-discriminator step as phase 2; a FastSpeech2 recipe (``FastSpeech2Task``,
-e.g. ``egs/egs_bases/tts/fs2_adv_torch.yaml``) on such a split with
-``mel2ph`` at its budget (30 utterances of 1000 frames, 12 frames per
+discriminator step as phase 2; the SVBPara family (``task_cls`` of
+``tasks/svb_para.py`` on that recipe, through ``--variant``) on the SVB
+recipes' paired split, cropped to the recipe's ``max_frames``, likewise;
+a FastSpeech2 recipe (``FastSpeech2Task``, e.g.
+``egs/egs_bases/tts/fs2_adv_torch.yaml``) on a synthetic speech split
+with ``mel2ph`` at its budget (30 utterances of 1000 frames, 12 frames per
 phone: 85 tokens each), likewise. Then:
 
 - times warm phase-2 steps (generator + discriminator) and, for an SVB
@@ -97,17 +100,15 @@ def profile_recipe(config, data, warm, extra=""):
     from neuralsvb_torch.hparams import hparams_scope, set_hparams
     from neuralsvb_torch.tasks.adv_base import AdversarialTaskBase
     from neuralsvb_torch.tasks.vocoder_task import HifiGanTask
-    hp = set_hparams(config=config, print_hparams=False, global_hparams=False)
+    hp = set_hparams(config=config, hparams_str=extra, print_hparams=False,
+                     global_hparams=False)
     pkg, cls_name = hp["task_cls"].rsplit(".", 1)
     task_cls = getattr(importlib.import_module(pkg), cls_name)
     vocoder = issubclass(task_cls, HifiGanTask)
     # the speech split is what FastSpeechDataset reads (VCPPGTask); the
-    # other adversarial tasks read paired singing with ``prof_*`` keys
+    # SVBPara family reads the paired split of the SVB recipes
     speech = getattr(task_cls, "dataset_cls", None) is FastSpeechDataset
-    if issubclass(task_cls, AdversarialTaskBase) and not speech:
-        raise NotImplementedError(f"{cls_name}: no synthetic split for its paired singing "
-                                  "dataset; the ASR pre-training recipe (VCPPGTask) is the "
-                                  "adversarial task this script profiles")
+    paired = issubclass(task_cls, AdversarialTaskBase) and not speech
     from neuralsvb_torch.tasks.fs2 import FastSpeech2Task
     fs2 = issubclass(task_cls, FastSpeech2Task)
     frames = FS2_FRAMES if fs2 else SPEECH_FRAMES if speech else FRAMES
@@ -134,7 +135,7 @@ def profile_recipe(config, data, warm, extra=""):
         else:
             batch = next(iter(task.train_dataloader()))
             step2 = 1
-            step3 = None if speech else int(h["phase_2_steps"]) + 1
+            step3 = None if speech or paired else int(h["phase_2_steps"]) + 1
 
         def run(step):
             torch.cuda.synchronize(dev)
@@ -148,7 +149,7 @@ def profile_recipe(config, data, warm, extra=""):
         first2 = run(step2 if vocoder else 0)  # the SVB disc starts after step 0
         times2 = [run(step2) for _ in range(warm + 1)]
         first3 = times3 = None
-        if not (vocoder or speech):
+        if not (vocoder or speech or paired):
             first3 = run(step3)
             times3 = [run(step3) for _ in range(warm)]
         peak = torch.cuda.max_memory_allocated(dev)

@@ -2,9 +2,9 @@
 process and against the JAX package's ``mesh_shape: data:2``.
 
 One spawn per file: two ranks join a gloo world through a file
-(``tests/test_torch_ddp_worker.py``) and run four jobs, each one training
-step of a port task at ``mesh_shape: data:2`` on the same global batch (six
-jobs):
+(``tests/test_torch_ddp_worker.py``) and run the jobs below, each one
+training step of a port task at ``mesh_shape: data:2`` on the same global
+batch:
 
 - the flagship ``SVBVAEMleTask`` (tiny widths of ``tests/test_cycle.py``,
   B = 4) through its gen + disc step (step 1) and its map step (step 101),
@@ -16,7 +16,9 @@ jobs):
   ``tests/test_torch_vcppg_step.py``, B = 4, phone tokens) through its gen +
   disc step, and ``PWGTask`` (the widths of ``tests/test_torch_pwg_step.py``,
   B = 2) through its gen + disc step, both in float64 with every random
-  draw live, from the port's seeded weights;
+  draw live, from the port's seeded weights; ``ParaPPGSpkConsistentTask``
+  likewise (B = 4 paired rows, windows at 0), whose two discriminators'
+  gradients average and whose BatchNorm statistics run over the world;
 - ``HifiGanTask`` (the widths of ``tests/test_torch_vocoder_step.py``,
   B = 2) through its generator step, in float64 with the NSF draws live
   (with ResBlock2 towers: the ResBlock1 cluster's op takes float32 and
@@ -223,6 +225,15 @@ def pwg_job(tmp_path_factory):
     return hp, batch
 
 
+def para_batch():
+    """Four rows of ``tests/test_torch_vcppg_step.py``'s paired batch with
+    phone tokens (it has three)."""
+    a, b = vcppg_step._batch(1), vcppg_step._batch(2)
+    out = {k: np.concatenate([v, b[k][:1]]) for k, v in a.items()
+           if isinstance(v, np.ndarray)}
+    return dict(out, id=np.arange(4), nsamples=4)
+
+
 @pytest.fixture(scope="module")
 def jobs(jax_svb, jax_voc, vcppg_hp, pwg_job):
     """The four jobs (see the module docstring), keyed by name, and the
@@ -241,7 +252,8 @@ def jobs(jax_svb, jax_voc, vcppg_hp, pwg_job):
                     "msd": msd_from_jax(vst0["msd"])},
             "voc2": {"model": _seeded("hifigan", dict(vhp, resblock="2"))["model"],
                      "mpd": mpd_from_jax(vst0["mpd"]), "msd": msd_from_jax(vst0["msd"])},
-            "vcppg": _seeded("vcppg", vcppg_hp), "pwg": _seeded("pwg", pwg_job[0])},
+            "vcppg": _seeded("vcppg", vcppg_hp), "pwg": _seeded("pwg", pwg_job[0]),
+            "spk": _seeded("spk", vcppg_hp)},
         "svb64": dict(svb, dtype="float64", steps=SVB_STEPS + [(101, 2)]),
         "svb32": dict(svb, dtype="float32", steps=SVB_STEPS,
                       hp=dict(svb["hp"], zero_noise=True), all_keep=True, windows=[0, 0]),
@@ -252,6 +264,10 @@ def jobs(jax_svb, jax_voc, vcppg_hp, pwg_job):
         "vcppg64": dict(kind="vcppg", hp=dict(vcppg_hp, mesh_shape="data:2"),
                         batch=vcppg_batch(), steps=[(1, 0), (1, 1)], dtype="float64",
                         state="vcppg"),
+        # the speaker-consistency task: two discriminators under one optimizer
+        "spk64": dict(kind="spk", hp=dict(vcppg_hp, mesh_shape="data:2"),
+                      batch=para_batch(), steps=[(1, 0), (1, 1)], dtype="float64",
+                      state="spk", windows=[0, 0]),
         "pwg64": dict(kind="pwg", hp=dict(pwg_job[0], mesh_shape="data:2"), batch=pwg_job[1],
                       steps=[(pwg_step.STEP, 0), (pwg_step.STEP, 1)], dtype="float64",
                       state="pwg"),
@@ -281,7 +297,7 @@ def _tensors(res):
     return out
 
 
-@pytest.mark.parametrize("name", ["svb64", "voc64", "vcppg64", "pwg64"])
+@pytest.mark.parametrize("name", ["svb64", "voc64", "vcppg64", "pwg64", "spk64"])
 def test_two_ranks_equal_one_process(jobs, ranks, name):
     job = jobs[name]
     one = step_job(dict(job, hp=dict(job["hp"], mesh_shape="")), jobs["states"])

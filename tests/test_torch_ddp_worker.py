@@ -33,7 +33,8 @@ def all_keep_dropout():
 
 
 TASKS = {"svb": "svb_vae_task.SVBVAEMleTask", "hifigan": "vocoder_task.HifiGanTask",
-         "vcppg": "vc_ppg.VCPPGTask", "pwg": "vocoder_task.PWGTask"}
+         "vcppg": "vc_ppg.VCPPGTask", "pwg": "vocoder_task.PWGTask",
+         "spk": "svb_para.ParaPPGSpkConsistentTask"}
 
 
 def build_task(kind: str):
@@ -48,8 +49,11 @@ def build_task(kind: str):
 
 
 def modules(task, kind: str) -> dict:
-    if kind in ("svb", "vcppg"):
+    if kind == "svb":
         return {"model": task.model, "mel_disc": task.mel_disc}
+    if kind in ("vcppg", "spk"):  # every discriminator of an adversarial task
+        return dict({"model": task.model},
+                    **{f"mel_disc{d}": m for d, m in task.discriminators.items()})
     if kind == "pwg":
         return {"model": task.model, "disc": task.disc}
     return {"model": task.model, "mpd": task.mpd, "msd": task.msd}
@@ -113,5 +117,27 @@ def run_jobs(rank: int, world: int, init_file: str, jobs_path: str, out_path: st
         out = {name: step_job(job, states) for name, job in jobs.items()}
         torch.save(out, f"{out_path}.{rank}")
         dist.barrier()
+    finally:
+        ddp.destroy_process_group()
+
+
+def run_infer(rank: int, world: int, init_file: str, hp: dict, runs: list):
+    """The spawned rank of a sharded ``--infer`` (``tests/test_torch_shard_infer.py``):
+    join the world, then run the flagship's inference loop once per entry
+    of ``runs`` (hparams over ``hp``) and save each run's summary."""
+    import json
+
+    from neuralsvb_torch.hparams import hparams_scope
+    from neuralsvb_torch.parallel import ddp
+    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
+    torch.set_num_threads(1)
+    ddp.init_process_group("cpu", init_method=f"file://{init_file}", world=world, rank_=rank)
+    try:
+        for over in runs:
+            with hparams_scope(dict(hp, **over)) as h:
+                summary = SVBVAEMleTask.start()
+                with open(f"{h['work_dir']}/summary.{rank}.json", "w") as f:
+                    json.dump(summary, f)
+        ddp.barrier()
     finally:
         ddp.destroy_process_group()

@@ -124,7 +124,9 @@ def test_generator_parity(tmp_path, fuse):
 
 def test_spec2wav_parity(tmp_path):
     """Both vocoder wrappers load one checkpoint directory (config.yaml +
-    torch checkpoint) and pad to the same bucket."""
+    torch checkpoint) and pad to the same bucket; with ``vocoder_denoise_c``
+    both denoise by spectral subtraction (an STFT of 64 points at the hop
+    of 16), the port on its device, within the same 1e-4."""
     import yaml
 
     from neuralsvb_tpu.vocoders.hifigan import HifiGAN as JHifiGAN
@@ -143,8 +145,13 @@ def test_spec2wav_parity(tmp_path):
         wav_j = JHifiGAN(dict(hp)).spec2wav(mel, f0=f0)
     assert wav_t.shape == (40 * 16,)
     agree(wav_t, wav_j, 1e-4, "spec2wav")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        THifiGAN(dict(hp, vocoder_denoise_c=0.1))
+    den = dict(hp, vocoder_denoise_c=0.01, fft_size=64, hop_size=16, win_size=64)
+    den_t = THifiGAN(dict(den)).spec2wav(mel, f0=f0, zero_noise=True)
+    with jax_zero_noise():
+        den_j = JHifiGAN(dict(den)).spec2wav(mel, f0=f0)
+    assert den_t.shape == (40 * 16,) and den_t.dtype == torch.float32
+    agree(den_t, den_j, 1e-4, "denoised spec2wav")
+    assert float((den_t - wav_t).abs().max()) > 1e-3
 
 
 def test_vocoder_needs_device_and_reference_checkpoint(tmp_path):

@@ -81,7 +81,8 @@ def test_port_builds_and_names_only_its_own_files():
 
 
 def test_chip_smoke_imports_no_jax():
-    """``chip_smoke.py`` (every phase, the FS2 and harness phases included)
+    """``chip_smoke.py`` (every phase, the FS2, harness, SVBPara and serving
+    phases included)
     imports nothing of jax, flax, msgpack or the JAX package, at its top or
     inside a phase, and importing it with its phases' modules pulls none in."""
     smoke = ROOT.parent / "chip_smoke.py"
@@ -96,7 +97,9 @@ def test_chip_smoke_imports_no_jax():
     phases = sorted(n.name for n in tree.body
                     if isinstance(n, ast.FunctionDef) and n.name.startswith("phase_"))
     assert {"phase_fs2_binarize", "phase_fs2_train", "phase_fs2_step_time",
-            "phase_fs2_card_vs_cpu", "phase_pitch_alignment", "phase_mcd"} <= set(phases)
+            "phase_fs2_card_vs_cpu", "phase_pitch_alignment", "phase_mcd",
+            "phase_svb_para", "phase_svb_para_card_vs_cpu",
+            "phase_serving_leftovers"} <= set(phases)
     code = ("import json, sys\n"
             "import chip_smoke\n"
             "import neuralsvb_torch.tasks.fs2_adv, neuralsvb_torch.tasks.mcd_eval\n"

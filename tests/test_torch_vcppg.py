@@ -279,8 +279,28 @@ def test_train_vc_asr():
 @pytest.mark.parametrize("option", [dict(asr_enc_type="conv"), dict(ref_attn=True),
                                     dict(pre_exp=True), dict(aligned_asr=True)])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tppg.VCPPG(**KW, **option)
+    """The four ``VCPPG`` options the port once refused (``NotImplementedError``)
+    now build and run: each one's state_dict carries the JAX tree's keys and
+    shapes, and its eval forward through the reference encoder, with an
+    alignment, matches the JAX model's (the SVBPara family's variants in
+    training mode: ``tests/test_torch_svb_para.py``)."""
+    import functools
+    jm, params, stats = _jax_vcppg(functools.partial(jppg.VCPPG, **option), False)
+    sd = j2t.vcppg_from_jax(params, stats)
+    tm = tppg.VCPPG(**KW, **option).eval()
+    own = tm.state_dict()
+    assert set(sd) == set(own)
+    assert all(tuple(sd[k].shape) == tuple(own[k].shape) for k in sd)
+    tm.load_state_dict(sd)
+    inp = _inputs()
+    jo = jm.apply({"params": params, "batch_stats": stats}, inp["mels"], inp["mels"],
+                  inp["pitch"], inp["energy"], None, None, inp["align"])
+    with torch.no_grad():
+        to = tm(*(torch.tensor(inp[k]) for k in ("mels", "mels", "pitch", "energy")),
+                None, None, torch.tensor(inp["align"]))
+    for k in ("h_content", "dec_inputs"):
+        agree(to[k].transpose(1, 2), jo[k], TOL, k)
+    agree(to["mel_out"], jo["mel_out"], TOL, "mel_out")
 
 
 def test_state_dict_round_trip_keys():

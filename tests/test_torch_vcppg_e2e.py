@@ -231,39 +231,65 @@ def test_jax_validation_vis_fault(jax_vcppg):
         np.testing.assert_allclose(out["losses"][k], float(v), rtol=1e-4, err_msg=k)
 
 
-def test_svb_para_renders_its_ways(tmp_path):
-    """``SVBParaTask`` (``task_cls`` on the recipe) on a paired synthetic
-    split at tiny widths: ``--infer`` writes both ground truths and every
-    way through the registry's vocoder (a tiny PWG, hop 128), frames x hop
-    samples each, and a validation batch with a logger renders the three
-    ways and reports each way's mel losses."""
+PARA_TASKS = {"SVBParaTask": {}, "ParaPPGConstraintTask": {}, "ParaPPGPreExpTask": {},
+              "ParaAlignedPPGTask": {}, "ParaPPGPretrainedTask": {},
+              "ParaPPGSpkConsistentTask": {},
+              "AmtSpkTask": dict(ref_enc_out=256, use_energy=False)}
+
+
+@pytest.mark.parametrize("name", list(PARA_TASKS))
+def test_svb_para_renders_its_ways(tmp_path, name, capsys):
+    """``SVBParaTask`` and its six subclasses through the training CLI's
+    entry (``tasks.run.run_task``, ``task_cls`` on the recipe) on a
+    paired synthetic split at tiny widths (one 32-frame discriminator
+    window, so the discriminators act on its 48-frame item): one step, a
+    resume to two (it restores every discriminator: the
+    speaker-consistency task's ``_spk`` too), then ``--infer`` writes both
+    ground truths and every way through the registry's vocoder (a tiny PWG,
+    hop 128), frames x hop samples each; and a validation batch with a
+    logger renders the three ways and reports each way's mel losses."""
     import glob
     import wave
     from neuralsvb_torch.data.synthetic import write_synthetic_split
-    from neuralsvb_torch.tasks.svb_para import SVBParaTask
+    from neuralsvb_torch.tasks import svb_para
+    from neuralsvb_torch.tasks.run import run_task
     data = str(tmp_path / "data")
     for prefix, frames, seed in (("train", (48,), 1), ("valid", (40,), 2),
                                  ("test", (44, 36), 3)):
         write_synthetic_split(data, frames, prefix=prefix, seed=seed)
     hp = set_hparams(config=RECIPE, print_hparams=False, global_hparams=False)
     hp.update(TINY, device="cpu", binary_data_dir=data, work_dir=str(tmp_path / "work"),
-              vocoder="PWG", vocoder_ckpt="",
+              vocoder="PWG", vocoder_ckpt="", max_updates=1, val_check_interval=1,
+              disc_start_steps=0, disc_win_num=1,
+              task_cls=f"neuralsvb_torch.tasks.svb_para.{name}",
               generator_params={"layers": 4, "stacks": 2, "residual_channels": 8,
                                 "gate_channels": 16, "skip_channels": 8,
                                 "aux_context_window": 0,
-                                "upsample_params": {"upsample_scales": [4, 4, 8]}})
+                                "upsample_params": {"upsample_scales": [4, 4, 8]}},
+              **PARA_TASKS[name])
+    for over in (dict(infer=False), dict(infer=False, max_updates=2), dict(infer=True)):
+        with hparams_scope(dict(hp, **over)):
+            run_task()
+    out = capsys.readouterr().out
+    steps = [json.loads(m) for m in re.findall(r"^\| step \d+: (\{.*\})$", out, re.M)]
+    assert len(steps) == 2 and all(math.isfinite(v) for s in steps for v in s.values())
+    spk = [k for k in steps[-1] if "_spk" in k]
+    assert bool(spk) == (name == "ParaPPGSpkConsistentTask"), spk
+    assert re.search(r"^\| Restored ckpt: .*model_ckpt_steps_1\.ckpt$", out, re.M)
+    ckpt = torch.load(tmp_path / "work" / "model_ckpt_steps_2.ckpt", weights_only=True)
+    assert ("mel_disc_spk" in ckpt["state_dict"]) == (name == "ParaPPGSpkConsistentTask")
     rendered = []
 
     class Logger:
         def add_audio(self, tag, wav, step, sr):
             rendered.append((tag, len(wav)))
     with hparams_scope(hp):
-        task = SVBParaTask()
-        task.test()
+        task = getattr(svb_para, name)()
         batch = next(iter(task.val_dataloader()))
+        task.build_model()
         task.logger, task.global_step = Logger(), 0
         out = task.validation_step(batch, 0)
-    gen = tmp_path / "work" / "generated_0_" / "wavs"
+    gen = tmp_path / "work" / "generated_2_" / "wavs"
     for key in ("gt_a", "gt_p", "a2a", "p2p", "a2p"):
         lengths = []
         for w in glob.glob(str(gen / f"{key}_wavout" / "*.wav")):
@@ -273,5 +299,9 @@ def test_svb_para_renders_its_ways(tmp_path):
             assert sorted(lengths) == [36 * 128, 44 * 128], (key, lengths)
         assert len(lengths) == 2 and all(n % 128 == 0 and n > 0 for n in lengths), key
     assert [t for t, _ in rendered] == ["a2a_wavout_0", "p2p_wavout_0", "a2p_wavout_0"]
-    assert {"l1a2a", "ssima2a", "l1p2p", "ssimp2p", "l1a2p", "ssima2p"} == set(out["losses"])
+    # every task's validation reports exactly the three ways' mel losses:
+    # the split has no transcripts, so the ASR terms (base, constraint and
+    # pretrained tasks) do not run, and validation reports no adversarial term
+    assert {"l1a2a", "ssima2a", "l1p2p", "ssimp2p", "l1a2p", "ssima2p"} == set(out["losses"]), (
+        sorted(out["losses"]))
     assert all(math.isfinite(v) for v in out["losses"].values())

@@ -32,7 +32,7 @@ Every phase prints one JSON line; any failure raises.
    bit for bit; per shape the per-call time (``kernel_ms``, median of 20
    event-timed calls, host issue included), the device time (``device_ms``,
    100 calls between two events, over 100), the roofline bound
-   (``bound_us``: 7 operations per term at 67 TFLOP/s f32 or the bytes at
+   (``bound_us``: 7 operations per term at 66.9 TFLOP/s f32 or the bytes at
    3.35 TB/s, the larger) and the issue bound (``issue_bound_us``: the
    SASS instructions per term of the kernel's division loop, counted from
    ``cuobjdump -sass``, over 4 warp-instructions per clock on each SM at
@@ -242,7 +242,22 @@ Every phase prints one JSON line; any failure raises.
    phase 8's checkpoint over two torchrun ranks on the card, a ragged last
    batch, against one process: mels within 1e-4, the same wav tree, each
    rank's launches per vocoder call) and the vocoder denoiser (card vs CPU
-   at phase 5's bf16 gates, 54 + 3 launches).
+   at phase 5's bf16 gates, 54 + 3 launches);
+35. the last modules (``phase_last_modules``): the profiling module
+   (``neuralsvb_torch/utils/profiling.py``) on one vocoder call at the
+   2048 bucket, merged busy beside summed, ``op_flops`` of the plain
+   cluster against ``cluster_work`` (5%), its ``roofline`` equal to phase
+   3's bound; the pulse and cyclic-noise NSF sources card vs CPU (1e-5);
+   whether ``matplotlib`` and ``ffmpeg`` are installed, and the figures and
+   mp3 input behaving accordingly.
+
+The timing helpers, peak rates and roofline, profiler splits and the χ²
+issue bound's SASS count come from ``neuralsvb_torch/utils/profiling.py``;
+the synthetic crops and χ² inputs from ``neuralsvb_torch/data/synthetic.py``.
+Two studies of the smoke's own phases run on request, not in the smoke:
+``python3 chip_smoke.py --bf16-map-spread`` (phase 22's gate over seeds and
+planted faults) and ``python3 chip_smoke.py --binarize-ab --other DIR``
+(phase 6's para pass against another checkout).
 
 The line before the last is the kernel table: per kernel its launches on
 the main path (the bf16 ResBlock kernel's also on the training path's
@@ -257,7 +272,8 @@ phase 24's bf16 vocoder call, ``bf16_vocoder_launches``, on phase
 27's HiFiGAN ``--infer`` of FS2, ``fs2_infer_launches``, on phase 32's
 ``--infer``, ``svb_para_infer_launches``, on each rank of phase 34's
 sharded ``--infer``, ``shard_infer_launches``, and on its denoised call,
-``denoise_launches``; the χ² kernel's
+``denoise_launches``, and on phase 35's profiled vocoder call,
+``profiled_call_launches``; the χ² kernel's
 also in the vocoder's binarize pass and in phase 30's harness,
 ``harness_launches``), worst error, time per call (``ms``; for the
 χ² kernel also ``device_ms``), plain time and bound (``bound_ms``,
@@ -265,6 +281,7 @@ also in the vocoder's binarize pass and in phase 30's harness,
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import glob
 import json
 import math
@@ -277,6 +294,7 @@ import sys
 import time
 import wave
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 T0 = time.perf_counter()
@@ -293,8 +311,7 @@ WAV_MEAN_RATIO = 0.8   # phase 5: mean|card - cpu_bf16| / mean|cpu_bf16 - cpu_f3
 TPU_KERNEL = "neuralsvb_tpu/ops/fused_resblock.py:82"
 CHI2_SHAPES = ((2400, 2400), (1037, 1301), (130, 70), (1, 1))  # (S, T), M = 48
 CHI2_TPU_KERNEL = "neuralsvb_tpu/ops/pallas_kernels.py:33"
-# H100 SXM dense peaks at 700 W (NVIDIA's data sheet)
-PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+BOUND_BY = {"compute": "operations", "bandwidth": "bytes"}  # roofline's -> the line's
 CHI2_OPS_PER_TERM = 7  # sub, mul, mul, add, add, div, accumulate
 # binarize: (singer, song, base Hz); 2 pieces per song; Male6 is the test split
 SONGS = (("Female1", "SongA", 220.0), ("Female1", "SongB", 262.0),
@@ -315,42 +332,6 @@ def tf32(on):
     import torch
     torch.backends.cudnn.allow_tf32 = on
     torch.backends.cuda.matmul.allow_tf32 = on
-
-
-def median_ms(fn, n=20, warmup=3):
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(n):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        times.append(e0.elapsed_time(e1))
-    return statistics.median(times)
-
-
-def device_ms(fn, n=100):
-    """Device time per call: n calls enqueued between two events, over n."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(n):
-        fn()
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / n
-
-
-def bound_ms(flops, peak_flops, nbytes):
-    """(the least time for the work, "operations" or "bytes")."""
-    ops, mem = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (ops, "operations") if ops >= mem else (mem, "bytes")
 
 
 def cluster_work(B, C, T, spec, weight_bytes):
@@ -378,6 +359,7 @@ def phase_kernel(fr, spec):
     """Both ResBlock kernels against the plain version; returns (bf16 rows,
     f32 rows, worst bf16 error, worst f32 error)."""
     import torch
+    from neuralsvb_torch.utils.profiling import median_ms, roofline
     bf16 = torch.bfloat16
     gen = torch.Generator().manual_seed(0)
     rows16, rows32, worst16, worst32 = [], [], 0.0, 0.0
@@ -405,7 +387,8 @@ def phase_kernel(fr, spec):
             tf32(True)
             plain_tf32_ms = median_ms(lambda: fr.resblock_cluster_plain(x, w, spec))
             tf32(False)
-        bound, bound_by = bound_ms(flop, PEAK_BF16_FLOPS, nbytes)
+        bound, _, which = roofline(flop, nbytes, kernel_ms / 1e3, bf16)
+        bound, bound_by = bound * 1e3, BOUND_BY[which]
         row = dict(B=B, C=C, T=T, max_abs_err=err, tol=1e-3 * scale, mean_abs_err=mean_err,
                    mean_bf16_f32_gap=gap, mean_ratio=mean_err / gap,
                    mean_ratio_tol=BF16_MEAN_RATIO, ok=ok, kernel_ms=kernel_ms,
@@ -426,7 +409,8 @@ def phase_kernel(fr, spec):
                 ok = err <= 1e-4 * scale and bool(torch.isfinite(out).all())
                 f32_ms = median_ms(lambda: fr.fused_resblock_cluster(x, w, spec, torch.float32))
             _, nbytes = cluster_work(B, C, T, spec, 4)
-            bound, bound_by = bound_ms(flop, PEAK_F32_FLOPS, nbytes)
+            bound, _, which = roofline(flop, nbytes, f32_ms / 1e3, torch.float32)
+            bound, bound_by = bound * 1e3, BOUND_BY[which]
             row = dict(B=B, C=C, T=T, max_abs_err=err, tol=1e-4 * scale, ok=ok,
                        kernel_ms=f32_ms, plain_ms=plain_ms, plain_tf32_ms=plain_tf32_ms,
                        kernel_tflops=flop / f32_ms / 1e9, bound_ms=bound, bound_by=bound_by,
@@ -610,76 +594,11 @@ def phase_card_vs_cpu(voc):
     return launches[torch.float32]["resblock_conv1d"]
 
 
-def vibrato_f0(n, period, seed):
-    """A sung f0 contour in Hz: vibrato, jitter and one unvoiced stretch."""
-    import numpy as np
-    rng = np.random.RandomState(seed)
-    f0 = 220 + 40 * np.sin(2 * np.pi * np.arange(n) / period) + rng.randn(n)
-    f0[n // 3: n // 3 + n // 12] = 0.0
-    return f0
-
-
-def chi2_inputs(S, T, seed):
-    """Three (a, b) pairs of [S, 48] / [T, 48] f32: the EHSADTW histograms
-    of two vibrato contours; random nonnegative rows with all-zero rows;
-    and those rows with values outside {0} U [2^-24, 2^24] (1e-30, 1e8 and
-    negative, a + b below -0.8) in bins 16-31 of some rows only. A tile of
-    the kernel that holds such a row runs its middle 16-bin chunk with `/`
-    and its first and last with the branch-free division; a tile that holds
-    none runs all three branch-free."""
-    import numpy as np
-    from neuralsvb_torch.ops.dtw import f0_shape_histogram
-    sh = f0_shape_histogram(vibrato_f0(S, 50, seed), enhanced=True)
-    th = f0_shape_histogram(vibrato_f0(T, 55, seed + 1), enhanced=True,
-                            scale_factor=T / S)
-    rng = np.random.RandomState(seed)
-    a, b = rng.rand(S, 48), rng.rand(T, 48)
-    a /= a.sum(1, keepdims=True)
-    b /= b.sum(1, keepdims=True)
-    a[::7] = 0.0
-    b[::5] = 0.0
-    oa, ob = a.copy(), b.copy()
-    oa[1::97, 16:20] = 1e-30
-    ob[2::89, 20:24] = 1e8
-    oa[3::151, 24:28] = -1.0 - oa[3::151, 24:28]
-    ob[4::113, 28:32] = 1e-30
-    return [(sh, th), (a, b), (oa, ob)]
-
-
-def sass(lib_path):
-    """``cuobjdump -sass`` of a library."""
-    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    return subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
-
-
-def fast_loop_per_term(text):
-    """SASS instructions per term of the first loop that divides with MUFU.RCP
-    and no FCHK (the χ² kernel's branch-free bin loop), or None."""
-    code = [(int(a, 16), ins) for a, ins in
-            re.findall(r"/\*([0-9a-f]{4,})\*/\s+((?:@!?U?P\w+\s+)?[A-Z][^;]*);", text)]
-    for addr, ins in code:
-        m = re.match(r"(?:@!?U?P\w+\s+)?BRA\s+(?:!?U?P\w+,\s*)?`?\(?(0x[0-9a-f]+)", ins)
-        if m and int(m.group(1), 16) < addr:
-            body = [i for a, i in code if int(m.group(1), 16) <= a <= addr]
-            ops = [re.sub(r"^@!?U?P\w+\s+", "", i).split()[0].split(".")[0] for i in body]
-            if ops.count("MUFU") and not ops.count("FCHK"):
-                return len(body) / ops.count("MUFU")
-    return None
-
-
-def issue_rate():
-    """Warp-instructions the card issues per second: 4 schedulers on each SM
-    at the top SM clock (``nvidia-smi clocks.max.sm``)."""
-    import torch
-    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.split()[0]
-    return 4 * torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
-
-
 def phase_chi2(chi2):
     import torch
+    from neuralsvb_torch.data.synthetic import chi2_inputs
+    from neuralsvb_torch.utils.profiling import (device_ms, fast_loop_per_term, issue_rate,
+                                                 median_ms, roofline, sass)
     per_term = fast_loop_per_term(sass(chi2.LIBRARY.path))
     if per_term is None:
         raise AssertionError(f"no branch-free division loop in {chi2.LIBRARY.path}")
@@ -706,8 +625,9 @@ def phase_chi2(chi2):
         dev_ms = device_ms(lambda: chi2.chi2_dist(a, b))
         plain_ms = median_ms(lambda: chi2.chi2_dist_plain(a, b))
         terms = S * T * 48
-        bound, bound_by = bound_ms(terms * CHI2_OPS_PER_TERM, PEAK_F32_FLOPS,
-                                   4 * (S + T) * 48 + 4 * S * T)
+        bound, _, which = roofline(terms * CHI2_OPS_PER_TERM, 4 * (S + T) * 48 + 4 * S * T,
+                                   dev_ms / 1e3, torch.float32)
+        bound, bound_by = bound * 1e3, BOUND_BY[which]
         issue_ms = terms * per_term / 32 / rate * 1e3
         # the binarizer's two kinds: max|d| <= 1e-5; values outside the
         # branch-free division's range: max|d| / max(1, |ref|) <= 1e-5
@@ -785,6 +705,125 @@ def run_binarize(cfg, device):
     if m is None:
         raise RuntimeError(f"no binarize summary in the output:\n{proc.stdout[-4000:]}")
     return wall, json.loads(m.group(1))
+
+
+def _ab_binarize_pass(checkout, cfg, binary_dir):
+    cmd = [sys.executable, "-m", "neuralsvb_torch.data.binarize", "--config", cfg,
+           "--hparams", f"device=cuda,binary_data_dir={binary_dir}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=checkout, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"para pass in {checkout} failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    line = next(ln for ln in proc.stdout.splitlines() if ln.startswith("| binarize summary: "))
+    return wall, json.loads(line[len("| binarize summary: "):])
+
+
+def _ab_handoff_ms(sh, th, repeats=20):
+    """Median ms of the old and new hand-off of one pair's cost, and of the DP."""
+    import torch
+    from neuralsvb_torch.native import dtw_align_native
+    from neuralsvb_torch.ops import dtw
+    from neuralsvb_torch.ops.chi2 import chi2_dist
+    a = torch.as_tensor(sh, dtype=torch.float32, device="cuda")
+    b = torch.as_tensor(th, dtype=torch.float32, device="cuda")
+
+    def old():
+        return chi2_dist(a, b).T.contiguous().cpu().numpy()
+
+    def new():
+        return dtw._to_host(chi2_dist(b, a))
+
+    if not (old() == new()).all():
+        raise AssertionError("the two hand-offs give different costs")
+    cost = new()
+    times = {"old": [], "new": [], "dp": []}
+    for _ in range(repeats):
+        for name, fn in (("old", old), ("new", new), ("new", new), ("old", old),
+                         ("dp", lambda: dtw_align_native(cost))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def binarize_ab(argv):
+    """The binarize path's DTW stage on one NVIDIA card, this checkout against an
+    earlier one, in one run.
+
+    Run from the root of a checkout on a machine with a CUDA card (not part of
+    the smoke run)::
+
+        python3 chip_smoke.py --binarize-ab --other DIR [--out FILE]
+
+    ``DIR`` is another checkout of the repository (for example the parent
+    commit, unpacked with ``git archive`` into a git-ignored directory). It writes
+    phase 6's 8 synthetic sung pairs, runs the
+    speaker-embedding pass once, builds each checkout's libraries, then runs
+    the para pass of ``python -m neuralsvb_torch.data.binarize`` on the card
+    six times, in turns (other, this, this, other, other, this), each from its
+    own checkout, and reads each pass's ``| binarize summary:`` line (seconds per stage,
+    chi-square launches, wall). Then, in this process, it times the χ² cost's
+    hand-off to the host for the largest pair's histograms: the earlier path
+    (``chi2_dist(source, target)``, a transpose on the card, a pageable copy)
+    against this checkout's (``chi2_dist(target, source)`` into pinned memory),
+    and the host DP that reads the cost: medians over 20 repeats, each ending
+    in a synchronized host array.
+
+    Prints one JSON line per result and writes them all to FILE."""
+    import argparse
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --binarize-ab")
+    ap.add_argument("--other", required=True, help="the earlier checkout")
+    ap.add_argument("--out", default=str(Path(REPO) / "build" / "binarize_ab.json"))
+    args = ap.parse_args(argv)
+    sys.path.insert(0, REPO)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("--binarize-ab needs a CUDA card")
+    other = Path(args.other).resolve()
+    root = Path(REPO) / "build" / "binarize_ab"
+    shutil.rmtree(root, ignore_errors=True)
+    cfgs = binarize_configs(str(root), write_sung_pairs(str(root)))
+    rows = []
+
+    def emit(kind, **kw):
+        rows.append({"kind": kind, **kw})
+        print(json.dumps(rows[-1]), flush=True)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    emit("environment", device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    wall, emb = run_binarize(cfgs["save_emb_torch"], "cuda")
+    emit("save_emb", wall_s=wall, summary=emb)
+    build = ("from neuralsvb_torch import native; from neuralsvb_torch.ops import chi2; "
+             "chi2.LIBRARY.get(); native.LIBRARY.get()")
+    for checkout in (other, Path(REPO)):  # kernel builds stay out of the timed passes
+        subprocess.run([sys.executable, "-c", build], cwd=checkout, check=True, timeout=600)
+    turns = ("other", "this", "this", "other", "other", "this")
+    for i, name in enumerate(turns):
+        checkout = other if name == "other" else Path(REPO)
+        wall, summary = _ab_binarize_pass(checkout, cfgs["para_bin_torch"], root / f"binary_{i}")
+        emit("para_pass", checkout=name, turn=i, wall_s=wall,
+             dtw_align_s=summary["stage_seconds"]["dtw_align"],
+             chi2_dist_launches=summary["chi2_dist_launches"], summary=summary)
+
+    from neuralsvb_torch.ops.dtw import f0_shape_histogram
+    from neuralsvb_torch.data.indexed_dataset import IndexedDataset
+    items = []
+    for prefix in ("train", "test"):
+        ds = IndexedDataset(str(root / "binary_1" / prefix))
+        items += [ds[i] for i in range(len(ds))]
+    it = max(items, key=lambda x: len(x["f0"]) * len(x["prof_f0"]))
+    S, T = len(it["f0"]), len(it["prof_f0"])
+    sh = f0_shape_histogram(it["f0"], enhanced=True)
+    th = f0_shape_histogram(it["prof_f0"], enhanced=True, scale_factor=T / S)
+    emit("handoff", item=it["item_name"], S=S, T=T, cost_bytes=4 * S * T,
+         median_ms=_ab_handoff_ms(sh, th))
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    Path(args.out).write_text(json.dumps(rows, indent=1))
 
 
 def read_split(binary_dir, prefix):
@@ -1255,38 +1294,24 @@ VOC_BATCH, VOC_TIMED_STEPS = 16, 5  # the recipe's max_sentences; warm steps tim
 VOC_LOSS_RATIO = 1.0  # phase 11: |card_bf16 - cpu_bf16| / |cpu_bf16 - cpu_f32| per loss
 VOC_GEN_KEYS = {"mel", "a_p", "a_s", "lr_0"}
 VOC_DISC_KEYS = {"r_p", "f_p", "r_s", "f_s", "lr_1"}
-# kernel names -> kinds, for profiler splits (also scripts/train_profile.py)
-KERNEL_KINDS = (("ResBlock cluster kernels", ("resblock_conv1d", "lrelu_bf16")),
-                ("optimizer (Adam, clip)", ("adam", "foreach", "multi_tensor", "norm_kernel")),
-                ("FFT (cuFFT)", ("fft",)),
-                ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "winograd", "xmma",
-                                         "sm90", "dgrad", "wgrad")),
-                ("matmul (cuBLAS)", ("gemm", "gemv", "cutlass", "ampere", "sm80")),
-                ("reduction", ("reduce", "softmax", "norm", "mean", "sum")),
-                ("elementwise", ("elementwise", "vectorized", "unrolled", "where", "copy",
-                                 "fill", "index", "cat", "gather", "scatter", "pad")))
-
-
-def kernel_kind(name):
-    low = name.lower()
-    for kind, keys in KERNEL_KINDS:
-        if any(k in low for k in keys):
-            return kind
-    return "other"
-
-
-def kernel_split(prof):
-    """(device ms by kernel kind with launches, device ops) of a profile."""
-    kinds, ops = {}, 0
-    for e in prof.events():  # device ops only; user annotations repeat them
-        if e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False) \
-                or e.name.startswith("Optimizer."):
-            continue
-        k = kinds.setdefault(kernel_kind(e.name), [0.0, 0])
-        k[0] += e.device_time / 1e3
-        k[1] += 1
-        ops += 1
-    return kinds, ops
+def profiled_step(prof, wall_s, median_s):
+    """A profiled step's device time: the kernels' durations summed
+    (``kernel_ms``, by kind) and their intervals merged (``merged_busy_ms``,
+    per device), each over the profiled step's wall and the unprofiled
+    median. On one stream the two agree; a gap shows overlapping streams."""
+    from neuralsvb_torch.utils.profiling import device_busy, kernel_split
+    kinds, ops = kernel_split(prof)
+    busy = sum(v[0] for v in kinds.values())
+    merged = {k: v * 1e3 for k, v in device_busy(prof).items()}
+    merged_ms = sum(merged.values())
+    return {"wall_ms": wall_s * 1e3, "kernel_ms": busy, "device_ops": ops,
+            "busy_share_of_wall": busy / (wall_s * 1e3),
+            "busy_share_of_median": busy / (median_s * 1e3),
+            "merged_busy_ms": merged,
+            "merged_busy_share_of_wall": merged_ms / (wall_s * 1e3),
+            "merged_busy_share_of_median": merged_ms / (median_s * 1e3),
+            "by_kind_ms": {k: {"ms": v[0], "launches": v[1], "share": v[0] / busy}
+                           for k, v in sorted(kinds.items(), key=lambda kv: -kv[1][0])}}
 
 
 def vocoder_configs(device="cuda", **over):
@@ -1405,27 +1430,6 @@ def phase_vocoder_train(device="cuda"):
     return launches, chi2_launches, cfg
 
 
-def synthetic_crops(n, hp, seed=0):
-    """``n`` crops of ``max_samples`` sung vibrato with their log-mel and a
-    constant f0 each, as the vocoder's collater gives them."""
-    import numpy as np
-    import torch
-    from neuralsvb_torch.ops.stft import log_mel_batch
-    rng = np.random.RandomState(seed)
-    L = hp["max_samples"]
-    f0 = rng.uniform(150, 400, n)
-    t = np.arange(L) / SR
-    wav = 0.3 * np.sin(2 * np.pi * f0[:, None] * t * (1 + 0.01 * np.sin(2 * np.pi * 5 * t)))
-    wav = (wav + 0.01 * rng.randn(n, L)).astype(np.float32)
-    mel = log_mel_batch(torch.as_tensor(wav), sample_rate=SR, fft_size=hp["fft_size"],
-                        hop_size=hp["hop_size"], win_size=hp["win_size"],
-                        num_mels=hp["audio_num_mel_bins"], fmin=float(hp["fmin"]),
-                        fmax=float(hp["fmax"]))[:, : L // hp["hop_size"]]
-    frames = L // hp["hop_size"]
-    return {"wavs": wav, "mels": mel.numpy(), "nsamples": n,
-            "f0": np.repeat(f0[:, None], frames, 1).astype(np.float32)}
-
-
 def vocoder_step_parts(task, batch, spec):
     """Device time of a step's parts, each alone between CUDA events
     (median of 10): the plain f32 recompute of the cluster backward at the
@@ -1437,6 +1441,7 @@ def vocoder_step_parts(task, batch, spec):
     from neuralsvb_torch.models import hifigan as hf
     from neuralsvb_torch.ops import fused_resblock as fr
     from neuralsvb_torch.tasks.base_task import no_grad_for
+    from neuralsvb_torch.utils.profiling import median_ms
     gen = torch.Generator().manual_seed(3)
     b = task._prep_batch(batch)
     B, L = b["wavs"].shape
@@ -1484,6 +1489,7 @@ def phase_vocoder_step_time(cfg, train_rows, spec):
     3's at the training shapes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from neuralsvb_torch.data.synthetic import synthetic_crops
     from neuralsvb_torch.hparams import hparams_scope, set_hparams
     from neuralsvb_torch.ops import fused_resblock as fr
     from neuralsvb_torch.tasks.vocoder_task import HifiGanTask
@@ -1512,21 +1518,13 @@ def phase_vocoder_step_time(cfg, train_rows, spec):
         peak = torch.cuda.max_memory_allocated()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall = step(2 + VOC_TIMED_STEPS)
-        kinds, ops = kernel_split(prof)
-        busy = sum(v[0] for v in kinds.values())
         parts = vocoder_step_parts(task, batch, spec)
     med = statistics.median(warm)
     parts["cluster_forward_bf16_kernel"] = sum(r["kernel_ms"] for r in train_rows)
     row = dict(batch=[VOC_BATCH, batch["wavs"].shape[1]], first_step_s=first,
                warm_steps_s=warm, median_s=med, min_s=min(warm), max_s=max(warm),
                max_memory_allocated=peak, launches_per_step=per_step,
-               profiled_step={"wall_ms": wall * 1e3, "kernel_ms": busy, "device_ops": ops,
-                              "busy_share_of_wall": busy / (wall * 1e3),
-                              "busy_share_of_median": busy / (med * 1e3),
-                              "by_kind_ms": {k: {"ms": v[0], "launches": v[1],
-                                                 "share": v[0] / busy}
-                                             for k, v in sorted(kinds.items(),
-                                                                key=lambda kv: -kv[1][0])}},
+               profiled_step=profiled_step(prof, wall, med),
                parts_ms=parts, parts_share_of_median={k: v / (med * 1e3)
                                                       for k, v in parts.items()})
     emit("vocoder_step_time", **row)
@@ -1984,6 +1982,7 @@ def phase_pwg_step_time():
     busy share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from neuralsvb_torch.data.synthetic import synthetic_crops
     from neuralsvb_torch.hparams import hparams_scope, set_hparams
     from neuralsvb_torch.tasks.vocoder_task import PWGTask
     hp = set_hparams(config=os.path.join(REPO, PWG_RECIPE), print_hparams=False,
@@ -2010,19 +2009,10 @@ def phase_pwg_step_time():
         peak = torch.cuda.max_memory_allocated()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall = step(2 + PWG_TIMED_STEPS)
-        kinds, ops = kernel_split(prof)
-    busy = sum(v[0] for v in kinds.values())
     med = statistics.median(warm)
     row = dict(shape, first_step_s=first,
                warm_steps_s=warm, median_s=med, min_s=min(warm), max_s=max(warm),
-               max_memory_allocated=peak,
-               profiled_step={"wall_ms": wall * 1e3, "kernel_ms": busy, "device_ops": ops,
-                              "busy_share_of_wall": busy / (wall * 1e3),
-                              "busy_share_of_median": busy / (med * 1e3),
-                              "by_kind_ms": {k: {"ms": v[0], "launches": v[1],
-                                                 "share": v[0] / busy}
-                                             for k, v in sorted(kinds.items(),
-                                                                key=lambda kv: -kv[1][0])}})
+               max_memory_allocated=peak, profiled_step=profiled_step(prof, wall, med))
     emit("pwg_step_time", **row)
     return row
 
@@ -2370,6 +2360,8 @@ def phase_vcppg_step_time():
                max_memory_allocated=res["max_memory_allocated"],
                profiled_step={k: prof[k] for k in ("wall_ms", "kernel_ms", "busy_share",
                                                    "busy_share_of_unprofiled_median",
+                                                   "merged_busy_ms", "merged_busy_share",
+                                                   "merged_busy_share_of_unprofiled_median",
                                                    "launches", "by_kind_ms")},
                top_kernels=prof["top_kernels"][:10], nvidia_smi=res["nvidia_smi"])
     emit("vcppg_step_time", **row)
@@ -2533,6 +2525,8 @@ def phase_bf16_step_time():
             max_memory_allocated=r["max_memory_allocated"],
             profiled_step={k: prof[k] for k in ("wall_ms", "kernel_ms", "busy_share",
                                                 "busy_share_of_unprofiled_median",
+                                                "merged_busy_ms", "merged_busy_share",
+                                                "merged_busy_share_of_unprofiled_median",
                                                 "launches", "by_kind_ms")})
     ok = all(math.isfinite(v["phase2_median_s"]) for v in row.values()) and set(row) == {
         "f32", "bf16"}
@@ -2614,6 +2608,183 @@ def phase_bf16_card_vs_cpu(runs, cpu64_deltas, cpu64_state, devices=("cuda",)):
     if not ok:
         raise AssertionError(f"bf16 card vs CPU float64: {row}")
     return row
+
+
+
+def _faulty_batch_norm(kind):
+    """A training-mode ``_batch_norm`` with fault ``kind`` planted."""
+    import torch
+    from neuralsvb_torch.models import common
+
+    def bn_fn(x, bn):
+        if not bn.training:
+            return common._SOUND_BATCH_NORM(x, bn)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        out_dtype = x.dtype
+        if kind == "sum_over_n":
+            x = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [0] + list(range(2, x.dim()))
+        if kind == "sum_over_n":
+            n = x.numel() // x.shape[1]
+            stats = torch.stack([x.sum(dims), (x * x).sum(dims)]) / n
+        else:  # bf16_stats: x stays in its compute dtype
+            stats = torch.stack([x.mean(dims), (x * x).mean(dims)])
+        mean = stats[0].view(shape)
+        var = (stats[1].view(shape) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1 - m).add_(mean.detach().flatten().float(), alpha=m)
+            bn.running_var.mul_(1 - m).add_(var.detach().flatten().float(), alpha=m)
+            bn.num_batches_tracked.add_(1)
+        y = (x - mean) * torch.rsqrt(var + bn.eps)
+        return (y * bn.weight.view(shape).to(x.dtype)
+                + bn.bias.view(shape).to(x.dtype)).to(out_dtype)
+    return bn_fn
+
+
+BF16_FAULTS = ("sum_over_n", "bf16_stats")
+
+
+@contextlib.contextmanager
+def planted(kind):
+    """``neuralsvb_torch.models.common._batch_norm`` with fault ``kind``
+    (None: the sound one) for the duration."""
+    from neuralsvb_torch.models import common
+    if not hasattr(common, "_SOUND_BATCH_NORM"):
+        common._SOUND_BATCH_NORM = common._batch_norm
+    common._batch_norm = (common._SOUND_BATCH_NORM if kind is None
+                          else _faulty_batch_norm(kind))
+    try:
+        yield
+    finally:
+        common._batch_norm = common._SOUND_BATCH_NORM
+
+
+def bf16_map_spread(argv):
+    """The spread of phase 22's map-gradient cosine, for sound
+    bf16 arithmetic and for planted faults.
+
+    Phase 22 takes phase 9's gen + disc step and then the latent map's step of
+    the flagship at ``compute_dtype: bfloat16`` on the card and holds the map
+    gradient against the CPU's float64 gradient by its cosine. Two readings:
+
+    - ``chained``: the map step follows the bf16 run's own generator step. That
+      step is Adam's first, about lr x sign(g), so every gradient element near
+      zero can flip the sign of its parameter's move between the two runs, and
+      the map then starts from other parameters.
+    - ``from_f64``: the map step starts from the float64 run's parameters and
+      BatchNorm statistics before its map step (``train_step_runs(map_from=)``),
+      so bf16's rounding in the map step is the only difference. Phase 22
+      gates its ``_tail`` at ``BF16_GRAD_COS``.
+
+    Each is also read over the map's tensors from its last BatchNorm on
+    (``_tail``): the map's BatchNorms normalise over the batch's four global
+    latents, and their backward amplifies rounding in the tensors before them.
+
+    Each run also reads ``NormStatsCheck``: every training-mode
+    BatchNorm call's output against float64 on the same input (``_norm_err``,
+    the worst over modules and calls; phase 22 gates it at ``BF16_NORM_ERR``).
+
+    Each reading is taken on the card for sound code, in bf16 on the CPU (the
+    plain arithmetic), in float32 on the card, and on the card with a fault
+    planted in the BatchNorm statistics (``BF16_FAULTS``; this process only, by
+    replacing ``neuralsvb_torch.models.common._batch_norm``):
+
+    - ``sum_over_n``: the statistics as ``x.sum / n`` where the port takes
+      ``x.mean`` (a form tried during data-parallel work; float32 either way);
+    - ``bf16_stats``: the statistics, normalisation and running-statistics
+      update in bf16 where flax (and the port) take float32.
+
+    Run from the repository root on a machine with a CUDA card:
+    ``python3 chip_smoke.py --bf16-map-spread [--seeds 1234,1,2,...] [--repeats
+    1] [--out FILE]`` (not part of the smoke run). It binarizes phase 6's
+    synthetic pairs into ``build/bf16_map_spread/`` first, prints one JSON
+    object per seed and a summary, and writes them to ``--out`` (default
+    ``build/bf16_map_spread.json``)."""
+    import argparse
+    global WORK
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --bf16-map-spread")
+    ap.add_argument("--seeds", default="1234,1,2,3,4,5")
+    ap.add_argument("--repeats", type=int, default=1, help="sound card bf16 runs per seed")
+    ap.add_argument("--out", default=os.path.join(REPO, "build", "bf16_map_spread.json"))
+    args = ap.parse_args(argv)
+    sys.path.insert(0, REPO)
+    os.chdir(REPO)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
+    WORK = os.path.join(REPO, "build", "bf16_map_spread")
+    tf32(False)
+    if not os.path.isdir(os.path.join(WORK, "binarize", "binary")):
+        os.makedirs(WORK, exist_ok=True)
+        phase_binarize()
+    f32, f64 = torch.float32, torch.float64
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+
+    def readings(ref_grads, state, tail, device, fault=None, **over):
+        """{'chained', 'from_f64'}: the map gradient's cosine, and with
+        '_tail' that of its tensors from its last BatchNorm on; plus the
+        generator's and discriminator's cosines of the chained run."""
+        out = {}
+        with planted(fault):
+            for name, map_from in (("chained", None), ("from_f64", state)):
+                checks = []
+                run, _ = train_step_runs(SVBVAEMleTask, (f32,), (device,), sides=("x",),
+                                            map_from=map_from,
+                                            on_task=lambda t: checks.append(NormStatsCheck(t)),
+                                            **over)
+                worst = checks[0].worst
+                checks[0].close()
+                out[f"{name}_norm_err"] = max(worst.values())
+                out[f"{name}_norm_worst"] = max(worst, key=worst.get)
+                grads = run["x", f32][1]
+                out[name] = grad_cosine(grads["map"], ref_grads["map"])
+                out[f"{name}_tail"] = grad_cosine(grads["map"][tail], ref_grads["map"][tail])
+                if map_from is None:
+                    out["gen"] = grad_cosine(grads["gen"], ref_grads["gen"])
+                    out["disc"] = grad_cosine(grads["disc"], ref_grads["disc"])
+        return out
+
+    rows = []
+    for seed in (int(s) for s in args.seeds.split(",")):
+        states, names = {}, {}
+        ref, _ = train_step_runs(SVBVAEMleTask, (f64,), ("cpu",), sides=("cpu",),
+                                    states=states, names=names, seed=seed)
+        ref_grads, state = ref["cpu", f64][1], states["cpu", f64]
+        tail = after_last_batchnorm(names)
+        bf16 = dict(compute_dtype="bfloat16", seed=seed)
+        row = {"seed": seed, "nvidia_smi": smi.strip(),
+               "tail": names["map"][tail],
+               "card_bf16": [readings(ref_grads, state, tail, "cuda", **bf16)
+                             for _ in range(args.repeats)],
+               "cpu_bf16": readings(ref_grads, state, tail, "cpu", **bf16),
+               "card_f32": readings(ref_grads, state, tail, "cuda", seed=seed),
+               # the same form in float32: a fault would show here too
+               "card_f32_sum_over_n": readings(ref_grads, state, tail, "cuda", "sum_over_n",
+                                               seed=seed)}
+        for fault in BF16_FAULTS:
+            row[f"card_bf16_{fault}"] = readings(ref_grads, state, tail, "cuda", fault, **bf16)
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    summary = {"gates": {"norm_err": BF16_NORM_ERR, "map_tail_from_f64": BF16_GRAD_COS},
+               "nvidia_smi": smi.strip()}
+    for reading in ("chained", "chained_tail", "chained_norm_err", "from_f64", "from_f64_tail",
+                    "from_f64_norm_err"):
+        sound = [r[reading] for row in rows for r in row["card_bf16"]]
+        summary[reading] = {
+            "card_bf16": sorted(sound),
+            "cpu_bf16": sorted(row["cpu_bf16"][reading] for row in rows),
+            "card_f32": sorted(row["card_f32"][reading] for row in rows),
+            "card_f32_sum_over_n": sorted(row["card_f32_sum_over_n"][reading] for row in rows),
+            **{f"card_bf16_{f}": sorted(row[f"card_bf16_{f}"][reading] for row in rows)
+               for f in BF16_FAULTS}}
+    print(json.dumps(summary), flush=True)
+    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"seeds": rows, "summary": summary}, f, indent=1)
+
 
 
 def phase_accum_card_vs_cpu(devices=("cpu", "cuda")):
@@ -3116,6 +3287,8 @@ def phase_fs2_step_time():
                max_memory_allocated=res["max_memory_allocated"],
                profiled_step={k: prof[k] for k in ("wall_ms", "kernel_ms", "busy_share",
                                                    "busy_share_of_unprofiled_median",
+                                                   "merged_busy_ms", "merged_busy_share",
+                                                   "merged_busy_share_of_unprofiled_median",
                                                    "launches", "by_kind_ms")},
                top_kernels=prof["top_kernels"][:10], nvidia_smi=res["nvidia_smi"])
     emit("fs2_step_time", **row)
@@ -3602,6 +3775,7 @@ def phase_serving_leftovers(voc, device="cuda:0"):
     from neuralsvb_torch.ops import fused_resblock as fr
     from neuralsvb_torch.tasks.svb_vae_task import SVBVAEMleTask
     from neuralsvb_torch.vocoders.hifigan import HifiGAN
+    from neuralsvb_torch.utils.profiling import median_ms
     t0 = time.perf_counter()
     stages = len(voc["upsample_rates"])
     on_card = device.startswith("cuda")
@@ -3699,6 +3873,197 @@ def phase_serving_leftovers(voc, device="cuda:0"):
     if not row["ok"]:
         raise AssertionError(f"serving leftovers: {row}")
     return rank_launches, den_launches
+
+
+# phase 35: one 2000-frame utterance's NSF excitation (2000 x 128 samples);
+# per segment an odd multiple of sr/1024 Hz (0 = unvoiced): every phase sum
+# is exact in float32 on both devices, and no pulse peak falls halfway
+# between two samples (two equal neighbours would leave the pulse to rounding)
+NSF_SEGMENT_K = (9, 0, 13, 11, 0, 15, 17, 0)
+CYC_BETA = 0.87
+NSF_TOL = 1e-5
+FLOPS_REL_TOL = 0.05  # op_flops of the plain cluster against cluster_work
+
+
+def nsf_f0(n):
+    """[1, n, 1] float32 Hz of ``NSF_SEGMENT_K``, equal segments."""
+    import numpy as np
+    k = np.repeat(np.array(NSF_SEGMENT_K), -(-n // len(NSF_SEGMENT_K)))[:n]
+    return (k * SR / 1024).astype(np.float32)[None, :, None]
+
+
+def phase_last_modules(voc, spec, bucket_rows, device="cuda"):
+    """35. The last JAX modules on the card.
+
+    Profiling (``neuralsvb_torch/utils/profiling.py``): one warm vocoder call
+    (seeded full-width HiFiGAN-NSF, a 2000-frame mel: the 2048 bucket, the
+    bf16 ResBlock kernel) under ``profiler_trace``: the kernels' merged busy
+    time (``device_busy``) beside their summed time (``kernel_split``), the
+    top 10 kernels, 54 + 3 launches (counts zeroed just before the call, the
+    profile's cluster kernels the same number), ``Timer`` against CUDA events
+    for the same call; ``op_flops`` of the plain cluster at the bucket's three
+    stage shapes within 5% of ``cluster_work``; ``roofline`` of the cluster
+    equal to phase 3's bound. NSF sources: ``PulseGen`` and
+    ``SourceModuleCycNoise`` on a 2000-frame F0 track (voiced and unvoiced
+    segments) on the card against the CPU with the same injected draws, in
+    float32, every output within 1e-5. Figures: whether ``matplotlib`` is
+    installed, and the logger's and phase 8's validation's figures agree with
+    it. mp3: whether ``ffmpeg`` is installed; without it the port's
+    ``load_wav`` raises the JAX package's ``need ffmpeg`` error, with it one
+    synthetic sung wav round-trips through mp3."""
+    import contextlib
+    import importlib.util
+    import io
+    import numpy as np
+    import torch
+    from neuralsvb_torch.models import nsf
+    from neuralsvb_torch.ops import fused_resblock as fr
+    from neuralsvb_torch.ops.audio import load_wav, save_wav
+    from neuralsvb_torch.training.logger import JsonLogger
+    from neuralsvb_torch.utils import profiling as P
+    from neuralsvb_torch.vocoders.hifigan import HifiGAN
+    bad = []
+    on_card = device == "cuda"  # CPU tensors take the plain cluster
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # profiling: the main path's vocoder call
+    T = 2000
+    t = np.arange(T) * 128 / SR
+    f0 = (220.0 * (1 + 0.02 * np.sin(2 * np.pi * 5 * t))).astype(np.float32)
+    mel = (np.random.RandomState(35).randn(T, voc["audio_num_mel_bins"]) - 4).astype(np.float32)
+    vocoder = HifiGAN(dict(voc, vocoder_ckpt="", device=device, seed=7, vocoder_denoise_c=0.0))
+
+    def call():
+        return vocoder.spec2wav(mel, f0=f0, zero_noise=True)
+    call()
+    sync()
+    for c in fr.KERNEL_COUNTERS:
+        c.launches = 0
+    with P.profiler_trace(os.path.join(WORK, "traces")) as prof:
+        wav = call()
+        sync()
+    launches = {c.__name__: c.launches for c in fr.KERNEL_COUNTERS}
+    kinds, ops = P.kernel_split(prof)
+    summed_ms = sum(v[0] for v in kinds.values())
+    merged_ms = {k: v * 1e3 for k, v in P.device_busy(prof).items()}
+    stages = len(voc["upsample_rates"])
+    want = {"resblock_conv1d_bf16": 18 * stages * on_card, "lrelu_bf16": stages * on_card,
+            "resblock_conv1d": 0}
+    profiled_cluster = kinds.get("ResBlock cluster kernels", [0.0, 0])[1]
+    if launches != want or profiled_cluster != 19 * stages * on_card:
+        bad.append(f"launches {launches} != {want}, profiled cluster kernels {profiled_cluster}")
+    busy_keys = [f"cuda:{torch.cuda.current_device()}"] if on_card else ["cpu"]
+    if list(merged_ms) != busy_keys:
+        bad.append(f"device_busy keys {list(merged_ms)} != {busy_keys}")
+    if not bool(torch.isfinite(wav).all()):
+        bad.append("vocoder wav not finite")
+    P.Timer.timer_map.pop("vocoder_call", None)
+    with P.Timer("vocoder_call", enable=True, device=device):
+        call()
+    event_ms = P.device_ms(call, n=1) if on_card else None
+    profiling = dict(
+        frames=T, bucket=2048, wall_launches=launches, profiled_cluster_kernels=profiled_cluster,
+        kernel_ms=summed_ms, device_ops=ops, merged_busy_ms=merged_ms,
+        merged_over_summed=sum(merged_ms.values()) / summed_ms if summed_ms else None,
+        by_kind_ms={k: {"ms": v[0], "launches": v[1]} for k, v in kinds.items()},
+        top_ops=[{"name": n[:100], "ms": sec * 1e3, "launches": k}
+                 for n, sec, k in P.top_ops(prof, k=10)],
+        timer_ms=P.Timer.report()["vocoder_call"] * 1e3, cuda_event_ms=event_ms)
+
+    # op_flops of the plain cluster, and its roofline, at the bucket's shapes
+    gen = torch.Generator().manual_seed(35)
+    counted = work = bound_ms = 0.0
+    for (B, C, Tn), r in zip(BUCKET_SHAPES, bucket_rows):
+        x = torch.randn(B, C, Tn, generator=gen).to(device)
+        w = random_cluster(C, spec, gen, device)
+        with torch.no_grad():
+            counted += P.op_flops(fr.resblock_cluster_plain, x, w, spec)
+        flop, nbytes = cluster_work(B, C, Tn, spec, 2)
+        work += flop
+        bound = P.roofline(flop, nbytes, r["kernel_ms"] / 1e3, torch.bfloat16)[0]
+        bound_ms += bound * 1e3 if on_card else 0.0  # no peak rates for the CPU
+        del x, w
+    phase3_bound_ms = sum(r["bound_ms"] for r in bucket_rows)
+    flops = dict(op_flops=counted, cluster_work=work, rel=abs(counted - work) / work,
+                 tol=FLOPS_REL_TOL, roofline_bound_ms=bound_ms, phase3_bound_ms=phase3_bound_ms,
+                 peak_bf16_flops=P.peak_flops_for_device(torch.bfloat16),
+                 peak_hbm_bytes=P.peak_hbm_bytes_for_device())
+    if flops["rel"] > FLOPS_REL_TOL or abs(bound_ms - phase3_bound_ms) > 1e-9 * phase3_bound_ms:
+        bad.append(f"cluster FLOPs / bound: {flops}")
+
+    # the pulse and cyclic-noise sources, card vs CPU, same draws
+    L = T * 128
+    f0s = torch.as_tensor(nsf_f0(L))
+    voiced = f0s[f0s > 0]
+    g = torch.Generator().manual_seed(36)
+    draws = dict(rand_ini=torch.rand(1, 1, generator=g),
+                 sine_noise=torch.randn(1, L, 1, generator=g),
+                 pulse_noise=torch.randn(1, L, 1, generator=g),
+                 burst=torch.randn(int(4.6 * SR / float(voiced.mean())), 1, generator=g),
+                 noise=torch.randn(1, L, 1, generator=g))
+    pulse_keys = ("rand_ini", "sine_noise", "pulse_noise")
+    sources = {}
+    for name, module, args, keys in (
+            ("PulseGen", nsf.PulseGen(SR), (), pulse_keys),
+            ("SourceModuleCycNoise", nsf.SourceModuleCycNoise(SR), (CYC_BETA,), draws)):
+        outs = {}
+        for dev in ("cpu", device):
+            with torch.no_grad():
+                outs[dev] = module.to(dev)(f0s.to(dev), *args,
+                                           **{k: draws[k].to(dev) for k in keys})
+        errs = [float((a.cpu() - b).abs().max()) for a, b in zip(outs[device], outs["cpu"])]
+        sources[name] = dict(max_abs_err=max(errs), per_output=errs, tol=NSF_TOL,
+                             finite=all(bool(torch.isfinite(o).all()) for o in outs[device]))
+        if max(errs) > NSF_TOL or not sources[name]["finite"]:
+            bad.append(f"{name} card vs CPU: {sources[name]}")
+    cyc = outs[device][0]
+    sources.update(samples=L, voiced_share=float((f0s > 0).float().mean()),
+                   burst_taps=int(draws["burst"].shape[0]),
+                   cyc_noise_rms=float(cyc.pow(2).mean().sqrt()))
+
+    # figures: the logger's probe and phase 8's validation
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        logger = JsonLogger(os.path.join(WORK, "figures_probe"))
+    no_mpl_line = "| figures not written: no matplotlib" in printed.getvalue()
+    pngs = glob.glob(os.path.join(WORK, "train_work", "lightning_logs", "version_*",
+                                  "figures", "*.png"))
+    figures = dict(matplotlib=mpl, logger_writes_figures=logger.writes_figures,
+                   no_matplotlib_line=no_mpl_line, phase8_validation_pngs=len(pngs))
+    if logger.writes_figures != mpl or no_mpl_line == mpl or (len(pngs) > 0) != mpl:
+        bad.append(f"figures: {figures}")
+
+    # mp3 input
+    ffmpeg = shutil.which("ffmpeg")
+    if ffmpeg is None:
+        try:
+            load_wav(os.path.join(WORK, "probe.mp3"), SR)
+            error = None
+        except RuntimeError as exc:
+            error = str(exc)
+        mp3 = {"ffmpeg": None, "load_wav_error": error}
+        if not (error or "").startswith("need ffmpeg to decode .mp3 files"):
+            bad.append(f"mp3 without ffmpeg: {mp3}")
+    else:
+        src = os.path.join(WORK, "mp3_probe.wav")
+        tone = 0.3 * np.sin(2 * np.pi * 220 * np.arange(int(6.0 * SR)) / SR)
+        save_wav(tone.astype(np.float32), src, SR)
+        subprocess.run([ffmpeg, "-v", "error", "-y", "-i", src, src[:-4] + ".mp3"],
+                       check=True, timeout=120)
+        back, sr = load_wav(src[:-4] + ".mp3", SR)
+        mp3 = {"ffmpeg": ffmpeg, "wav_samples": len(tone), "mp3_samples": len(back),
+               "sr": sr, "frames_wav": len(tone) // 128, "frames_mp3": len(back) // 128}
+        if sr != SR or abs(len(back) - len(tone)) > 2 * 1152 or not np.isfinite(back).all():
+            bad.append(f"mp3 round trip: {mp3}")
+    emit("last_modules", ok=not bad, problems=bad, profiling=profiling, flops=flops,
+         nsf_sources=sources, figures=figures, mp3=mp3)
+    if bad:
+        raise AssertionError(f"last modules: {bad}")
+    return launches
 
 
 def build_all():
@@ -3820,6 +4185,9 @@ def main():
     # test_start and reports them at test_end; the denoised vocoder call's
     # counts are zeroed just before it
     shard_launches, denoise_launches = phase_serving_leftovers(voc)
+    # the last modules: the profiled vocoder call's counts are zeroed just
+    # before it
+    profiled_launches = phase_last_modules(voc, spec, bucket)
 
     def total(rows, key):
         return sum(r[key] for r in rows)
@@ -3856,6 +4224,8 @@ def main():
                                          for r, v in shard_launches.items()},
         "denoise_launches": denoise_launches["resblock_conv1d_bf16"],
         "denoise_prepass_launches": denoise_launches["lrelu_bf16"],
+        "profiled_call_launches": profiled_launches["resblock_conv1d_bf16"],
+        "profiled_call_prepass_launches": profiled_launches["lrelu_bf16"],
         "vocoder_train_shapes_ms": total(train_rows, "kernel_ms"),
         "vocoder_train_shapes_plain_ms": total(train_rows, "plain_ms"),
         "vocoder_train_shapes_bound_ms": total(train_rows, "bound_ms"),
@@ -3886,4 +4256,9 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--bf16-map-spread"]:
+        bf16_map_spread(sys.argv[2:])
+    elif sys.argv[1:2] == ["--binarize-ab"]:
+        binarize_ab(sys.argv[2:])
+    else:
+        main()

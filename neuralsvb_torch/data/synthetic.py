@@ -9,8 +9,10 @@ professional->amateur frame alignment and a table of speaker embeddings.
 ``phone_set.json``, the keys ``FastSpeechDataset`` reads (the ASR
 pre-training recipe). ``write_synthetic_speech_corpus``: raw wavs with
 transcripts, the ASR pre-training binarizer's input, and optionally an MFA
-TextGrid each (the FastSpeech2 recipes binarize ``with_align``). Everything
-comes from ``numpy.random.RandomState(seed)``.
+TextGrid each (the FastSpeech2 recipes binarize ``with_align``).
+``synthetic_crops``: a vocoder training batch of sung vibrato crops.
+``chi2_inputs``: the χ² kernel's test histograms (``vibrato_f0``
+contours). Everything comes from ``numpy.random.RandomState(seed)``.
 """
 
 from __future__ import annotations
@@ -168,3 +170,57 @@ def write_synthetic_speech_corpus(processed_dir: str, speakers: int, utterances:
                 os.makedirs(mfa, exist_ok=True)
                 write_textgrid(os.path.join(mfa, f"{name}.TextGrid"),
                                ["<BOS>"] + list(phs) + ["<EOS>"], len(t) / sr)
+
+
+def synthetic_crops(n: int, hp: dict, seed: int = 0) -> dict:
+    """``n`` crops of ``max_samples`` sung vibrato with their log-mel and a
+    constant f0 each, as the vocoder's collater gives them."""
+    import torch
+    from ..ops.stft import log_mel_batch
+    rng = np.random.RandomState(seed)
+    sr, L = hp["audio_sample_rate"], hp["max_samples"]
+    f0 = rng.uniform(150, 400, n)
+    t = np.arange(L) / sr
+    wav = 0.3 * np.sin(2 * np.pi * f0[:, None] * t * (1 + 0.01 * np.sin(2 * np.pi * 5 * t)))
+    wav = (wav + 0.01 * rng.randn(n, L)).astype(np.float32)
+    mel = log_mel_batch(torch.as_tensor(wav), sample_rate=sr, fft_size=hp["fft_size"],
+                        hop_size=hp["hop_size"], win_size=hp["win_size"],
+                        num_mels=hp["audio_num_mel_bins"], fmin=float(hp["fmin"]),
+                        fmax=float(hp["fmax"]))[:, : L // hp["hop_size"]]
+    frames = L // hp["hop_size"]
+    return {"wavs": wav, "mels": mel.numpy(), "nsamples": n,
+            "f0": np.repeat(f0[:, None], frames, 1).astype(np.float32)}
+
+
+def vibrato_f0(n: int, period: float, seed: int) -> np.ndarray:
+    """A sung f0 contour in Hz: vibrato, jitter and one unvoiced stretch."""
+    rng = np.random.RandomState(seed)
+    f0 = 220 + 40 * np.sin(2 * np.pi * np.arange(n) / period) + rng.randn(n)
+    f0[n // 3: n // 3 + n // 12] = 0.0
+    return f0
+
+
+def chi2_inputs(S: int, T: int, seed: int):
+    """Three (a, b) pairs of [S, 48] / [T, 48] f32: the EHSADTW histograms
+    of two vibrato contours; random nonnegative rows with all-zero rows;
+    and those rows with values outside {0} U [2^-24, 2^24] (1e-30, 1e8 and
+    negative, a + b below -0.8) in bins 16-31 of some rows only. A tile of
+    the kernel that holds such a row runs its middle 16-bin chunk with `/`
+    and its first and last with the branch-free division; a tile that holds
+    none runs all three branch-free."""
+    from ..ops.dtw import f0_shape_histogram
+    sh = f0_shape_histogram(vibrato_f0(S, 50, seed), enhanced=True)
+    th = f0_shape_histogram(vibrato_f0(T, 55, seed + 1), enhanced=True,
+                            scale_factor=T / S)
+    rng = np.random.RandomState(seed)
+    a, b = rng.rand(S, 48), rng.rand(T, 48)
+    a /= a.sum(1, keepdims=True)
+    b /= b.sum(1, keepdims=True)
+    a[::7] = 0.0
+    b[::5] = 0.0
+    oa, ob = a.copy(), b.copy()
+    oa[1::97, 16:20] = 1e-30
+    ob[2::89, 20:24] = 1e8
+    oa[3::151, 24:28] = -1.0 - oa[3::151, 24:28]
+    ob[4::113, 28:32] = 1e-30
+    return [(sh, th), (a, b), (oa, ob)]

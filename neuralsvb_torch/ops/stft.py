@@ -12,8 +12,9 @@ Slaney mel basis and ``log10(max(eps, .))``. Two entry points:
   gradients (``log_mel_jax``).
 
 The host float64 STFT pair of the JAX package's Griffin-Lim and
-denoiser (``stft_np``, ``stft_mag_np``, ``istft``) and the vocoder's
-denoiser on its device (``spectral_subtract``) complete the module.
+denoiser (``stft_np``, ``stft_mag_np``, ``istft``), the vocoder's
+denoiser on its device (``spectral_subtract``) and HiFiGAN's torch-style
+mel frontend on the host (``mel_spectrogram_hifigan``) complete the module.
 
 No Pallas kernel is involved: the FFT and the mel matmul are library calls.
 """
@@ -153,3 +154,35 @@ def spectral_subtract(wav: torch.Tensor, fft_size: int, hop_size: int, win_size:
     spec = torch.polar((spec.abs() - c).clamp_min(0.0), spec.angle())
     return torch.istft(spec, n_fft=fft_size, hop_length=hop_size, window=window,
                        center=True).to(torch.float32)
+
+
+def mel_spectrogram_hifigan(y: np.ndarray, hp: dict, center: bool = False):
+    """HiFiGAN-style torch-mel frontend (reference:
+    modules/hifigan/mel_utils.py:45-80): clamp to [-1,1], reflect-pad by
+    (n_fft - hop)/2, uncentered STFT with a zero-padded hann(win_size)
+    window, Slaney mel, natural-log compression with 1e-5 clip.
+
+    y: [B, L] or [L] float waveform -> [B, num_mels, T'] (reference layout).
+    The alternate frontend the reference keeps around for official HiFiGAN
+    checkpoints (usage commented out at vocoders/hifigan.py:71-76)."""
+    n_fft = hp["fft_size"]
+    hop = hp["hop_size"]
+    win = hp["win_size"]
+    y = np.atleast_2d(np.asarray(y, np.float32))
+    y = np.clip(y, -1.0, 1.0)
+    pad = int((n_fft - hop) / 2)
+    y = np.pad(y, ((0, 0), (pad, pad)), mode="reflect")
+
+    window = _padded_window(win, n_fft)
+
+    if center:
+        y = np.pad(y, ((0, 0), (n_fft // 2, n_fft // 2)), mode="reflect")
+    n_frames = 1 + (y.shape[1] - n_fft) // hop
+    idx = np.arange(n_fft)[None, :] + hop * np.arange(n_frames)[:, None]
+    frames = y[:, idx] * window  # [B, T', n_fft]
+    spec = np.abs(np.fft.rfft(frames, axis=-1))  # [B, T', n_fft//2+1]
+    spec = np.sqrt(spec ** 2 + 1e-9)
+    basis = mel_filterbank(hp["audio_sample_rate"], n_fft,
+                           hp["audio_num_mel_bins"], hp["fmin"], hp["fmax"])
+    mel = np.einsum("mf,btf->bmt", basis, spec)
+    return np.log(np.clip(mel, 1e-5, None)).astype(np.float32)

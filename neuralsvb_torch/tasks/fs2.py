@@ -49,6 +49,8 @@ from ..ops.cwt import cwt2f0_norm
 from ..ops.fused_resblock import KERNEL_COUNTERS
 from ..ops.pitch_utils import denorm_f0
 from ..parallel import ddp
+from ..utils.plot import spec_to_figure
+from ..utils.profiling import RTFMeter
 from .adv_base import AdversarialTaskBase
 from .losses import abs_, add_mel_loss
 
@@ -205,13 +207,18 @@ class FastSpeech2Task(AdversarialTaskBase):
         return self.vocoder
 
     def vis_validation(self, batch, fakes, gts, batch_idx):
-        """The vocoded prediction of the first ``num_valid_plots`` batches
-        every ``valid_infer_interval`` steps (reference: fs2.py validation
-        plots; the mel figures are not drawn)."""
+        """The mel ``gt|pred`` figure and the vocoded prediction of the first
+        ``num_valid_plots`` batches every ``valid_infer_interval`` steps
+        (reference: fs2.py validation plots)."""
         if (self.logger is None or self.global_step % hparams["valid_infer_interval"] != 0
                 or batch_idx >= hparams.get("num_valid_plots", 0)):
             return
         L = int(batch["mel_lengths"][0])
+        if self.logger.writes_figures:
+            fig = spec_to_figure(torch.cat([gts[""][0, :L].float(), fakes[""][0, :L].float()], -1),
+                                 vmin=hparams["mel_vmin"], vmax=hparams["mel_vmax"],
+                                 title="gt|pred")
+            self.logger.add_figure(f"mel_{batch_idx}", fig, self.global_step)
         f0 = denorm_f0(self._dev(batch["f0"], torch.float32),
                        self._dev(batch["uv"], torch.float32), hparams)[0, :L]
         wav = self._get_vocoder().spec2wav(fakes[""][0, :L], f0=f0)
@@ -242,7 +249,7 @@ class FastSpeech2Task(AdversarialTaskBase):
         self.saving_results_futures = []
         self._get_vocoder()
         self.results_id = 0
-        self._n_infer_utts, self._audio_sec, self._compute_sec = 0, 0.0, 0.0
+        self._n_infer_utts, self._rtf = 0, RTFMeter()
         for c in KERNEL_COUNTERS:  # test_end reports the test loop's launches
             c.launches = 0
         self.vocoder_calls = 0
@@ -272,9 +279,9 @@ class FastSpeech2Task(AdversarialTaskBase):
         self.vocoder_calls += len(wavs)
         wavs = {k: v.cpu().numpy() for k, v in wavs.items()}
         mel_np = mel_pred.cpu().numpy()
-        self._compute_sec += time.perf_counter() - t0  # .cpu() synchronized
+        # .cpu() synchronized
+        self._rtf.add(time.perf_counter() - t0, len(wavs["P"]) / hp["audio_sample_rate"])
         self._n_infer_utts += 1
-        self._audio_sec += len(wavs["P"]) / hp["audio_sample_rate"]
         gen_dir = os.path.join(hp["work_dir"], f"generated_{self.global_step}_{hp['gen_dir_name']}")
         base_fn = f"[{self.results_id:06d}][{batch['item_name'][0]}]".replace(" ", "_")
         self.results_id += 1
@@ -318,9 +325,8 @@ class FastSpeech2Task(AdversarialTaskBase):
             f.get()
         self.saving_result_pool.join()
         summary = {"device": str(self.device), "utts": self._n_infer_utts,
-                   "vocoder_calls": self.vocoder_calls, "audio_sec": self._audio_sec,
-                   "compute_sec": self._compute_sec,
-                   "rtf": self._compute_sec / max(self._audio_sec, 1e-9),
+                   "vocoder_calls": self.vocoder_calls, "audio_sec": self._rtf.audio_sec,
+                   "compute_sec": self._rtf.compute_sec, "rtf": self._rtf.rtf,
                    **{f"{c.__name__}_launches": c.launches for c in KERNEL_COUNTERS}}
         if self.device.type == "cuda":
             summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)

@@ -47,6 +47,7 @@ from ..models.svb_ppg import ParaAlignedPPG, ParaPPGConstraint, ParaPPGPreExp, P
 from ..ops.fused_resblock import KERNEL_COUNTERS
 from ..ops.pitch_utils import denorm_f0
 from ..parallel import ddp
+from ..utils.plot import spec_to_figure
 from .adv_base import AdversarialTaskBase, cross_entropy_ignore0
 from .losses import add_mel_loss
 
@@ -168,9 +169,9 @@ class SVBParaTask(AdversarialTaskBase):
         return self.vocoder
 
     def vis_validation(self, batch, fakes, gts, batch_idx):
-        """Vocoded validation audio of the first ``num_valid_plots`` batches
-        every ``valid_infer_interval`` steps (reference:
-        svb_para.py:226-269; the mel figures are not drawn). A batch without
+        """Vocoded validation audio and the mel ``gt|pred`` figures of the
+        first ``num_valid_plots`` batches every ``valid_infer_interval``
+        steps (reference: svb_para.py:226-269). A batch without
         a professional side (the speech datasets') renders nothing: the JAX
         package reads its ``prof_f0`` there and raises KeyError."""
         if (self.logger is None or "prof_mels" not in batch
@@ -187,6 +188,11 @@ class SVBParaTask(AdversarialTaskBase):
             self.vocoder_calls += 1
             self.logger.add_audio(f"{way}_wavout_{batch_idx}", wav.cpu().numpy(),
                                   self.global_step, hparams["audio_sample_rate"])
+            if self.logger.writes_figures:
+                fig = spec_to_figure(torch.cat([gts[key][0, :L].float(), mel[0, :L].float()], -1),
+                                     vmin=hparams["mel_vmin"], vmax=hparams["mel_vmax"],
+                                     title=f"{way} gt|pred")
+                self.logger.add_figure(f"{way}_gt_{batch_idx}", fig, self.global_step)
 
     # ------------------------------------------------------------------
     # inference (reference: svb_para.py:275-353)

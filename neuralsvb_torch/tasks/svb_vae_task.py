@@ -74,6 +74,9 @@ from ..ops.fused_resblock import KERNEL_COUNTERS
 from ..ops.pitch_utils import denorm_f0
 from ..parallel import ddp
 from ..training.schedulers import rsqrt_schedule, step_lr_schedule
+from ..utils import num_params
+from ..utils.plot import spec_to_figure
+from ..utils.profiling import RTFMeter
 from .base_task import (BaseTask, apply_in_dtype, compute_dtype, copy_parameters,
                         no_grad_for, np_rng_state, set_np_rng_state, step_generator)
 from .losses import add_mel_loss, mse, nan_guard, parse_mel_losses
@@ -168,6 +171,7 @@ class SVBVAEMleTask(BaseTask):
                 asr_last_norm=hp["asr_last_norm"],
                 variant=self.variant)
         self.model = model.to(self.device).eval().requires_grad_(False)
+        num_params(self.model, model_name="Generator")
         return self.model
 
     def restore(self) -> int:
@@ -524,9 +528,9 @@ class SVBVAEMleTask(BaseTask):
         return {"losses": losses, "total_loss": sum(losses.values()), "nsamples": n}
 
     def _vis_validation(self, out, batch, batch_idx, ways):
-        """Vocoded validation audio of the first ``num_valid_plots``
-        batches every ``valid_infer_interval`` steps (reference:
-        svb_vae_task.py:247-298); the mel figures are not drawn."""
+        """Vocoded validation audio and the mel ``gt|pred`` figures of the
+        first ``num_valid_plots`` batches every ``valid_infer_interval``
+        steps (reference: svb_vae_task.py:247-298)."""
         if (self.logger is None
                 or self.global_step % hparams["valid_infer_interval"] != 0
                 or batch_idx >= hparams.get("num_valid_plots", 0)):
@@ -550,6 +554,12 @@ class SVBVAEMleTask(BaseTask):
                                         zero_noise=self.zero_noise)
             self.logger.add_audio(f"{way}_wavout_{batch_idx}", wav.cpu().numpy(),
                                   self.global_step, sr)
+            if self.logger.writes_figures:
+                gt = (batch["prof_mels"] if way != "a2a" else batch["mels"])[0][:L]
+                mel = out[way]["mel_out"][0, :L].float().cpu().numpy()
+                fig = spec_to_figure(np.concatenate([gt, mel], -1), vmin=hparams["mel_vmin"],
+                                     vmax=hparams["mel_vmax"], title=f"{way} gt|pred")
+                self.logger.add_figure(f"{way}_gt_{batch_idx}", fig, self.global_step)
         L = lens["a2a"]
         gt_a = self.vocoder.spec2wav(torch.as_tensor(batch["mels"][0, :L], device=self.device),
                                      f0=f0s["a2a"][0, :L], zero_noise=self.zero_noise)
@@ -566,8 +576,7 @@ class SVBVAEMleTask(BaseTask):
         self.results_id = 0
         self._n_infer_utts = 0
         self.vocoder_calls = 0
-        self._audio_sec = 0.0
-        self._compute_sec = 0.0
+        self._rtf = RTFMeter()
         # test_end reports the test loop's launches
         for c in KERNEL_COUNTERS:
             c.launches = 0
@@ -598,6 +607,7 @@ class SVBVAEMleTask(BaseTask):
             f"generated_{self.global_step}_{hparams['gen_dir_name']}")
         prefix = "disable_map_" if hparams.get("disable_map") else ""
         voc = self.vocoder
+        audio_sec = 0.0
         for i in range(batch["nsamples"]):
             Ta = int(batch["mel_lengths"][i])
             Tp = int(batch["prof_mel_lengths"][i])
@@ -624,11 +634,11 @@ class SVBVAEMleTask(BaseTask):
             self.results_id += 1
             self._n_infer_utts += 1
             self.vocoder_calls += len(wavs)
-            self._audio_sec += Tp * hparams["hop_size"] / hparams["audio_sample_rate"]
+            audio_sec += Tp * hparams["hop_size"] / hparams["audio_sample_rate"]
             self.saving_results_futures.append(
                 self.saving_result_pool.apply_async(
                     self.save_result, args=[wavs, base_fn, gen_dir, mels, prefix]))
-        self._compute_sec += time.perf_counter() - t0  # .cpu() above synchronized
+        self._rtf.add(time.perf_counter() - t0, audio_sec)  # .cpu() above synchronized
         return {"item_name": batch["item_name"][0]}
 
     @staticmethod
@@ -653,13 +663,17 @@ class SVBVAEMleTask(BaseTask):
         summary = {
             "device": str(self.device), "rank": ddp.rank(), "world": ddp.world_size(),
             "utts": self._n_infer_utts, "vocoder_calls": self.vocoder_calls,
-            "audio_sec": self._audio_sec,
-            "compute_sec": self._compute_sec,
-            "rtf": self._compute_sec / max(self._audio_sec, 1e-9),
+            "audio_sec": self._rtf.audio_sec, "compute_sec": self._rtf.compute_sec,
+            "rtf": self._rtf.rtf,
             **{f"{c.__name__}_launches": c.launches for c in KERNEL_COUNTERS},
         }
         if self.device.type == "cuda":
             summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)
+        if hparams.get("profile_infer"):
+            m = self._rtf
+            print(f"| profile_infer: {self._n_infer_utts} utts "
+                  f"({len(outputs)} batches), {m.audio_sec:.1f}s audio in "
+                  f"{m.compute_sec:.2f}s wall -> RTF {m.rtf:.5f}")
         print(f"| infer summary: {json.dumps(summary)}")
         return summary
 

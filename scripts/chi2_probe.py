@@ -40,7 +40,8 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-import chip_smoke  # noqa: E402
+from neuralsvb_torch.data.synthetic import chi2_inputs  # noqa: E402
+from neuralsvb_torch.utils.profiling import device_ms, fast_loop_per_term, sass  # noqa: E402
 
 DIV_LINE = "acc[i][j] += FAST ? div_rn(n, den) : n / den;"
 FDIVIDEF_LINE = "acc[i][j] += __fdividef(n, den);"
@@ -138,24 +139,24 @@ def libraries(baselines, work):
 
 
 def sass_counts(lib_path, dump):
-    text = chip_smoke.sass(lib_path)
+    text = sass(lib_path)
     dump.write_text(text)
     ops = collections.Counter()
     for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", text):
         ops[m.group(1)] += 1
     return dict(total=sum(ops.values()),
-                fast_loop_per_term=chip_smoke.fast_loop_per_term(text),
+                fast_loop_per_term=fast_loop_per_term(text),
                 **{k: ops[k] for k in (
         "MUFU", "FCHK", "FFMA", "FADD", "FMUL", "LDS", "LDGSTS", "STG", "BRA", "CALL",
         "BSSY", "BSYNC", "BAR", "FSETP", "FSEL", "ISETP")})
 
 
 def inputs(device):
-    """chip_smoke's three input kinds at 2400 x 2400, and dense, equal and
+    """The smoke's three input kinds (``chi2_inputs``) at 2400 x 2400, and dense, equal and
     all-zero rows."""
     import numpy as np
     import torch
-    (sh, th), (ra, rb), (oa, ob) = chip_smoke.chi2_inputs(S, T, seed=0)
+    (sh, th), (ra, rb), (oa, ob) = chi2_inputs(S, T, seed=0)
     rng = np.random.RandomState(7)
     da, db = rng.rand(S, M) + 0.05, rng.rand(T, M) + 0.05
     da /= da.sum(1, keepdims=True)
@@ -231,19 +232,6 @@ def main():
     out = torch.empty(S, T, device="cuda")
     n = args.launches
 
-    def device_ms(fn, a, b):
-        call = (a.data_ptr(), b.data_ptr(), out.data_ptr(), S, T, M, stream)
-        for _ in range(3):
-            fn(*call)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        e0.record()
-        for _ in range(n):
-            fn(*call)
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / n
-
     times = collections.defaultdict(list)
     emit(rows, "clocks_before", nvidia_smi=smi())
     order = list(libs)
@@ -251,7 +239,8 @@ def main():
         for name in turn:
             fn = libs[name].get().nsvb_chi2_dist
             for kind, (a, b) in data.items():
-                times[name, kind].append(device_ms(fn, a, b))
+                call = (a.data_ptr(), b.data_ptr(), out.data_ptr(), S, T, M, stream)
+                times[name, kind].append(device_ms(lambda: fn(*call), n))
     emit(rows, "clocks_after", nvidia_smi=smi())
     terms = S * T * M
     for (name, kind), ts in times.items():

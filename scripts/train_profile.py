@@ -8,7 +8,7 @@ on a synthetic packed train split of 4 pairs (amateur 1034-2412 frames, the
 smoke run's Female1 lengths: one batch of 4, padded to 2560 frames); a
 vocoder recipe (``PWGTask``, e.g. ``egs/egs_bases/tts/vocoder/pwg_torch.yaml``,
 or ``HifiGanTask``) on ``max_sentences`` synthetic crops of ``max_samples``
-(``chip_smoke.synthetic_crops``), its discriminator from step 0, and
+(``neuralsvb_torch.data.synthetic.synthetic_crops``), its discriminator from step 0, and
 reports its generator + discriminator step as phase 2; the ASR
 pre-training recipe (``VCPPGTask``, ``egs/egs_bases/vc/vc_ppg_torch.yaml``)
 on a synthetic speech split with phone tokens at its token budget (40
@@ -28,7 +28,9 @@ phone: 85 tokens each), likewise. Then:
   time of its kernels and copies by name and by kind (user annotations such
   as ``Optimizer.step`` left out: they repeat their kernels), against the
   profiled step's wall time and the unprofiled median (the device's busy
-  share);
+  share), beside the same kernels' intervals merged per device
+  (``neuralsvb_torch.utils.profiling``: ``top_ops``, ``kernel_split``,
+  ``device_busy``; the two agree on one stream);
 - reports peak device memory.
 
 TF32 is off, as the training CLI sets it. Run from the repository root on
@@ -94,12 +96,12 @@ def main():
 def profile_recipe(config, data, warm, extra=""):
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from chip_smoke import kernel_kind, synthetic_crops
     from neuralsvb_torch.data.datasets import FastSpeechDataset
-    from neuralsvb_torch.data.synthetic import write_synthetic_speech_split
+    from neuralsvb_torch.data.synthetic import synthetic_crops, write_synthetic_speech_split
     from neuralsvb_torch.hparams import hparams_scope, set_hparams
     from neuralsvb_torch.tasks.adv_base import AdversarialTaskBase
     from neuralsvb_torch.tasks.vocoder_task import HifiGanTask
+    from neuralsvb_torch.utils.profiling import device_busy, kernel_split, top_ops
     hp = set_hparams(config=config, hparams_str=extra, print_hparams=False,
                      global_hparams=False)
     pkg, cls_name = hp["task_cls"].rsplit(".", 1)
@@ -157,20 +159,10 @@ def profile_recipe(config, data, warm, extra=""):
         torch.cuda.synchronize(dev)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             wall = run(step2)
-        sums = {}
-        for e in prof.events():  # device ops only; user annotations repeat them
-            if e.device_type.name != "CUDA" or getattr(e, "is_user_annotation", False) \
-                    or e.name.startswith("Optimizer."):
-                continue
-            ms, n = sums.get(e.name, (0.0, 0))
-            sums[e.name] = (ms + e.device_time / 1e3, n + 1)
-        rows = sorted(((k, ms, n) for k, (ms, n) in sums.items()), key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        kinds = {}
-        for name, ms, n in rows:
-            k = kinds.setdefault(kernel_kind(name), [0.0, 0])
-            k[0] += ms
-            k[1] += n
+        kinds, launches = kernel_split(prof)
+        busy = sum(v[0] for v in kinds.values())
+        merged = {k: v * 1e3 for k, v in device_busy(prof).items()}
+        rows = top_ops(prof, k=25)
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     return {
         "config": config, "task_cls": hp["task_cls"],
@@ -187,11 +179,15 @@ def profile_recipe(config, data, warm, extra=""):
         "profiled_phase2_step": {
             "wall_ms": wall * 1e3, "kernel_ms": busy, "busy_share": busy / (wall * 1e3),
             "busy_share_of_unprofiled_median": busy / (statistics.median(times2[1:]) * 1e3),
-            "launches": sum(r[2] for r in rows),
+            "merged_busy_ms": merged,
+            "merged_busy_share": sum(merged.values()) / (wall * 1e3),
+            "merged_busy_share_of_unprofiled_median":
+                sum(merged.values()) / (statistics.median(times2[1:]) * 1e3),
+            "launches": launches,
             "by_kind_ms": {k: {"ms": v[0], "launches": v[1], "share": v[0] / busy}
                            for k, v in sorted(kinds.items(), key=lambda kv: -kv[1][0])},
-            "top_kernels": [{"name": n[:120], "ms": ms, "launches": c}
-                            for n, ms, c in rows[:25]]},
+            "top_kernels": [{"name": n[:120], "ms": sec * 1e3, "launches": c}
+                            for n, sec, c in rows]},
     }
 
 

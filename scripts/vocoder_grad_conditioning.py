@@ -41,14 +41,14 @@ def main():
     os.chdir(REPO)
     import numpy as np
     import torch
-    import chip_smoke
+    from neuralsvb_torch.data.synthetic import synthetic_crops
     from neuralsvb_torch.hparams import hparams_scope, load_config_recursive
     from neuralsvb_torch.tasks.vocoder_task import HifiGanTask
 
     hp = load_config_recursive("egs/datasets/audio/PopBuTFy/hifigan_nsf_torch.yaml")
     hp.update(device="cpu", upsample_initial_channel=args.channels, zero_noise=True)
     with hparams_scope(hp) as h:
-        batch = chip_smoke.synthetic_crops(args.batch, h)
+        batch = synthetic_crops(args.batch, h)
         step = h["audio_sample_rate"] / 1024
         batch["f0"] = (np.round(batch["f0"] / step) * step).astype(np.float32)
 

@@ -281,6 +281,8 @@ def test_svb_para_renders_its_ways(tmp_path, name, capsys):
     rendered = []
 
     class Logger:
+        writes_figures = False  # as JsonLogger without matplotlib
+
         def add_audio(self, tag, wav, step, sr):
             rendered.append((tag, len(wav)))
     with hparams_scope(hp):

@@ -3900,8 +3900,8 @@ def phase_last_modules(voc, spec, bucket_rows, device="cuda"):
     bf16 ResBlock kernel) under ``profiler_trace``: the kernels' merged busy
     time (``device_busy``) beside their summed time (``kernel_split``), the
     top 10 kernels, 54 + 3 launches (counts zeroed just before the call, the
-    profile's cluster kernels the same number), ``Timer`` against CUDA events
-    for the same call; ``op_flops`` of the plain cluster at the bucket's three
+    profile's cluster kernels the same number), the same call between two
+    CUDA events; ``op_flops`` of the plain cluster at the bucket's three
     stage shapes within 5% of ``cluster_work``; ``roofline`` of the cluster
     equal to phase 3's bound. NSF sources: ``PulseGen`` and
     ``SourceModuleCycNoise`` on a 2000-frame F0 track (voiced and unvoiced
@@ -3960,9 +3960,6 @@ def phase_last_modules(voc, spec, bucket_rows, device="cuda"):
         bad.append(f"device_busy keys {list(merged_ms)} != {busy_keys}")
     if not bool(torch.isfinite(wav).all()):
         bad.append("vocoder wav not finite")
-    P.Timer.timer_map.pop("vocoder_call", None)
-    with P.Timer("vocoder_call", enable=True, device=device):
-        call()
     event_ms = P.device_ms(call, n=1) if on_card else None
     profiling = dict(
         frames=T, bucket=2048, wall_launches=launches, profiled_cluster_kernels=profiled_cluster,
@@ -3971,7 +3968,7 @@ def phase_last_modules(voc, spec, bucket_rows, device="cuda"):
         by_kind_ms={k: {"ms": v[0], "launches": v[1]} for k, v in kinds.items()},
         top_ops=[{"name": n[:100], "ms": sec * 1e3, "launches": k}
                  for n, sec, k in P.top_ops(prof, k=10)],
-        timer_ms=P.Timer.report()["vocoder_call"] * 1e3, cuda_event_ms=event_ms)
+        cuda_event_ms=event_ms)
 
     # op_flops of the plain cluster, and its roofline, at the bucket's shapes
     gen = torch.Generator().manual_seed(35)

@@ -15,7 +15,11 @@ generator picks bf16 on the TPU. Weight norm is folded into plain convs
 Every leaky-ReLU has derivative 1 at exactly 0, as ``jax.nn.leaky_relu``:
 a zero-padded crop keeps long stretches of both networks at exactly 0.
 The discriminators' parameter names are the reference's
-(``discriminators.{i}.convs.{j}``, ``conv_post``).
+(``discriminators.{i}.convs.{j}``, ``conv_post``). Under a
+``torch.profiler`` session the generator records the spans
+``hifigan.source`` (the NSF source) and ``hifigan.stage`` (each upsample
+stage with its cluster), the discriminators ``mpd`` and ``msd``
+(``utils/profiling.py`` ``span``).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch.nn.functional as F
 from ..ops.fused_resblock import (fused_resblock_cluster, make_spec, pack_tower,
                                   resolve_mm_dtype)
 from ..parallel import ddp
+from ..utils.profiling import span
 from .common import leaky_relu
 from .nsf import SourceModuleHnNSF
 
@@ -162,23 +167,25 @@ class HifiGanGenerator(nn.Module):
         NSF source's random draws (see ``SineGen``)."""
         har_source = None
         if self.use_pitch_embed and f0 is not None:
-            # the phase cumsum runs over T*hop samples and stays float32
-            f0_up = f0.to(torch.float32).repeat_interleave(self.hop, dim=1)[:, None]
-            har_source, _, _ = self.m_source(f0_up, generator, zero_noise,
-                                             rand_ini, noise)
-            har_source = har_source.to(mel.dtype)  # [B, 1, L]
+            with span("hifigan.source"):
+                # the phase cumsum runs over T*hop samples and stays float32
+                f0_up = f0.to(torch.float32).repeat_interleave(self.hop, dim=1)[:, None]
+                har_source, _, _ = self.m_source(f0_up, generator, zero_noise,
+                                                 rand_ini, noise)
+                har_source = har_source.to(mel.dtype)  # [B, 1, L]
         x = self.conv_pre(mel.transpose(1, 2))
         mm_dtype = self._mm_dtype()
         packed = self._stage_weights(mm_dtype) if self.resblock == "1" else None
         for i, up in enumerate(self.ups):
-            x = up(leaky_relu(x, LRELU_SLOPE))
-            if har_source is not None:
-                x = x + self.noise_convs[i](har_source)[:, :, : x.shape[-1]]
-            if packed is not None:
-                x = fused_resblock_cluster(x, packed[i], self.spec, mm_dtype)
-            else:
-                blocks = self.resblocks[i * self.num_kernels:(i + 1) * self.num_kernels]
-                x = sum(rb(x) for rb in blocks) / self.num_kernels
+            with span("hifigan.stage"):
+                x = up(leaky_relu(x, LRELU_SLOPE))
+                if har_source is not None:
+                    x = x + self.noise_convs[i](har_source)[:, :, : x.shape[-1]]
+                if packed is not None:
+                    x = fused_resblock_cluster(x, packed[i], self.spec, mm_dtype)
+                else:
+                    blocks = self.resblocks[i * self.num_kernels:(i + 1) * self.num_kernels]
+                    x = sum(rb(x) for rb in blocks) / self.num_kernels
         x = self.conv_post(leaky_relu(x))
         return torch.tanh(x)[:, 0]
 
@@ -251,6 +258,7 @@ class MultiPeriodDiscriminator(nn.Module):
         super().__init__()
         self.discriminators = nn.ModuleList([DiscriminatorP(p) for p in periods])
 
+    @span("mpd")
     def forward(self, y):
         """One signal ``y`` [B, T] -> (scores, feature maps), a list of each
         per period. The reference's ``forward(y, y_hat)`` is two calls: a
@@ -266,6 +274,7 @@ class MultiScaleDiscriminator(nn.Module):
         # flax avg_pool counts the zero pad, as torch does by default
         self.meanpool = nn.AvgPool1d(4, 2, padding=1)
 
+    @span("msd")
     def forward(self, y):
         """One signal ``y`` [B, T] -> (scores, feature maps) per scale; each
         scale after the first halves the signal with a mean pool."""

@@ -24,6 +24,11 @@ Training follows torch's module modes: ``model.train()`` puts every
 BatchNorm into batch statistics except the frozen ASR's, which stays in
 eval mode (the JAX package runs it with ``train=False`` always); the
 latent-map step sets ``model.eval()`` and the maps' ``train()``.
+
+Under a ``torch.profiler`` session the model records the spans
+``svb.cond`` (a side's condition), ``svb.asr`` (the frozen ASR),
+``svb.vae`` (a way's FVAE) and ``svb.map`` (the a2p way)
+(``utils/profiling.py`` ``span``).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 import torch.nn as nn
 
 from ..parallel import ddp
+from ..utils.profiling import span
 from .asr import VCASR
 from .common import (BN_EPS, BatchNorm1d, ConvStacks, Embedding, MultiheadAttention,
                      draw_normal, linear_ct)
@@ -139,12 +145,14 @@ class SVBVAE(nn.Module):
         return self
 
     # ------------------------------------------------------------------
+    @span("svb.asr")
     @torch.no_grad()
     def extract_ppg(self, mel, exact_lengths: bool = True):
         """The frozen ASR's content rows for mel [B, 80, T] -> [B, H, T / 2];
         padded (zero) frames come back as zero rows."""
         return self.vc_asr(mel, exact_lengths)["h_content"]
 
+    @span("svb.cond")
     def prepare_condition(self, mel, pitch, spk_emb, exact_lengths: bool = True,
                           ppg=None):
         """mel [B, 80, T]; pitch [B, T] int; spk_emb [B, 256]; ``ppg``:
@@ -167,6 +175,7 @@ class SVBVAE(nn.Module):
         # the strided g_pre_net does not smear padding into valid frames
         return cond * mask
 
+    @span("svb.vae")
     def normal_vae(self, tgt_mel, conds, generator=None, zero_noise=False,
                    prior_mean=0.0):
         cond = self._cond_sum(conds["h_pitch"], conds["h_content"],
@@ -253,6 +262,7 @@ class SVBVAE(nn.Module):
         return self._cond_sum(conds_p["h_pitch"], gathered, style,
                               mask=conds_p["tgt_nonpadding"])
 
+    @span("svb.map")
     def _a2p(self, a2a_out, p2p_out, conds_a, conds_p, a2p_alignment,
              disable_map, generator=None, zero_noise=False):
         cond_a2p = self._gathered_cond(conds_a, conds_p, a2p_alignment)

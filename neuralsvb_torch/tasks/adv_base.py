@@ -45,6 +45,10 @@ dataloaders concatenate the directories) and data parallelism over
 ``mesh_shape`` (``parallel/ddp.py``: every rank takes its rows of the
 global batch). The JAX ``AdversarialTaskBase`` has no ``compute_dtype``
 cast, and neither has this one.
+
+Under a ``torch.profiler`` session ``gen_step`` and ``disc_step`` record
+the spans ``update.gen`` and ``update.disc`` (``utils/profiling.py``
+``span``).
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from ..hparams import hparams, resolve_device
 from ..models.disc import Discriminator
 from ..parallel import ddp
 from ..training.schedulers import rsqrt_schedule, step_lr_schedule
+from ..utils.profiling import span
 from .base_task import (BaseTask, copy_parameters, no_grad_for, np_rng_state,
                         set_np_rng_state, step_generator)
 from .losses import mse, parse_mel_losses
@@ -235,6 +240,7 @@ class AdversarialTaskBase(BaseTask):
         o = disc(mel, self.disc_start_frames_wins, generator)
         return None if o["y"] is None else mse(o["y"], target)
 
+    @span("update.gen")
     def gen_step(self, b, disc_on: bool, lr: float, generator):
         self.model.train()
         for d in self.discriminators.values():
@@ -251,6 +257,7 @@ class AdversarialTaskBase(BaseTask):
                     self.gen_grad_norm, hparams.get("clip_grad_value"))
         return losses, {k: v.detach() for k, v in fakes.items()}, gts
 
+    @span("update.disc")
     def disc_step(self, fakes, gts, lr: float, generator):
         for d in self.discriminators.values():
             d.train()

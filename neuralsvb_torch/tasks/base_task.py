@@ -10,7 +10,11 @@ data parallelism the gradients are first averaged over the world
 (``parallel/ddp.py``), and with ``accumulate_grad_batches: k`` an
 ``optax.MultiSteps`` counterpart (``training/optim.py``) holds the update
 until the k-th micro-step of that optimizer. ``apply_in_dtype`` is the SVB
-tasks' ``compute_dtype`` cast at the apply boundary.
+tasks' ``compute_dtype`` cast at the apply boundary. Under a
+``torch.profiler`` session ``update`` records the spans ``update.backward``
+(``zero_grad`` and the backward) and ``update.optim`` (the rest), and the
+prefetching loader ``data.wait`` around its wait for the next batch
+(``utils/profiling.py`` ``span``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..data.batching import batch_by_size
 from ..hparams import hparams
 from ..parallel import ddp
 from ..training.optim import MultiSteps
+from ..utils.profiling import span
 
 
 class DataLoaderLite:
@@ -76,7 +81,8 @@ class DataLoaderLite:
 
         threading.Thread(target=worker, daemon=True).start()
         while True:
-            b = q.get()
+            with span("data.wait"):
+                b = q.get()
             if b is done:
                 return
             if isinstance(b, BaseException):
@@ -251,22 +257,24 @@ class BaseTask:
         the world's mean (the global batch's gradient); under accumulation
         a micro-step before the k-th only folds them into the running mean
         and leaves the parameters and the optimizer's state untouched."""
-        opt.zero_grad(set_to_none=True)
-        if torch.is_tensor(total) and total.requires_grad:
-            total.backward()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        ddp.average_gradients(params)
-        if self.grad_hook is not None:
-            self.grad_hook(name, params)
-        acc = self.accumulators.get(name)
-        if acc is not None and not acc.accumulate():
-            return
-        clip_gradients(params, float(max_norm or 0), float(clip_value or 0))
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        with span("update.backward"):
+            opt.zero_grad(set_to_none=True)
+            if torch.is_tensor(total) and total.requires_grad:
+                total.backward()
+        with span("update.optim"):
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            ddp.average_gradients(params)
+            if self.grad_hook is not None:
+                self.grad_hook(name, params)
+            acc = self.accumulators.get(name)
+            if acc is not None and not acc.accumulate():
+                return
+            clip_gradients(params, float(max_norm or 0), float(clip_value or 0))
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
 
     def training_step(self, batch, step: int, optimizer_idx: int):
         """(total loss, logs) of optimizer ``optimizer_idx`` at ``step``, or

@@ -48,6 +48,12 @@ vocodes and writes its own items, under their global indices. A test batch
 that does not divide (the ragged tail) runs whole on rank 0, as the JAX
 package falls back to one device; a ragged validation batch runs whole on
 every rank. Without a launched world the option changes nothing.
+
+Under a ``torch.profiler`` session the step records the spans
+``task.prep_batch`` (the batch's move to the device, the cached PPG rows
+included), ``update.gen``, ``update.disc`` and ``update.map`` (each
+optimizer's whole step) and ``mel_disc`` (each discriminator call)
+(``utils/profiling.py`` ``span``).
 """
 
 from __future__ import annotations
@@ -76,7 +82,7 @@ from ..parallel import ddp
 from ..training.schedulers import rsqrt_schedule, step_lr_schedule
 from ..utils import num_params
 from ..utils.plot import spec_to_figure
-from ..utils.profiling import RTFMeter
+from ..utils.profiling import RTFMeter, span
 from .base_task import (BaseTask, apply_in_dtype, compute_dtype, copy_parameters,
                         no_grad_for, np_rng_state, set_np_rng_state, step_generator)
 from .losses import add_mel_loss, mse, nan_guard, parse_mel_losses
@@ -299,6 +305,7 @@ class SVBVAEMleTask(BaseTask):
         return WAYS
 
     # ------------------------------------------------------------------
+    @span("task.prep_batch")
     def _prep_batch(self, batch, train: bool = False):
         """Collated numpy batch -> model inputs on the device. Inference
         takes speaker-embedding column 0, a training batch a random other
@@ -400,6 +407,7 @@ class SVBVAEMleTask(BaseTask):
                              postfix=way)
         return losses
 
+    @span("mel_disc")
     def _adv_loss(self, mel, generator, target: float, carry=()):
         o = apply_in_dtype(self.mel_disc, self.cdt, mel, self.disc_start_frames_wins,
                            generator, carry=carry)
@@ -407,6 +415,7 @@ class SVBVAEMleTask(BaseTask):
 
     # ------------------------------------------------------------------
     # the three optimizer steps (reference: svb_vae_task.py:549-693)
+    @span("update.gen")
     def gen_step(self, b, ways, disc_on: bool, lr: float, generator):
         self.model.train()
         self.mel_disc.eval()
@@ -422,6 +431,7 @@ class SVBVAEMleTask(BaseTask):
                     hparams.get("generator_grad_norm", 0), hparams.get("clip_grad_value"))
         return losses, {w: out[w]["mel_out"].detach() for w in ways}
 
+    @span("update.disc")
     def disc_step(self, b, ways, fakes, lr: float, generator):
         self.mel_disc.train()
         losses: Dict[str, torch.Tensor] = {}
@@ -438,6 +448,7 @@ class SVBVAEMleTask(BaseTask):
                     hparams.get("discriminator_grad_norm", 0), hparams.get("clip_grad_value"))
         return losses
 
+    @span("update.map")
     def map_step(self, b, ways, disc_on: bool, lr: float, generator):
         """Eval-mode model with the maps in training mode, on padded
         batches at the collate-length rel-pos (svb_vae_task.py:645-652).

@@ -33,6 +33,10 @@ neither do these.
 ``PWGTask`` trains the Parallel WaveGAN generator the same way, with the
 multi-resolution STFT loss, one discriminator and RAdam (``PWGTask`` of
 the JAX package).
+
+Under a ``torch.profiler`` session a step records the spans
+``task.prep_batch``, ``update.gen``, ``update.disc`` and ``mel_loss`` (each
+log-mel of the loss) (``utils/profiling.py`` ``span``).
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ..ops.stft import log_mel_batch
 from ..parallel import ddp
 from ..training.optim import RAdam
 from ..training.schedulers import step_lr_schedule
+from ..utils.profiling import span
 from .base_task import BaseTask, no_grad_for, step_generator
 from .losses import mse
 
@@ -171,12 +176,14 @@ class HifiGanTask(BaseTask):
         return "gen" if step <= hparams.get("disc_start_steps", 0) else "gen_disc"
 
     # ------------------------------------------------------------------
+    @span("task.prep_batch")
     def _prep_batch(self, batch) -> Dict[str, torch.Tensor]:
         """Moves the batch to the device in the default float dtype."""
         real = torch.get_default_dtype()
         return {k: torch.as_tensor(np.asarray(batch[k]), dtype=real, device=self.device)
                 for k in ("wavs", "mels", "f0")}
 
+    @span("mel_loss")
     def _mel_fn(self, wav):
         hp = hparams
         return log_mel_batch(wav, sample_rate=hp["audio_sample_rate"], fft_size=hp["fft_size"],
@@ -189,6 +196,7 @@ class HifiGanTask(BaseTask):
         return self.model(b["mels"], b["f0"] if hparams["use_pitch_embed"] else None,
                           generator=generator, zero_noise=self.zero_noise)
 
+    @span("update.gen")
     def gen_step(self, b, lr: float, generator):
         """Mel L1 + adversarial (+ feature matching) losses of the generator
         and its update; the discriminators take no gradient. Returns
@@ -214,6 +222,7 @@ class HifiGanTask(BaseTask):
                     hp.get("generator_grad_norm", 10))
         return losses, y_hat.detach()
 
+    @span("update.disc")
     def disc_step(self, b, y_hat, lr: float):
         """LSGAN losses of both discriminators on real and generated audio
         and their update."""
@@ -357,6 +366,7 @@ class PWGTask(HifiGanTask):
         c = F.pad(b["mels"].transpose(1, 2), (ctx, ctx), mode="replicate")
         return self.model(self.noise(b["wavs"], generator), c)
 
+    @span("update.gen")
     def gen_step(self, b, lr: float, generator):
         hp = hparams
         self.model.train()
@@ -369,6 +379,7 @@ class PWGTask(HifiGanTask):
                     hp.get("generator_grad_norm", 10))
         return losses, y_hat.detach()
 
+    @span("update.disc")
     def disc_step(self, b, y_hat, lr: float):
         losses = {"r": mse(self.disc(b["wavs"]), 1.0), "f": mse(self.disc(y_hat), 0.0)}
         self.update("disc", self.opt_disc, self.disc_params, sum(losses.values()), lr,

@@ -10,6 +10,9 @@ saving at the end and on KeyboardInterrupt. ``--validate`` runs one full
 validation pass on the restored checkpoint. At the end it prints
 ``| train summary: {json}``: steps, device-synchronized seconds per step by
 phase, validation time, peak device memory and the kernels' launches.
+Under a ``torch.profiler`` session a step records the span ``train.step``
+and one ``train.sync`` around each of its two synchronisations
+(``utils/profiling.py`` ``span``).
 
 Every batch counts as a step, under gradient accumulation too (the JAX
 trainer's rule, ``neuralsvb_tpu/training/trainer.py:61``). Under data
@@ -36,6 +39,7 @@ import yaml
 from ..hparams import hparams
 from ..ops.fused_resblock import KERNEL_COUNTERS
 from ..parallel import ddp
+from ..utils.profiling import span
 from .checkpoint import get_last_checkpoint, load_checkpoint, save_checkpoint
 from .logger import JsonLogger
 
@@ -159,10 +163,12 @@ class Trainer:
             with open(path, "w") as f:
                 yaml.safe_dump({k: v for k, v in hparams.items() if k not in RUN_KEYS}, f)
 
+    @span("train.step")
     def _train_one(self, task, batch) -> dict:
         step = self.global_step
         phase = task.train_phase(step)
-        self._sync(task)
+        with span("train.sync"):
+            self._sync(task)
         t0 = time.perf_counter()
         logs = {}
         for opt_idx in range(task.num_optimizers):
@@ -173,7 +179,8 @@ class Trainer:
             logs.update(log_outputs)
             logs[f"total_loss_{opt_idx}"] = total
         logs = {k: v.detach() if torch.is_tensor(v) else v for k, v in logs.items()}
-        self._sync(task)
+        with span("train.sync"):
+            self._sync(task)
         self._times.setdefault(phase, []).append(time.perf_counter() - t0)
         self._set_step(task, step + 1)
         return logs

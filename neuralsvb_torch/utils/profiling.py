@@ -1,12 +1,22 @@
-"""Profiling: cumulative timers that synchronize the card, the real-time
-factor, a ``torch.profiler`` trace, interval-merged device busy time, FLOP
-and byte counts, the card's peak rates and the roofline bound, CUDA-event
-timers (port of ``neuralsvb_tpu/utils/profiling.py``; reference:
-utils/__init__.py:243-264 Timer), and the issue bound of a kernel's loop
-from its SASS (``sass``, ``fast_loop_per_term``, ``issue_rate``).
+"""Profiling: the program's spans, the real-time factor, a
+``torch.profiler`` trace, interval-merged device busy time, FLOP and byte
+counts, the card's peak rates and the roofline bound, CUDA-event timers
+(port of ``neuralsvb_tpu/utils/profiling.py``), and the issue bound of a
+kernel's loop from its SASS (``sass``, ``fast_loop_per_term``,
+``issue_rate``).
 
-``Timer('hifigan', enable=hparams['profile_infer'])`` accumulates seconds per
-name; RTF = Timer seconds / accumulated generated-audio seconds.
+``span(name)`` marks a region of the program (a ``with`` block or a
+decorator). It records only under a ``torch.profiler`` session: there it
+enters ``torch.profiler.record_function(name)``, so the region shows in the
+profile and its Chrome trace beside the kernels, and appends one record
+(name, parent record, thread, start and end in ``time.time_ns()``) to an
+in-memory store that ``spans()``, ``span_table()`` and ``clear()`` read.
+The profiler's own event times are ``time.time_ns()`` less the trace's
+start, so the records share the device trace's clock up to one offset.
+With no profiler on, a span reads one flag and does nothing else. The JAX
+package's ``Timer``, which synchronised the card around a region, has no
+counterpart: the port measures itself under the profiler, never by
+synchronising.
 
 ``device_busy`` merges the kernels' intervals per device, as the JAX
 package's ``_merged_span_seconds`` merges an xplane line's events; on a
@@ -21,48 +31,141 @@ such transport to subtract.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import re
 import shutil
 import statistics
 import subprocess
+import threading
 import time
 from collections import defaultdict
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
-class Timer:
-    timer_map = defaultdict(float)
+#: records the span store holds; past it, spans are counted, not kept
+SPAN_CAP = 1_000_000
 
-    def __init__(self, name: str, enable: bool = False, device=None):
+
+class SpanRecord(NamedTuple):
+    name: str
+    parent: int        # index of the enclosing span's record; -1 at the top
+    thread: int
+    start_ns: int      # time.time_ns()
+    end_ns: Optional[int]  # None while the span is open
+
+
+_records: List[list] = []
+_dropped = 0
+_generation = 0  # clear() count: an open span's index is void past it
+_lock = threading.Lock()
+
+
+class _Stack(threading.local):
+    def __init__(self):
+        # per thread: (span, record index, store generation, record, record_function)
+        self.open = []
+
+
+_stack = _Stack()
+
+
+class span:
+    """A named region of the program: ``with span("update.gen"): ...`` or
+    ``@span("update.gen")``. Recorded only while a ``torch.profiler``
+    session is on (see the module's docstring). One instance may be entered
+    from several threads and re-entered: what a call opens lives on the
+    thread's own stack, not on the instance."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
         self.name = name
-        self.enable = enable
-        self.device = device
-
-    def _sync(self):
-        """Wait for ``device`` (every card of the process when None)."""
-        dev = torch.device(self.device) if self.device is not None else None
-        if dev is not None and dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        elif dev is None and torch.cuda.is_initialized():
-            torch.cuda.synchronize()
 
     def __enter__(self):
-        if self.enable:
-            self._sync()  # time only this region's work
-            self.t = time.perf_counter()
+        if not _autograd_profiler._is_profiler_enabled:
+            return self
+        global _dropped
+        rf = torch.profiler.record_function(self.name)
+        rf.__enter__()
+        stack = _stack.open
+        rec = [self.name, -1, threading.get_ident(), 0, None]
+        with _lock:
+            gen = _generation
+            if stack and stack[-1][2] == gen:
+                rec[1] = stack[-1][1]
+            if len(_records) < SPAN_CAP:
+                idx = len(_records)
+                _records.append(rec)
+            else:
+                idx = -1
+                _dropped += 1
+        rec[3] = time.time_ns()
+        stack.append((self, idx, gen, rec, rf))
         return self
 
     def __exit__(self, *exc):
-        if self.enable:
-            self._sync()
-            Timer.timer_map[self.name] += time.perf_counter() - self.t
+        stack = _stack.open
+        if not stack or stack[-1][0] is not self:
+            return False  # entered with no profiler on
+        _, _, _, rec, rf = stack.pop()
+        rec[4] = time.time_ns()
+        rf.__exit__(*exc)
+        return False
 
-    @classmethod
-    def report(cls):
-        return dict(cls.timer_map)
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with self:
+                return fn(*args, **kwargs)
+        return spanned
+
+
+def spans() -> List[SpanRecord]:
+    """The recorded spans in the order they opened; ``parent`` indexes this
+    list."""
+    with _lock:
+        return [SpanRecord(*r) for r in _records]
+
+
+def dropped_spans() -> int:
+    """Spans not kept since the last ``clear()``: the store was full."""
+    return _dropped
+
+
+def clear() -> None:
+    """Empties the span store. A span open now still closes, outside the
+    store, and a span opened inside it records no parent (-1)."""
+    global _dropped, _generation
+    with _lock:
+        _records.clear()
+        _dropped = 0
+        _generation += 1
+
+
+def span_table(records: Optional[List[SpanRecord]] = None) -> Dict[str, dict]:
+    """{name: {"count", "total_ms", "self_ms"}} of the closed spans of
+    ``records`` (default: the store). Self time is a span's duration less
+    what its child spans cover, so the self times of a tree add up to its
+    root's total."""
+    records = spans() if records is None else records
+    child_ns = [0] * len(records)
+    for r in records:
+        if r.end_ns is not None and 0 <= r.parent < len(records):
+            child_ns[r.parent] += r.end_ns - r.start_ns
+    table: Dict[str, dict] = {}
+    for i, r in enumerate(records):
+        if r.end_ns is None:
+            continue
+        row = table.setdefault(r.name, {"count": 0, "total_ms": 0.0, "self_ms": 0.0})
+        dur = r.end_ns - r.start_ns
+        row["count"] += 1
+        row["total_ms"] += dur * 1e-6
+        row["self_ms"] += (dur - child_ns[i]) * 1e-6
+    return table
 
 
 @contextlib.contextmanager

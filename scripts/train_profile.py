@@ -30,7 +30,13 @@ phone: 85 tokens each), likewise. Then:
   profiled step's wall time and the unprofiled median (the device's busy
   share), beside the same kernels' intervals merged per device
   (``neuralsvb_torch.utils.profiling``: ``top_ops``, ``kernel_split``,
-  ``device_busy``; the two agree on one stream);
+  ``device_busy``; the two agree on one stream), and the program's spans
+  of that step by name (``span_table``: count, total and self host ms of
+  ``data.wait``, ``task.prep_batch``, ``update.*``, the models' spans).
+  Every recipe but a vocoder's draws the profiled step's batch inside the
+  profile from the task's own loader, which collates ahead on a thread
+  (``ds_workers`` 1), so ``data.wait`` is that step's wait for its batch;
+  a vocoder recipe trains on fixed synthetic crops and waits for none;
 - reports peak device memory.
 
 TF32 is off, as the training CLI sets it. Run from the repository root on
@@ -101,7 +107,7 @@ def profile_recipe(config, data, warm, extra=""):
     from neuralsvb_torch.hparams import hparams_scope, set_hparams
     from neuralsvb_torch.tasks.adv_base import AdversarialTaskBase
     from neuralsvb_torch.tasks.vocoder_task import HifiGanTask
-    from neuralsvb_torch.utils.profiling import device_busy, kernel_split, top_ops
+    from neuralsvb_torch.utils import profiling
     hp = set_hparams(config=config, hparams_str=extra, print_hparams=False,
                      global_hparams=False)
     pkg, cls_name = hp["task_cls"].rsplit(".", 1)
@@ -119,7 +125,8 @@ def profile_recipe(config, data, warm, extra=""):
         write_synthetic_speech_split(data, frames, frames_per_phone=12 if fs2 else 8,
                                      mel2ph=fs2)
     hp = set_hparams(config=config,
-                     hparams_str=f"binary_data_dir={data},pretrain_asr_ckpt=,ds_workers=0"
+                     hparams_str=f"binary_data_dir={data},pretrain_asr_ckpt=,"
+                                 "ds_workers=1,endless_ds=True"
                                  + (f",{extra}" if extra else ""),
                      print_hparams=False, global_hparams=False)
     dev = torch.device("cuda")
@@ -131,11 +138,15 @@ def profile_recipe(config, data, warm, extra=""):
         task = task_cls()
         task.build_model()
         task.build_train()
+        loader = None
         if vocoder:
             batch = synthetic_crops(int(h["max_sentences"]), h)
             step2 = 1
         else:
-            batch = next(iter(task.train_dataloader()))
+            # the task's own loader, collating ahead on its thread (one batch,
+            # repeated: the split fits in one)
+            loader = iter(task.train_dataloader())
+            batch = next(loader)
             step2 = 1
             step3 = None if speech or paired else int(h["phase_2_steps"]) + 1
 
@@ -157,12 +168,16 @@ def profile_recipe(config, data, warm, extra=""):
         peak = torch.cuda.max_memory_allocated(dev)
 
         torch.cuda.synchronize(dev)
+        profiling.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if loader is not None:
+                batch = next(loader)  # the step's wait for its batch: span data.wait
             wall = run(step2)
-        kinds, launches = kernel_split(prof)
+        spans = profiling.span_table()
+        kinds, launches = profiling.kernel_split(prof)
         busy = sum(v[0] for v in kinds.values())
-        merged = {k: v * 1e3 for k, v in device_busy(prof).items()}
-        rows = top_ops(prof, k=25)
+        merged = {k: v * 1e3 for k, v in profiling.device_busy(prof).items()}
+        rows = profiling.top_ops(prof, k=25)
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read().strip()
     return {
         "config": config, "task_cls": hp["task_cls"],
@@ -188,6 +203,7 @@ def profile_recipe(config, data, warm, extra=""):
                            for k, v in sorted(kinds.items(), key=lambda kv: -kv[1][0])},
             "top_kernels": [{"name": n[:120], "ms": sec * 1e3, "launches": c}
                             for n, sec, c in rows]},
+        "spans": spans,
     }
 
 

@@ -260,6 +260,10 @@ _GROUPS = [
      ["utils/profiling.py:device_busy_from_xplane"]),
     ("utils/profiling.py:top_ops", "the largest kernels of a profile",
      ["utils/profiling.py:top_ops_from_xplane"]),
+    ("utils/profiling.py:span", "the port records spans under the profiler instead of "
+     "synchronising the card around a region", ["utils/profiling.py:Timer"]),
+    ("utils/profiling.py:span_table", "time per span name, read from the span store",
+     ["utils/profiling.py:Timer.report"]),
 ]
 EXEMPT = {name: (port, reason) for port, reason, names in _GROUPS for name in names}
 
@@ -382,6 +386,6 @@ def test_the_slice_modules_are_ported(port):
         exempt = {n for n in names if f"{rel}:{n}" in EXEMPT}
         assert {n for n in names if not _present(rel, n, port)} == exempt, rel
     for name in ("PulseGen", "CyclicNoiseGen", "SourceModuleCycNoise", "signals_conv1d",
-                 "code_harmonic", "mel_spectrogram_hifigan", "RTFMeter", "Timer",
+                 "code_harmonic", "mel_spectrogram_hifigan", "RTFMeter",
                  "spec_to_figure", "get_focus_rate", "num_params"):
         assert any(_present(rel, name, port) for rel in {r for r, _ in _jax_names()}), name

@@ -1,7 +1,8 @@
 """The port's profiling module (``neuralsvb_torch/utils/profiling.py``)
 against the JAX package's (``neuralsvb_tpu/utils/profiling.py``): the
-timer and real-time factor, the roofline with patched peaks, the card's
-peak tables, interval merging, ``op_flops`` against XLA's cost model
+real-time factor (the JAX ``Timer`` has no counterpart: the port records
+spans, ``tests/test_torch_tracing.py``), the roofline with patched peaks,
+the card's peak tables, interval merging, ``op_flops`` against XLA's cost model
 (within 10%), and ``device_busy`` / ``top_ops`` on a CPU capture (keyed as
 the host) and on CUDA-like events from two overlapping streams."""
 
@@ -23,13 +24,6 @@ from neuralsvb_tpu.utils import profiling as JP  # noqa: E402
 
 
 def test_timer_and_rtf():
-    with P.Timer("x", enable=True):
-        _ = sum(range(1000))
-    with P.Timer("x", enable=True, device="cpu"):
-        _ = sum(range(1000))
-    with P.Timer("off", enable=False):
-        pass
-    assert P.Timer.report()["x"] >= 0 and "off" not in P.Timer.report()
     m = P.RTFMeter()
     m.add(0.5, 10.0)
     assert abs(m.rtf - 0.05) < 1e-9

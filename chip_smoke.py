@@ -22,8 +22,17 @@ Every phase prints one JSON line; any failure raises.
    plain f32, plain TF32 and cuDNN on bf16 tensors. The f32 kernel against
    the plain f32 version at the 1024-frame shapes, the ragged length and
    B=2, max|d| <= 1e-4 * max(1, max|ref|), and the autograd path's
-   gradients. Then the chi-square DTW cost kernel against its plain version
-   at (S, T) = (2400, 2400), (1037, 1301), (130, 70), (1, 1), M = 48, on
+   gradients (bf16 kernel forward, f32 backward kernels) against the plain
+   f32 path at 1e-4 and against float64 (the worst tensor's relative L2
+   error within BWD_ERR_RATIO times the plain f32 path's), bit-equal over
+   two calls, 54 backward launches. The cluster backward's kernels
+   (``phase_cluster_backward``) at the vocoder training stage shapes and
+   [1, 64, 704]: against the plain twin and float64 as above, bit-equal,
+   launches per stage, device times beside the f32 least time and the
+   plain recompute + autograd's (``--cluster-backward`` runs the build,
+   the autograd check and this phase alone). Then the chi-square DTW cost
+   kernel against its plain version at (S, T) = (2400, 2400), (1037,
+   1301), (130, 70), (1, 1), M = 48, on
    EHSADTW histograms of vibrato f0 and on random rows with all-zero rows,
    max|d| <= 1e-5; on those rows with values outside the kernel's
    branch-free division range (1e-30, 1e8, negative) in bins 16-31 of some
@@ -108,8 +117,9 @@ Every phase prints one JSON line; any failure raises.
    + discriminator steps at the recipe's batch (16 x 8192, synthetic
    crops): first step, median/min/max, peak memory, launches per step
    (54 + 3, checked), a ``torch.profiler`` split by kernel kind and the
-   device times of the cluster forward (phase 3's training rows), the plain
-   f32 cluster backward, the discriminators and the log-mel L1, each alone;
+   device times of the cluster forward (phase 3's training rows), the
+   cluster backward's kernels (and the plain f32 recompute + autograd they
+   replaced), the discriminators and the log-mel L1, each alone;
 11. vocoder train, card vs CPU: see ``phase_vocoder_card_vs_cpu``: in f32
    losses within 1e-4 relative, gradients within 1e-3 in relative L2 (the
    discriminators' also per tensor); with bf16 operands each loss within
@@ -306,6 +316,8 @@ BUCKET_SHAPES = ((1, 256, 16384), (1, 128, 131072), (1, 64, 262144))
 EXTRA_SHAPES = ((1, 256, 8000), (2, 128, 16384))  # ragged T, B = 2
 # vocoder training: max_sentences 16 crops of max_samples 8192 (T_mel 64)
 TRAIN_SHAPES = ((16, 256, 512), (16, 128, 4096), (16, 64, 8192))
+BWD_SHAPES = TRAIN_SHAPES + ((1, 64, 704),)  # the cluster backward's phase
+BWD_ERR_RATIO = 2.0  # backward kernels' error vs float64 over the plain f32 path's
 BF16_MEAN_RATIO = 0.5  # phase 3: mean|kernel - plain_bf16| / mean|plain_bf16 - plain_f32|
 WAV_MEAN_RATIO = 0.8   # phase 5: mean|card - cpu_bf16| / mean|cpu_bf16 - cpu_f32|
 TPU_KERNEL = "neuralsvb_tpu/ops/fused_resblock.py:82"
@@ -421,22 +433,161 @@ def phase_kernel(fr, spec):
             rows32.append(row)
             worst32 = max(worst32, err)
         del x, w, w16, xb, ref32, ref16, out
-    # gradients through the autograd path (bf16 kernel forward, f32 plain backward)
-    x = torch.randn(1, 64, 704, generator=gen).cuda().requires_grad_(True)
-    w = [t.requires_grad_(True) for t in random_cluster(64, spec, gen, "cuda")]
+    phase_autograd(fr, spec, gen)
+    return rows16, rows32, worst16, worst32
+
+
+def autograd_grads(fn, x, w, g):
+    """dL/dx and every weight's gradient of ``sum(fn(x, w) * g)``."""
+    import torch
+    x = x.detach().clone().requires_grad_(True)
+    w = [t.detach().clone().requires_grad_(True) for t in w]
+    return list(torch.autograd.grad((fn(x, w) * g).sum(), [x] + w))
+
+
+def grad_errors(got, ref):
+    """Each gradient's relative L2 distance from its float64 reference."""
+    return [float((a.double() - b).norm() / b.norm()) for a, b in zip(got, ref)]
+
+
+def phase_autograd(fr, spec, gen):
+    """Gradients through the op's autograd path (bf16 kernel forward, the
+    backward kernels) at [1, 64, 704]: against the plain f32 path (autograd
+    through ``resblock_cluster_plain``) within 1e-4 of each tensor's scale;
+    against float64, the worst tensor's relative L2 error within
+    BWD_ERR_RATIO times the plain f32 path's worst; two calls bit-equal;
+    the backward's launches."""
+    import torch
+    x = torch.randn(1, 64, 704, generator=gen).cuda()
+    w = random_cluster(64, spec, gen, "cuda")
     g = torch.randn(1, 64, 704, generator=gen).cuda()
-    (fr.fused_resblock_cluster(x, w, spec) * g).sum().backward()
-    got = [x.grad] + [t.grad for t in w]
-    x2 = x.detach().clone().requires_grad_(True)
-    w2 = [t.detach().clone().requires_grad_(True) for t in w]
-    (fr.resblock_cluster_plain(x2, w2, spec) * g).sum().backward()
-    want = [x2.grad] + [t.grad for t in w2]
+    before = fr.resblock_cluster_backward_cuda.launches
+    got = autograd_grads(lambda a, b: fr.fused_resblock_cluster(a, b, spec), x, w, g)
+    launches = fr.resblock_cluster_backward_cuda.launches - before
+    again = autograd_grads(lambda a, b: fr.fused_resblock_cluster(a, b, spec), x, w, g)
+    want = autograd_grads(lambda a, b: fr.resblock_cluster_plain(a, b, spec), x, w, g)
+    ref = autograd_grads(lambda a, b: fr.resblock_cluster_plain(a, b, spec), x.double(),
+                         [t.double() for t in w], g.double())
     gerr = max(float((a - b).abs().max() / max(1.0, float(b.abs().max())))
                for a, b in zip(got, want))
-    emit("autograd", shape=[1, 64, 704], max_rel_grad_err=gerr, ok=gerr <= 1e-4)
-    if gerr > 1e-4:
-        raise AssertionError(f"autograd gradients disagree: {gerr}")
-    return rows16, rows32, worst16, worst32
+    err_k, err_p = grad_errors(got, ref), grad_errors(want, ref)
+    worst = max(err_k) / max(err_p)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = (gerr <= 1e-4 and worst <= BWD_ERR_RATIO and bit_equal
+          and launches == fr.backward_launches(spec))
+    emit("autograd", shape=[1, 64, 704], max_rel_grad_err=gerr, ok=ok,
+         f64_rel_l2_kernel_max=max(err_k), f64_rel_l2_plain_max=max(err_p),
+         worst_err_ratio=worst, err_ratio_tol=BWD_ERR_RATIO,
+         per_tensor_max_ratio=max(k / p for k, p in zip(err_k, err_p)), bit_equal=bit_equal,
+         backward_launches=launches, expected_launches=fr.backward_launches(spec))
+    if not ok:
+        raise AssertionError(f"autograd gradients disagree: {gerr}, ratio {worst}, "
+                             f"bit_equal {bit_equal}, launches {launches}")
+
+
+def phase_cluster_backward(fr, spec):
+    """The cluster backward's kernels (``resblock_cluster_backward_cuda``)
+    at the vocoder training stage shapes and [1, 64, 704], TF32 off: its
+    gradients against the plain twin (``resblock_cluster_backward_plain`` in
+    f32, cuDNN) and both, with the plain f32 path (autograd through
+    ``resblock_cluster_plain``), against float64 (that autograd in f64);
+    the worst tensor's relative L2 error within BWD_ERR_RATIO times the
+    plain f32 path's worst and the twin's; two calls bit-equal; launches
+    per stage; device times (median of 10 calls between events) beside the
+    least time of recompute + dgrad + wgrad (three times the forward's
+    FLOPs at the f32 FFMA peak) and beside the plain path's and the twin's,
+    with a ``torch.profiler`` split of one call by kernel. Returns the
+    rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neuralsvb_torch.utils.profiling import median_ms, roofline, top_ops
+    gen = torch.Generator().manual_seed(17)
+    rows = []
+    for B, C, T in BWD_SHAPES:
+        x = torch.randn(B, C, T, generator=gen).cuda()
+        w = random_cluster(C, spec, gen, "cuda")
+        g = torch.randn(B, C, T, generator=gen).cuda()
+        flop = 3 * cluster_work(B, C, T, spec, 4)[0]
+
+        def kernels():
+            gx, gw = fr.resblock_cluster_backward_cuda(x, w, spec, g)
+            return [gx] + gw
+
+        def twin():
+            gx, gw = fr.resblock_cluster_backward_plain(x, w, spec, g)
+            return [gx] + gw
+
+        def plain():
+            return autograd_grads(lambda a, b: fr.resblock_cluster_plain(a, b, spec), x, w, g)
+
+        before = fr.resblock_cluster_backward_cuda.launches
+        got = kernels()
+        launches = fr.resblock_cluster_backward_cuda.launches - before
+        again = kernels()
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        ref = autograd_grads(lambda a, b: fr.resblock_cluster_plain(a, b, spec), x.double(),
+                             [t.double() for t in w], g.double())
+        tw = twin()
+        err_k, err_t, err_p = grad_errors(got, ref), grad_errors(tw, ref), grad_errors(plain(), ref)
+        vs_twin = max(float((a - b).norm() / b.norm()) for a, b in zip(got, tw))
+        del ref, got, tw
+        ratio_p, ratio_t = max(err_k) / max(err_p), max(err_k) / max(err_t)
+        kernel_ms = median_ms(kernels, n=10)
+        plain_ms = median_ms(plain, n=10)
+        twin_ms = median_ms(twin, n=10)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            kernels()
+            torch.cuda.synchronize()
+        split = [[name[:80], s * 1e3, n] for name, s, n in top_ops(prof, k=12)]
+        bound, share, _ = roofline(flop, 0, kernel_ms / 1e3, torch.float32)
+        ok = (ratio_p <= BWD_ERR_RATIO and ratio_t <= BWD_ERR_RATIO and bit_equal
+              and launches == fr.backward_launches(spec))
+        row = dict(B=B, C=C, T=T, ok=ok, bit_equal=bit_equal, launches=launches,
+                   expected_launches=fr.backward_launches(spec), vs_twin_rel_l2=vs_twin,
+                   f64_rel_l2_kernel=err_k, f64_rel_l2_twin=err_t, f64_rel_l2_plain=err_p,
+                   worst_ratio_plain=ratio_p, worst_ratio_twin=ratio_t,
+                   per_tensor_max_ratio_plain=max(k / p for k, p in zip(err_k, err_p)),
+                   ratio_tol=BWD_ERR_RATIO, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                   twin_ms=twin_ms, gflop=flop / 1e9, bound_ms=bound * 1e3,
+                   bound_share=share, kernel_tflops=flop / kernel_ms / 1e9, split_ms=split)
+        emit("cluster_backward", **row)
+        if not ok:
+            raise AssertionError(f"cluster backward kernels: {row}")
+        rows.append(row)
+        del x, w, g
+    train = rows[:len(TRAIN_SHAPES)]
+    emit("cluster_backward_train_step",
+         kernel_ms=sum(r["kernel_ms"] for r in train),
+         plain_ms=sum(r["plain_ms"] for r in train),
+         twin_ms=sum(r["twin_ms"] for r in train),
+         bound_ms=sum(r["bound_ms"] for r in train),
+         launches=sum(r["launches"] for r in train))
+    return rows
+
+
+def cluster_backward_main():
+    """``python3 chip_smoke.py --cluster-backward``: the environment line,
+    the build of the cluster's libraries, the autograd check and
+    ``phase_cluster_backward`` alone (a few minutes on one card)."""
+    os.chdir(REPO)
+    sys.path.insert(0, REPO)
+    import torch
+    from neuralsvb_torch.ops import fused_resblock as fr
+    if not torch.cuda.is_available():
+        raise RuntimeError("the cluster backward's phase needs an NVIDIA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi.splitlines()[0])
+    tf32(False)
+    build_all({"resblock_bf16": fr.LIBRARY_BF16, "cluster_backward": fr.LIBRARY_BWD})
+    spec = fr.make_spec((3, 7, 11), ((1, 3, 5),) * 3)
+    phase_autograd(fr, spec, torch.Generator().manual_seed(0))
+    phase_cluster_backward(fr, spec)
+    print(json.dumps({"ok": True}), flush=True)
 
 
 def vocoder_keys():
@@ -1432,8 +1583,9 @@ def phase_vocoder_train(device="cuda"):
 
 def vocoder_step_parts(task, batch, spec):
     """Device time of a step's parts, each alone between CUDA events
-    (median of 10): the plain f32 recompute of the cluster backward at the
-    three stage shapes, the discriminators (the generator step's pass over
+    (median of 10): the cluster backward's kernels at the three stage
+    shapes (and, as a yardstick, the plain f32 recompute + autograd the
+    kernels replaced), the discriminators (the generator step's pass over
     y_hat with its input gradient, the discriminator step's real and fake
     passes with their weight gradients) and the log-mel L1 with its input
     gradient."""
@@ -1446,15 +1598,17 @@ def vocoder_step_parts(task, batch, spec):
     b = task._prep_batch(batch)
     B, L = b["wavs"].shape
     parts = {}
-    bwd = 0.0
+    bwd = plain = 0.0
     for Bs, C, T in TRAIN_SHAPES:
         x = torch.randn(Bs, C, T, generator=gen).cuda().requires_grad_(True)
         w = [t.requires_grad_(True) for t in random_cluster(C, spec, gen, "cuda")]
         g = torch.randn(Bs, C, T, generator=gen).cuda()
-        bwd += median_ms(lambda: torch.autograd.grad(
+        bwd += median_ms(lambda: fr.resblock_cluster_backward_cuda(x, w, spec, g), n=10)
+        plain += median_ms(lambda: torch.autograd.grad(
             fr.resblock_cluster_plain(x, w, spec), [x] + w, g), n=10)
         del x, w, g
-    parts["cluster_backward_f32_recompute"] = bwd
+    parts["cluster_backward_kernels"] = bwd
+    parts["cluster_backward_plain_f32_yardstick"] = plain
     y_hat = (0.3 * torch.randn(B, L, generator=gen)).cuda().requires_grad_(True)
 
     def disc_gen():
@@ -1529,7 +1683,8 @@ def phase_vocoder_step_time(cfg, train_rows, spec):
                                                       for k, v in parts.items()})
     emit("vocoder_step_time", **row)
     want = {"resblock_conv1d_bf16_launches": 54, "lrelu_bf16_launches": 3,
-            "resblock_conv1d_launches": 0}
+            "resblock_conv1d_launches": 0,
+            "resblock_cluster_backward_cuda_launches": 3 * fr.backward_launches(spec)}
     if per_step != want:
         raise AssertionError(f"launches per vocoder step {per_step} != {want}")
     return row
@@ -2209,7 +2364,7 @@ def phase_jax_checkpoint(voc, device="cuda"):
     stages = len(voc["upsample_rates"])
     on_card = device == "cuda"  # CPU tensors take the plain cluster
     want = {"resblock_conv1d_bf16": 18 * stages * on_card, "lrelu_bf16": stages * on_card,
-            "resblock_conv1d": 0}
+            "resblock_conv1d": 0, "resblock_cluster_backward_cuda": 0}
     row = dict(decoded_tree_exact=_same_tree(tree, decoded),
                wav_samples=int(wavs["jax"].numel()), bit_identical=torch.equal(
                    wavs["jax"], wavs["port"]), finite=bool(torch.isfinite(wavs["jax"]).all()),
@@ -2903,7 +3058,7 @@ def phase_bf16_vocoder(voc, device="cuda"):
     stages = len(voc["upsample_rates"])
     on_card = device == "cuda"
     want = {"resblock_conv1d_bf16": 18 * stages * on_card, "lrelu_bf16": stages * on_card,
-            "resblock_conv1d": 0}
+            "resblock_conv1d": 0, "resblock_cluster_backward_cuda": 0}
     row.update(mean_rel=float(d.mean() / ref.mean()), max_rel=float(d.max() / ref.max()),
                finite=bool(torch.isfinite(wavs["bf16"]).all()), expected_launches=want,
                frames=T, bucket=2048)
@@ -3866,7 +4021,8 @@ def phase_serving_leftovers(voc, device="cuda:0"):
               and den["denoise_change"] > 1e-4 and bool(torch.isfinite(card).all())
               and card.shape == (T * 128,)
               and den_launches == {"resblock_conv1d_bf16": 18 * stages * on_card,
-                                   "lrelu_bf16": stages * on_card, "resblock_conv1d": 0})
+                                   "lrelu_bf16": stages * on_card, "resblock_conv1d": 0,
+                                   "resblock_cluster_backward_cuda": 0})
     row = dict(ok=shard_ok and den_ok, shard_infer=dict(shard, ok=shard_ok),
                denoise=dict(den, ok=den_ok), seconds=time.perf_counter() - t0)
     emit("serving_leftovers", **row)
@@ -3951,7 +4107,7 @@ def phase_last_modules(voc, spec, bucket_rows, device="cuda"):
     merged_ms = {k: v * 1e3 for k, v in P.device_busy(prof).items()}
     stages = len(voc["upsample_rates"])
     want = {"resblock_conv1d_bf16": 18 * stages * on_card, "lrelu_bf16": stages * on_card,
-            "resblock_conv1d": 0}
+            "resblock_conv1d": 0, "resblock_cluster_backward_cuda": 0}
     profiled_cluster = kinds.get("ResBlock cluster kernels", [0.0, 0])[1]
     if launches != want or profiled_cluster != 19 * stages * on_card:
         bad.append(f"launches {launches} != {want}, profiled cluster kernels {profiled_cluster}")
@@ -4063,13 +4219,14 @@ def phase_last_modules(voc, spec, bucket_rows, device="cuda"):
     return launches
 
 
-def build_all():
-    """nvcc for each CUDA source and g++ for the host library, all started
-    together."""
+def build_all(libs=None):
+    """nvcc for each CUDA source and g++ for the host library (or the
+    libraries ``libs`` names), all started together."""
     from neuralsvb_torch import native
     from neuralsvb_torch.ops import chi2, fused_resblock as fr
-    libs = {"resblock_bf16": fr.LIBRARY_BF16, "fused_resblock": fr.LIBRARY,
-            "chi2_dist": chi2.LIBRARY, "native_dtw": native.LIBRARY}
+    libs = libs or {"resblock_bf16": fr.LIBRARY_BF16, "fused_resblock": fr.LIBRARY,
+                    "cluster_backward": fr.LIBRARY_BWD, "chi2_dist": chi2.LIBRARY,
+                    "native_dtw": native.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.get) for lib in libs.values()]:
@@ -4111,6 +4268,7 @@ def main():
 
     spec = fr.make_spec((3, 7, 11), ((1, 3, 5),) * 3)
     rows16, rows32, worst16, worst32 = phase_kernel(fr, spec)
+    bwd_rows = phase_cluster_backward(fr, spec)
     chi2_rows, chi2_worst = phase_chi2(chi2)
     voc = vocoder_keys()
     # the --infer process zeroes its counts at test_start and reports them at
@@ -4190,6 +4348,7 @@ def main():
         return sum(r[key] for r in rows)
 
     chi2_row = chi2_rows[0]  # 2400 x 2400
+    bwd_train = bwd_rows[:len(TRAIN_SHAPES)]
     print(json.dumps({"kernels": [{
         "name": "resblock_conv1d_bf16", "route": "cuda",
         "source": "neuralsvb_torch/csrc/resblock_bf16.cu", "replaces": TPU_KERNEL,
@@ -4237,6 +4396,13 @@ def main():
         "ms": total(stage32, "kernel_ms"), "plain_ms": total(stage32, "plain_ms"),
         "bound_ms": total(stage32, "bound_ms"), "bound_by": stage32[0]["bound_by"],
         "library_ms": None}, {
+        "name": "cluster_bwd", "route": "cuda",
+        "source": "neuralsvb_torch/csrc/cluster_backward.cu", "replaces": None,
+        "launches_per_stage": bwd_rows[0]["launches"],
+        "vocoder_train_step_launches": total(bwd_train, "launches"),
+        "ms": total(bwd_train, "kernel_ms"), "plain_ms": total(bwd_train, "plain_ms"),
+        "twin_ms": total(bwd_train, "twin_ms"), "bound_ms": total(bwd_train, "bound_ms"),
+        "bound_by": "operations", "library_ms": None}, {
         "name": "chi2_dist", "route": "cuda",
         "source": "neuralsvb_torch/csrc/chi2_dist.cu",
         "replaces": CHI2_TPU_KERNEL, "launches": chi2_launches,
@@ -4257,5 +4423,7 @@ if __name__ == "__main__":
         bf16_map_spread(sys.argv[2:])
     elif sys.argv[1:2] == ["--binarize-ab"]:
         binarize_ab(sys.argv[2:])
+    elif sys.argv[1:2] == ["--cluster-backward"]:
+        cluster_backward_main()
     else:
         main()

@@ -7,8 +7,9 @@ strided noise_conv -> mean of the multi-kernel ResBlocks) -> leaky_relu ->
 conv_post -> tanh. With ``resblock == "1"`` each stage's ResBlock cluster
 runs through ``ops.fused_resblock.fused_resblock_cluster``: the CUDA kernel
 on the card, its plain PyTorch twin on the CPU, in training too (its
-backward recomputes through the plain version in f32, as the JAX
-``custom_vjp`` does). ``mm_dtype`` is that op's matmul operand dtype;
+backward recomputes the cluster in f32 and takes its gradients, as the JAX
+``custom_vjp`` does: f32 FFMA kernels on the card, their plain twin on the
+CPU). ``mm_dtype`` is that op's matmul operand dtype;
 ``None`` picks by device (bf16 on the card, f32 on the CPU), as the JAX
 generator picks bf16 on the TPU. Weight norm is folded into plain convs
 (the reference removes it at inference; the JAX package trains without it).

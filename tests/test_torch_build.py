@@ -7,9 +7,12 @@ tensor that is not on the CPU."""
 
 from __future__ import annotations
 
+import ctypes
+import re
 import shutil
 import subprocess
 import sys
+import types
 
 import pytest
 
@@ -34,7 +37,7 @@ def test_import_needs_no_toolkit():
 def test_build_without_nvcc_raises():
     if shutil.which("nvcc"):
         pytest.skip("a CUDA toolkit is present here")
-    for lib in (fr.LIBRARY, fr.LIBRARY_BF16, chi2.LIBRARY):
+    for lib in (fr.LIBRARY, fr.LIBRARY_BF16, fr.LIBRARY_BWD, chi2.LIBRARY):
         for _ in range(2):  # raises every time: no cached fallback
             with pytest.raises(RuntimeError, match="nvcc"):
                 lib.get()
@@ -51,6 +54,40 @@ def test_launch_refuses_cpu_tensors():
                                 torch.zeros(64), 3, 1, cur_out=x)
     with pytest.raises(ValueError, match="CUDA"):
         fr.lrelu_bf16(x, xb.transpose(1, 2).contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        fr.cluster_bwd_conv(x, torch.zeros(64, 3, 64), 3, 1, x, dgrad=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        fr.cluster_bwd_wgrad(x, x, 3, 1, torch.zeros(2, 64 * 3 * 64), 0, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        fr.cluster_bwd_reduce(torch.zeros(2, 8), torch.zeros(8))
+    with pytest.raises(ValueError, match="CUDA"):
+        fr.resblock_cluster_backward_cuda(x, [], (), x)
+
+
+def test_backward_bindings_match_the_c_interface():
+    """Every entry point of ``csrc/cluster_backward.cu`` is bound with one
+    ctypes type per C parameter, pointers as ``c_void_p``."""
+    src = fr.SOURCE_BWD.read_text()
+    lib = types.SimpleNamespace()
+    entries = re.findall(r'extern "C" int (nsvb_\w+)\(([^)]*)\)', src)
+    for name, _ in entries:
+        setattr(lib, name, types.SimpleNamespace())
+    fr._bind_bwd(lib)
+    assert {n for n, _ in entries} == {"nsvb_cluster_bwd_conv", "nsvb_cluster_bwd_wgrad",
+                                       "nsvb_cluster_bwd_reduce"}
+    for name, params in entries:
+        params = [p.strip() for p in params.split(",")]
+        argtypes = getattr(lib, name).argtypes
+        assert len(argtypes) == len(params), name
+        for p, t in zip(params, argtypes):
+            if "*" in p:
+                assert t is ctypes.c_void_p, (name, p)
+            elif p.startswith("long long"):
+                assert t is ctypes.c_longlong, (name, p)
+            elif p.startswith("float"):
+                assert t is ctypes.c_float, (name, p)
+            else:
+                assert p.startswith("int") and t is ctypes.c_int, (name, p)
 
 
 def test_no_fallback_for_non_cpu_tensors():

@@ -6,7 +6,9 @@ Pallas kernel ``fused_resblock_cluster`` (f32 operands, interpret mode) at
 1e-4, and its autograd path against ``jax.grad`` at 2e-3 (the tolerances of
 tests/test_fused_resblock.py). With bf16 operands (``mm_dtype``) the plain
 version is held against the Pallas kernel with ``mm_dtype=bf16`` and its
-packed weights against the JAX packing, bit for bit. The CUDA kernels
+packed weights against the JAX packing, bit for bit. The backward's plain
+twin (the decomposition the CUDA backward kernels compute) is held against
+autograd through the plain version in float64 and float32. The CUDA kernels
 themselves are compared with the plain version on the card by the tests
 marked ``cuda`` and by ``chip_smoke.py``.
 """
@@ -171,6 +173,70 @@ def test_autograd_matches_jax_grad():
                 agree(conv.weight.grad.permute(2, 1, 0), g["kernel"], 2e-3,
                       f"dL/dW tower {r} conv{n}_{j}")
                 agree(conv.bias.grad, g["bias"], 2e-3, f"dL/db tower {r} conv{n}_{j}")
+
+
+# (dtype, B, C, T, zero stretch, needs dL/dx): C 64 / 128 / 256 scaled down by
+# 8, lengths that no tile divides; a zero stretch with zero biases keeps
+# whole runs of every cur and y at exactly 0, where lrelu' must be 1
+TWIN_CASES = [(dt, *shape, zeros, need_dx)
+              for dt in (torch.float64, torch.float32)
+              for shape, zeros, need_dx in (((2, 8, 131), False, True),
+                                            ((1, 16, 77), True, True),
+                                            ((2, 32, 45), False, True),
+                                            ((1, 16, 77), True, False))]
+
+
+@pytest.mark.parametrize("dtype,B,C,T,zeros,need_dx", TWIN_CASES)
+def test_backward_twin_matches_autograd(dtype, B, C, T, zeros, need_dx):
+    """``resblock_cluster_backward_plain`` (the CUDA backward's
+    decomposition) against autograd through ``resblock_cluster_plain``:
+    dL/dx and every tower's dW and db, within 1e-10 of each tensor's scale
+    in float64 and 1e-4 in float32. In float32 the twin runs as the op's
+    backward (``fused_resblock_cluster`` on CPU tensors), with ``x`` not
+    requiring grad in the ``need_dx`` False cases."""
+    gen = torch.Generator().manual_seed(C + T)
+    towers = _towers(C, seed=C)
+    w = [t.detach().to(dtype) for t in _packed(towers)]
+    x = torch.randn(B, C, T, generator=gen, dtype=dtype)
+    g = torch.randn(B, C, T, generator=gen, dtype=dtype)
+    if zeros:
+        x[..., 20:60] = 0
+        for t in w[1::2]:  # the biases
+            t.zero_()
+
+    xr = x.clone().requires_grad_(need_dx)
+    wr = [t.clone().requires_grad_(True) for t in w]
+    (fr.resblock_cluster_plain(xr, wr, SPEC) * g).sum().backward()
+    want = ([xr.grad] if need_dx else []) + [t.grad for t in wr]
+
+    if dtype == torch.float64:
+        gx, gw = fr.resblock_cluster_backward_plain(x, w, SPEC, g, need_dx)
+        assert (gx is None) != need_dx
+        got = ([gx] if need_dx else []) + gw
+        tol = 1e-10
+    else:
+        xt = x.clone().requires_grad_(need_dx)
+        wt = [t.clone().requires_grad_(True) for t in w]
+        (fr.fused_resblock_cluster(xt, wt, SPEC) * g).sum().backward()
+        assert (xt.grad is None) != need_dx
+        got = ([xt.grad] if need_dx else []) + [t.grad for t in wt]
+        tol = 1e-4
+    assert len(got) == len(want) == int(need_dx) + 4 * len(SPEC)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        scale = max(1.0, float(b.abs().max()))
+        err = float((a - b).abs().max())
+        assert err <= tol * scale, f"gradient {i}: {err} > {tol} * {scale}"
+    if zeros:  # the stretch's inside is exactly 0 in the first conv's input
+        assert bool((x[..., 30:50] == 0).all())
+
+
+def test_backward_launch_count():
+    """Launches of the CUDA backward per stage: 6 per tower step, one less
+    per tower without dL/dx (its last dgrad)."""
+    assert fr.backward_launches(SPEC) == 54
+    assert fr.backward_launches(SPEC, need_dx=False) == 51
+    assert fr.resblock_cluster_backward_cuda in fr.KERNEL_COUNTERS
 
 
 def test_cpu_wrapper_refuses_other_dtypes():

@@ -7,7 +7,8 @@ Every phase prints one JSON line; any failure raises.
 
 1. environment: torch / CUDA versions, the card, its power limit;
 2. build, all at once: nvcc builds ``neuralsvb_torch/csrc/resblock_bf16.cu``,
-   ``csrc/fused_resblock.cu`` and ``csrc/chi2_dist.cu`` for sm_90a, g++ the
+   ``csrc/fused_resblock.cu``, ``csrc/cluster_backward.cu``,
+   ``csrc/amp_activation.cu`` and ``csrc/chi2_dist.cu`` for sm_90a, g++ the
    port's host DTW/Viterbi library (``neuralsvb_torch/csrc/dtw.cpp``);
    ptxas's lines are printed;
 3. kernel vs plain, TF32 off for every plain reference. The bf16
@@ -30,7 +31,15 @@ Every phase prints one JSON line; any failure raises.
    [1, 64, 704]: against the plain twin and float64 as above, bit-equal,
    launches per stage, device times beside the f32 least time and the
    plain recompute + autograd's (``--cluster-backward`` runs the build,
-   the autograd check and this phase alone). Then the chi-square DTW cost
+   the autograd check and this phase alone). BigVGAN's fused anti-aliased
+   SnakeBeta (``phase_amp``, ``csrc/amp_activation.cu``) at the six stage
+   shapes of the ``bigvgan_train`` cell (4 crops of 256 frames, 768 ... 24
+   channels): forward and backward kernels against their plain twins
+   within 1e-4 of max(1, max|ref|) and, with the plain f32 path, against
+   float64 (the worst tensor within 1.5 times the plain path's), two
+   backward calls bit-equal, 1 + 2 launches, device times beside the
+   bound and the plain path's (``--amp`` runs the build, this phase and
+   phase 4's BigVGAN training alone). Then the chi-square DTW cost
    kernel against its plain version at (S, T) = (2400, 2400), (1037,
    1301), (130, 70), (1, 1), M = 48, on
    EHSADTW histograms of vibrato f0 and on random rows with all-zero rows,
@@ -52,7 +61,14 @@ Every phase prints one JSON line; any failure raises.
    ASR; HiFiGAN-NSF 512 channels, rates 8,8,2) with seeded random weights;
    it must write 4 x 5 wavs of length frames x 128 that are finite and not
    silent, and launch the bf16 kernel 18 x 3 stages x 20 vocoder calls
-   times (its operand pre-pass 3 x 20);
+   times (its operand pre-pass 3 x 20). Then BigVGAN-v2's main path,
+   ``python -m neuralsvb_torch.tasks.run`` on its recipe at the published
+   widths and per-card batch (1536 channels, six stages, 4 x 65536
+   samples) on a synthetic 24 kHz split, seeded weights, 3 steps of the
+   generator, MPD and MRD and 2 validations of 2 items: losses finite with
+   their keys; from the summary, 109 forward AMP launches per generator
+   call (training and validation) and 218 backward per step, none of the
+   HiFiGAN cluster's (``phase_bigvgan_train``);
 5. card vs CPU: one utterance at zero noise through the port's slice on the
    card (kernels) and on the CPU (plain versions, which the CPU tests hold
    to the JAX package), in both mm dtypes, TF32 off. f32 (the f32 kernel's
@@ -587,6 +603,233 @@ def cluster_backward_main():
     spec = fr.make_spec((3, 7, 11), ((1, 3, 5),) * 3)
     phase_autograd(fr, spec, torch.Generator().manual_seed(0))
     phase_cluster_backward(fr, spec)
+    print(json.dumps({"ok": True}), flush=True)
+
+
+# BigVGAN-v2's Activation1d at the training cell's stage shapes: 4 crops of
+# 256 frames through six stages of 768 ... 24 channels (the final
+# activation's shape is the last stage's)
+AMP_SHAPES = ((4, 768, 1024), (4, 384, 4096), (4, 192, 8192), (4, 96, 16384),
+              (4, 48, 32768), (4, 24, 65536))
+AMP_ERR_RATIO = 1.5  # the kernels' error vs float64 over the plain f32 path's
+AMP_TWIN_TOL = 1e-4  # kernel vs plain twin, max|d| / max(1, max|ref|)
+# per output element: upsample 2 x (6 multiply-adds + scale), SnakeBeta 2 x 5
+# operations, downsample 12 multiply-adds; the backward recomputes the
+# upsampling and adds the strided conv's transpose, the SnakeBeta
+# derivatives and the upsampling's transpose
+AMP_FWD_FLOP, AMP_BWD_FLOP = 60, 110
+AMP_FWD_BYTES, AMP_BWD_BYTES = 8, 12  # x read, y written; x, dy read, dx written
+
+
+def kernel_device_ms(fn, key="", n=10):
+    """Device time per call of ``fn``: the summed durations of the kernels
+    whose name holds ``key`` (every kernel for ``""``) in a
+    ``torch.profiler`` trace of ``n`` calls, over n (host issue left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from neuralsvb_torch.utils.profiling import top_ops
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(t for name, t, _ in top_ops(prof, k=1000) if key in name) * 1e3 / n
+
+
+def phase_amp(amp):
+    """BigVGAN's fused anti-aliased SnakeBeta (``ops/amp_activation.py``)
+    at ``AMP_SHAPES``, TF32 off: the forward kernel and the backward kernels
+    (dx, dalpha, dbeta) against the plain twins
+    (``activation1d_plain``/``activation1d_backward_plain``) within
+    AMP_TWIN_TOL, and both, with the plain f32 path (autograd through
+    ``activation1d_plain``), against float64 autograd: the worst tensor's
+    relative L2 error within AMP_ERR_RATIO times the plain f32 path's; two
+    backward calls bit-equal; 1 + 2 launches; device times beside the
+    bound (bytes at the HBM peak or the operations at the f32 peak, the
+    larger) and the plain path's. Device times are the kernels' durations
+    in a profile of 10 calls (``kernel_device_ms``): a call's host issue
+    (``bwd_call_ms``, between events) is longer than its kernels. Returns
+    the rows."""
+    import torch
+    from neuralsvb_torch.utils.profiling import median_ms, roofline
+    gen = torch.Generator().manual_seed(23)
+    rows = []
+    for B, C, T in AMP_SHAPES:
+        # activations of the scale the seeded cell's stages reach
+        x = (4 * torch.randn(B, C, T, generator=gen)).cuda()
+        a = (0.05 * torch.randn(C, generator=gen)).cuda()
+        b = (0.05 * torch.randn(C, generator=gen)).cuda()
+        g = torch.randn(B, C, T, generator=gen).cuda()
+        n = B * C * T
+        amp.amp_forward_cuda(x, a, b)  # the library's build and load
+        before = amp.amp_forward_cuda.launches, amp.amp_backward_cuda.launches
+        y = amp.amp_forward_cuda(x, a, b)
+        got = list(amp.amp_backward_cuda(x, a, b, g))
+        launches = (amp.amp_forward_cuda.launches - before[0],
+                    amp.amp_backward_cuda.launches - before[1])
+        again = list(amp.amp_backward_cuda(x, a, b, g))
+        torch.cuda.synchronize()
+        bit_equal = all(torch.equal(p, q) for p, q in zip(got, again))
+        y_twin = amp.activation1d_plain(x, a, b)
+        twin = list(amp.activation1d_backward_plain(x, a, b, g))
+        vs_twin = [float((p - q).abs().max()) / max(1.0, float(q.abs().max()))
+                   for p, q in zip([y] + got, [y_twin] + twin)]
+        x64, a64, b64 = (t.double().requires_grad_(True) for t in (x, a, b))
+        y64 = amp.activation1d_plain(x64, a64, b64)
+        ref = [y64.detach()] + list(torch.autograd.grad((y64 * g.double()).sum(),
+                                                        [x64, a64, b64]))
+        del x64, a64, b64, y64
+        xp, ap, bp = (t.clone().requires_grad_(True) for t in (x, a, b))
+        yp = amp.activation1d_plain(xp, ap, bp)
+        plain = [yp.detach()] + list(torch.autograd.grad((yp * g).sum(), [xp, ap, bp]))
+        del xp, ap, bp, yp
+        err_k, err_p = grad_errors([y] + got, ref), grad_errors(plain, ref)
+        del ref, plain, twin, again
+        ratio = max(err_k) / max(err_p)
+        fwd_ms = kernel_device_ms(lambda: amp.amp_forward_cuda(x, a, b), "amp_activation")
+        bwd_ms = kernel_device_ms(lambda: amp.amp_backward_cuda(x, a, b, g), "amp_activation")
+        call_ms = median_ms(lambda: amp.amp_backward_cuda(x, a, b, g), n=10)
+
+        def plain_step():
+            xq, aq, bq = (t.clone().requires_grad_(True) for t in (x, a, b))
+            return torch.autograd.grad((amp.activation1d_plain(xq, aq, bq) * g).sum(),
+                                       [xq, aq, bq])
+        plain_fwd_ms = kernel_device_ms(lambda: amp.activation1d_plain(x, a, b))
+        plain_ms = kernel_device_ms(plain_step)
+        fb, _, fwd_by = roofline(AMP_FWD_FLOP * n, AMP_FWD_BYTES * n, fwd_ms / 1e3,
+                                 torch.float32)
+        bb, _, bwd_by = roofline(AMP_BWD_FLOP * n, AMP_BWD_BYTES * n, bwd_ms / 1e3,
+                                 torch.float32)
+        ok = (ratio <= AMP_ERR_RATIO and bit_equal and launches == (1, 2)
+              and max(vs_twin) <= AMP_TWIN_TOL)
+        row = dict(B=B, C=C, T=T, ok=ok, launches=launches, bit_equal=bit_equal,
+                   vs_twin_max_rel=vs_twin, twin_tol=AMP_TWIN_TOL,
+                   f64_rel_l2_kernel=err_k, f64_rel_l2_plain=err_p, worst_ratio=ratio,
+                   ratio_tol=AMP_ERR_RATIO, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                   bwd_call_ms=call_ms,
+                   fwd_bound_ms=fb * 1e3, bwd_bound_ms=bb * 1e3,
+                   bound_share=(fb + bb) * 1e3 / (fwd_ms + bwd_ms),
+                   bound_by=[BOUND_BY[fwd_by], BOUND_BY[bwd_by]],
+                   plain_fwd_ms=plain_fwd_ms, plain_fwd_bwd_ms=plain_ms)
+        emit("amp_kernel", **row)
+        if not ok:
+            raise AssertionError(f"AMP kernels: {row}")
+        rows.append(row)
+        del x, a, b, g, y, got
+    # the cell's step: 18 activations per stage and one final, forward and
+    # backward
+    counts = [18] * len(AMP_SHAPES)
+    counts[-1] += 1
+    emit("amp_train_step", fwd_ms=sum(c * r["fwd_ms"] for c, r in zip(counts, rows)),
+         bwd_ms=sum(c * r["bwd_ms"] for c, r in zip(counts, rows)),
+         bound_ms=sum(c * (r["fwd_bound_ms"] + r["bwd_bound_ms"]) for c, r in zip(counts, rows)),
+         plain_fwd_bwd_ms=sum(c * r["plain_fwd_bwd_ms"] for c, r in zip(counts, rows)),
+         activations=sum(counts))
+    return rows
+
+
+def write_bigvgan_split(data_dir, hp, seconds, prefix, seed):
+    """A packed split of sung vibrato crops at the recipe's rate with their
+    log-mels (``synthetic_crops``), one item of about ``seconds`` each."""
+    from neuralsvb_torch.data.indexed_dataset import IndexedDatasetBuilder
+    from neuralsvb_torch.data.synthetic import synthetic_crops
+    os.makedirs(data_dir, exist_ok=True)
+    hop = hp["hop_size"]
+    builder = IndexedDatasetBuilder(os.path.join(data_dir, prefix))
+    for i, sec in enumerate(seconds):
+        n = int(sec * hp["audio_sample_rate"]) // hop * hop
+        c = synthetic_crops(1, dict(hp, max_samples=n), seed=seed + i)
+        builder.add_item({"item_name": f"{prefix}_{i}", "wav": c["wavs"][0],
+                          "mel": c["mels"][0], "f0": c["f0"][0]})
+    builder.finalize()
+
+
+BIGVGAN_RECIPE = "egs/datasets/audio/PopBuTFy/bigvgan_v2_24k_torch.yaml"
+BIGVGAN_STEPS, BIGVGAN_VALID_ITEMS = 3, 2
+BIGVGAN_AMP_CALLS = 6 * 18 + 1  # Activation1d calls a generator pass: 18 a stage, the final
+BIGVGAN_KEYS = {"mel", "a_p", "a_r", "fm", "r_p", "f_p", "r_r", "f_r"}
+
+
+def phase_bigvgan_train(device="cuda"):
+    """BigVGAN-v2's recipe (``bigvgan_v2_24k_torch.yaml``) through ``python
+    -m neuralsvb_torch.tasks.run`` at its published widths and per-card
+    batch (1536 channels, six stages, 4 crops of 65536 samples) on a
+    synthetic 24 kHz split (6 sung items of 3 s train, 2 of 1.5 s
+    validate), seeded weights, BIGVGAN_STEPS steps of the generator, MPD and
+    MRD, validating at the start and at the end. Every logged loss is finite
+    with BIGVGAN_KEYS among its keys; the training process zeroes its counts
+    when fit starts and reports them in its summary: the AMP kernels launch
+    BIGVGAN_AMP_CALLS forward a generator call (each training step and each
+    validation batch) and twice that backward a step, the HiFiGAN cluster's
+    kernels never. Returns the summary's launch counts."""
+    import math
+    import yaml
+    from neuralsvb_torch.hparams import set_hparams
+    hp = set_hparams(config=BIGVGAN_RECIPE, hparams_str="device=cpu", print_hparams=False,
+                     global_hparams=False)
+    data = os.path.join(WORK, "bigvgan_data")
+    write_bigvgan_split(data, hp, [3.0] * 6, "train", seed=181)
+    write_bigvgan_split(data, hp, [1.5] * BIGVGAN_VALID_ITEMS, "valid", seed=281)
+    cfg = os.path.join(WORK, "bigvgan_train.yaml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump({"base_config": [os.path.join(REPO, BIGVGAN_RECIPE)],
+                        "binary_data_dir": data, "device": device,
+                        "max_updates": BIGVGAN_STEPS, "val_check_interval": BIGVGAN_STEPS,
+                        "num_sanity_val_steps": BIGVGAN_VALID_ITEMS, "tb_log_interval": 1}, f)
+    out, wall = run_train_cli(cfg, os.path.join(WORK, "bigvgan_work"))
+    s = summary_of(out, "train")
+    bad = []
+    steps = {int(m.group(1)): json.loads(m.group(2))
+             for m in re.finditer(r"^\| step (\d+): (\{.*\})$", out, re.M)}
+    if sorted(steps) != list(range(1, BIGVGAN_STEPS + 1)):
+        bad.append(f"logged steps {sorted(steps)}")
+    for n, logs in steps.items():
+        if not BIGVGAN_KEYS <= set(logs) or not all(math.isfinite(v) for v in logs.values()):
+            bad.append(f"step {n} logs {logs}")
+    validations = out.count("| Valid results:")
+    calls = s["vocoder_calls"]
+    trained = s["end_step"] - s["start_step"]
+    on_card = device == "cuda"
+    want = {"amp_forward_cuda_launches": BIGVGAN_AMP_CALLS * calls * on_card,
+            "amp_backward_cuda_launches": 2 * BIGVGAN_AMP_CALLS * trained * on_card,
+            "resblock_conv1d_bf16_launches": 0, "resblock_conv1d_launches": 0,
+            "resblock_cluster_backward_cuda_launches": 0}
+    launches = {k: s[k] for k in want}
+    if trained != BIGVGAN_STEPS or calls != trained + BIGVGAN_VALID_ITEMS * validations \
+            or launches != want:
+        bad.append(f"{trained} steps, {calls} generator calls, {validations} validations, "
+                   f"launches {launches} != {want}")
+    emit("bigvgan_train", ok=not bad, problems=bad, wall_s=wall, summary=s,
+         validations=validations, generator_calls=calls, launches=launches,
+         expected_launches=want, last_step_losses=steps.get(BIGVGAN_STEPS))
+    if bad:
+        raise AssertionError(f"BigVGAN train phase failed: {bad}")
+    return dict(launches, generator_calls=calls, steps=trained,
+                max_memory_allocated=s.get("max_memory_allocated"))
+
+
+def amp_main():
+    """``python3 chip_smoke.py --amp``: the environment line, the build of
+    the AMP library, ``phase_amp`` and ``phase_bigvgan_train`` alone (a
+    minute or two on one card)."""
+    os.chdir(REPO)
+    sys.path.insert(0, REPO)
+    import torch
+    from neuralsvb_torch.ops import amp_activation as amp
+    if not torch.cuda.is_available():
+        raise RuntimeError("the AMP phase needs an NVIDIA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi.splitlines()[0])
+    tf32(False)
+    build_all({"amp_activation": amp.LIBRARY})
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    phase_amp(amp)
+    phase_bigvgan_train()
     print(json.dumps({"ok": True}), flush=True)
 
 
@@ -4223,10 +4466,10 @@ def build_all(libs=None):
     """nvcc for each CUDA source and g++ for the host library (or the
     libraries ``libs`` names), all started together."""
     from neuralsvb_torch import native
-    from neuralsvb_torch.ops import chi2, fused_resblock as fr
+    from neuralsvb_torch.ops import amp_activation, chi2, fused_resblock as fr
     libs = libs or {"resblock_bf16": fr.LIBRARY_BF16, "fused_resblock": fr.LIBRARY,
                     "cluster_backward": fr.LIBRARY_BWD, "chi2_dist": chi2.LIBRARY,
-                    "native_dtw": native.LIBRARY}
+                    "amp_activation": amp_activation.LIBRARY, "native_dtw": native.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.get) for lib in libs.values()]:
@@ -4261,7 +4504,7 @@ def main():
          nvidia_smi=smi)
     tf32(False)
 
-    from neuralsvb_torch.ops import chi2, fused_resblock as fr
+    from neuralsvb_torch.ops import amp_activation, chi2, fused_resblock as fr
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     build_all()
@@ -4269,11 +4512,15 @@ def main():
     spec = fr.make_spec((3, 7, 11), ((1, 3, 5),) * 3)
     rows16, rows32, worst16, worst32 = phase_kernel(fr, spec)
     bwd_rows = phase_cluster_backward(fr, spec)
+    amp_rows = phase_amp(amp_activation)
     chi2_rows, chi2_worst = phase_chi2(chi2)
     voc = vocoder_keys()
     # the --infer process zeroes its counts at test_start and reports them at
     # test_end: the counts cover the main path's test loop only
     launches = phase_main_path(voc)
+    # BigVGAN's training process zeroes its counts when fit starts and
+    # reports them in its summary
+    bigvgan_launches = phase_bigvgan_train()
     # the f32 kernel's path: the card's f32 vocoder run, counts zeroed before
     f32_launches = phase_card_vs_cpu(voc)
     # each binarize process starts its count at 0 and reports it in its
@@ -4403,6 +4650,13 @@ def main():
         "ms": total(bwd_train, "kernel_ms"), "plain_ms": total(bwd_train, "plain_ms"),
         "twin_ms": total(bwd_train, "twin_ms"), "bound_ms": total(bwd_train, "bound_ms"),
         "bound_by": "operations", "library_ms": None}, {
+        "name": "amp_activation", "route": "cuda",
+        "source": "neuralsvb_torch/csrc/amp_activation.cu", "replaces": None,
+        "bigvgan_train_launches": bigvgan_launches,
+        "fwd_ms": total(amp_rows, "fwd_ms"), "bwd_ms": total(amp_rows, "bwd_ms"),
+        "plain_fwd_bwd_ms": total(amp_rows, "plain_fwd_bwd_ms"),
+        "bound_ms": total(amp_rows, "fwd_bound_ms") + total(amp_rows, "bwd_bound_ms"),
+        "bound_by": amp_rows[0]["bound_by"], "library_ms": None}, {
         "name": "chi2_dist", "route": "cuda",
         "source": "neuralsvb_torch/csrc/chi2_dist.cu",
         "replaces": CHI2_TPU_KERNEL, "launches": chi2_launches,
@@ -4425,5 +4679,7 @@ if __name__ == "__main__":
         binarize_ab(sys.argv[2:])
     elif sys.argv[1:2] == ["--cluster-backward"]:
         cluster_backward_main()
+    elif sys.argv[1:2] == ["--amp"]:
+        amp_main()
     else:
         main()

@@ -30,6 +30,10 @@ launched world cannot honour raises. The JAX vocoder tasks do not read
 ``accumulate_grad_batches`` (their optimizers have no ``MultiSteps``), and
 neither do these.
 
+``BigVGANTask`` trains BigVGAN-v2 (``models/bigvgan.py``) with the same
+steps against the multi-period and multi-resolution discriminators, its
+losses summed over sub-discriminators as BigVGAN sums them.
+
 ``PWGTask`` trains the Parallel WaveGAN generator the same way, with the
 multi-resolution STFT loss, one discriminator and RAdam (``PWGTask`` of
 the JAX package).
@@ -41,6 +45,8 @@ log-mel of the loss) (``utils/profiling.py`` ``span``).
 
 from __future__ import annotations
 
+import functools
+import operator
 from typing import Dict
 
 import numpy as np
@@ -49,6 +55,7 @@ import torch.nn.functional as F
 
 from ..data.indexed_dataset import IndexedDataset
 from ..hparams import hparams, resolve_device
+from ..models.bigvgan import BigVGANGenerator, MultiResolutionDiscriminator
 from ..models.hifigan import (HifiGanGenerator, MultiPeriodDiscriminator,
                               MultiScaleDiscriminator, discriminator_loss, feature_loss,
                               generator_loss)
@@ -111,6 +118,8 @@ class VocoderDataset:
 
 class HifiGanTask(BaseTask):
     num_optimizers = 2
+    # (loss key suffix, attribute) of each discriminator, in update order
+    DISCS = (("p", "mpd"), ("s", "msd"))
 
     def __init__(self):
         super().__init__()
@@ -143,11 +152,22 @@ class HifiGanTask(BaseTask):
             m.to(self.device)
         return self.model
 
+    def _discs(self):
+        """(loss key suffix, discriminator) of each entry of ``DISCS``."""
+        return [(k, getattr(self, attr)) for k, attr in self.DISCS]
+
+    @staticmethod
+    def _adv(loss, outs):
+        """An adversarial loss over a discriminator's outputs ``outs``: the
+        mean over its sub-discriminators, as the shared losses give it (the
+        NeuralSVB reference)."""
+        return loss
+
     def build_train(self):
         hp = hparams
         b1, b2 = hp.get("adam_b1", 0.8), hp.get("adam_b2", 0.99)
         self.gen_params = list(self.model.parameters())
-        self.disc_params = list(self.mpd.parameters()) + list(self.msd.parameters())
+        self.disc_params = [p for _, d in self._discs() for p in d.parameters()]
         self.opt_gen = torch.optim.Adam(self.gen_params, lr=0.0, betas=(b1, b2), eps=1e-8)
         self.opt_disc = torch.optim.Adam(self.disc_params, lr=0.0, betas=(b1, b2), eps=1e-8)
         gsp = hp.get("generator_scheduler_params") or {"step_size": 600, "gamma": 0.999}
@@ -161,14 +181,14 @@ class HifiGanTask(BaseTask):
 
     def checkpoint_state(self) -> dict:
         return {"state_dict": {"model_gen": self.model.state_dict(),
-                               "mpd": self.mpd.state_dict(), "msd": self.msd.state_dict()},
+                               **{a: getattr(self, a).state_dict() for _, a in self.DISCS}},
                 "optimizer_states": [self.opt_gen.state_dict(), self.opt_disc.state_dict()]}
 
     def load_checkpoint_state(self, ckpt: dict):
         sd = ckpt["state_dict"]
         self.model.load_state_dict(sd["model_gen"])
-        self.mpd.load_state_dict(sd["mpd"])
-        self.msd.load_state_dict(sd["msd"])
+        for _, a in self.DISCS:
+            getattr(self, a).load_state_dict(sd[a])
         for opt, st in zip((self.opt_gen, self.opt_disc), ckpt.get("optimizer_states") or []):
             opt.load_state_dict(st)
 
@@ -209,15 +229,15 @@ class HifiGanTask(BaseTask):
         losses = {"mel": ddp.global_mean((self._mel_fn(y_hat) - mel_ref).abs())
                   * hp.get("lambda_mel", 5.0)}
         with no_grad_for(self.disc_params):
-            p_g, fp_g = self.mpd(y_hat)
-            s_g, fs_g = self.msd(y_hat)
+            fake = [(k, d(y_hat)) for k, d in self._discs()]
             lam_adv = hp.get("lambda_adv", 1.0)
-            losses["a_p"] = generator_loss(p_g) * lam_adv
-            losses["a_s"] = generator_loss(s_g) * lam_adv
+            for k, (out, _) in fake:
+                losses[f"a_{k}"] = self._adv(generator_loss(out), out) * lam_adv
             if hp.get("use_fm_loss", False):
                 with torch.no_grad():
-                    fp_r, fs_r = self.mpd(b["wavs"])[1], self.msd(b["wavs"])[1]
-                losses["fm"] = feature_loss(fp_r, fp_g) + feature_loss(fs_r, fs_g)
+                    real = [d(b["wavs"])[1] for _, d in self._discs()]
+                fm = [feature_loss(r, f) for r, (_, (_, f)) in zip(real, fake)]
+                losses["fm"] = functools.reduce(operator.add, fm)
         self.update("gen", self.opt_gen, self.gen_params, sum(losses.values()), lr,
                     hp.get("generator_grad_norm", 10))
         return losses, y_hat.detach()
@@ -226,11 +246,11 @@ class HifiGanTask(BaseTask):
     def disc_step(self, b, y_hat, lr: float):
         """LSGAN losses of both discriminators on real and generated audio
         and their update."""
-        p_r, p_g = self.mpd(b["wavs"])[0], self.mpd(y_hat)[0]
-        s_r, s_g = self.msd(b["wavs"])[0], self.msd(y_hat)[0]
-        rp, fp = discriminator_loss(p_r, p_g)
-        rs, fs = discriminator_loss(s_r, s_g)
-        losses = {"r_p": rp, "f_p": fp, "r_s": rs, "f_s": fs}
+        outs = [(k, d(b["wavs"])[0], d(y_hat)[0]) for k, d in self._discs()]
+        losses = {}
+        for k, real, fake in outs:
+            r, f = discriminator_loss(real, fake)
+            losses[f"r_{k}"], losses[f"f_{k}"] = self._adv(r, real), self._adv(f, fake)
         self.update("disc", self.opt_disc, self.disc_params, sum(losses.values()), lr,
                     hparams.get("discriminator_grad_norm", 1))
         return losses
@@ -395,3 +415,57 @@ class PWGTask(HifiGanTask):
         losses = {"sc": float(sc), "mag": float(mag)}
         return {"losses": losses, "total_loss": sum(losses.values()),
                 "nsamples": batch["nsamples"]}
+
+
+class BigVGANTask(HifiGanTask):
+    """BigVGAN-v2 vocoder training (``BigVGANGenerator`` with its AMP
+    blocks, ``MultiPeriodDiscriminator`` over ``mpd_reshapes`` and
+    ``MultiResolutionDiscriminator`` over ``resolutions``).
+
+    ``HifiGanTask``'s steps, spans, Adams, clips and crop loader with the
+    multi-scale discriminator replaced by the MRD: the generator's loss is
+    the mel L1 (x ``lambda_mel``) plus, per discriminator, the LSGAN loss
+    and feature matching (``use_fm_loss``), each summed over its
+    sub-discriminators as BigVGAN's ``loss.py`` sums them (``a_p``, ``a_r``,
+    ``fm``); the discriminators' step gives ``r_p``, ``f_p``, ``r_r``,
+    ``f_r``. The generator is conditioned on the mel alone (no NSF
+    source). Checkpoints hold ``model_gen``, ``mpd`` and ``mrd``."""
+
+    DISCS = (("p", "mpd"), ("r", "mrd"))
+
+    @staticmethod
+    def _adv(loss, outs):
+        """Summed over the sub-discriminators, as BigVGAN's ``loss.py``
+        sums them."""
+        return loss * len(outs)
+
+    def build_model(self):
+        """Generator and both discriminators from the seed, on the device;
+        the generator's convolutions start at BigVGAN's N(0, 0.01) init
+        (``conv_pre`` keeps PyTorch's)."""
+        hp = hparams
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(self.seed)
+            self.model = BigVGANGenerator(
+                num_mels=hp["audio_num_mel_bins"],
+                upsample_rates=tuple(hp["upsample_rates"]),
+                upsample_kernel_sizes=tuple(hp["upsample_kernel_sizes"]),
+                upsample_initial_channel=hp["upsample_initial_channel"],
+                resblock_kernel_sizes=tuple(hp["resblock_kernel_sizes"]),
+                resblock_dilation_sizes=tuple(tuple(d) for d in hp["resblock_dilation_sizes"]))
+            for name, m in self.model.named_modules():
+                if isinstance(m, (torch.nn.Conv1d, torch.nn.ConvTranspose1d)) \
+                        and name != "conv_pre":
+                    torch.nn.init.normal_(m.weight, 0.0, 0.01)
+            self.mpd = MultiPeriodDiscriminator(tuple(hp.get("mpd_reshapes", (2, 3, 5, 7, 11))))
+            self.mrd = MultiResolutionDiscriminator(tuple(tuple(r) for r in hp["resolutions"]))
+        if self.model.hop != hp["hop_size"]:
+            raise ValueError(f"upsample_rates give hop {self.model.hop}, "
+                             f"hop_size is {hp['hop_size']}")
+        for m in (self.model, self.mpd, self.mrd):
+            m.to(self.device)
+        return self.model
+
+    def _generate(self, b, generator):
+        self.vocoder_calls += 1
+        return self.model(b["mels"])

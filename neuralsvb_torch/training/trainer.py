@@ -37,12 +37,15 @@ import torch
 import yaml
 
 from ..hparams import hparams
+from ..ops.amp_activation import AMP_COUNTERS
 from ..ops.fused_resblock import KERNEL_COUNTERS
 from ..parallel import ddp
 from ..utils.profiling import span
 from .checkpoint import get_last_checkpoint, load_checkpoint, save_checkpoint
 from .logger import JsonLogger
 
+# the kernels' launch counters the summary reports (``<name>_launches``)
+COUNTERS = KERNEL_COUNTERS + AMP_COUNTERS
 # per-process keys of the CLI, not part of a run's configuration
 RUN_KEYS = ("infer", "debug", "validate", "exp_name")
 
@@ -119,7 +122,7 @@ class Trainer:
         if self.work_dir and self.is_main:
             self.logger = task.logger = JsonLogger(self.work_dir)
             self._write_config()
-        for c in KERNEL_COUNTERS:
+        for c in COUNTERS:
             c.launches = 0
         if task.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(task.device)
@@ -249,7 +252,7 @@ class Trainer:
                    "end_step": self.global_step, "phases": phases,
                    "validations": self._validations, "validation_s": self._val_seconds,
                    "vocoder_calls": getattr(task, "vocoder_calls", 0),
-                   **{f"{c.__name__}_launches": c.launches for c in KERNEL_COUNTERS}}
+                   **{f"{c.__name__}_launches": c.launches for c in COUNTERS}}
         if task.device.type == "cuda":
             summary["max_memory_allocated"] = torch.cuda.max_memory_allocated(task.device)
         if ddp.world_size() > 1:

@@ -39,7 +39,14 @@ Every phase prints one JSON line; any failure raises.
    float64 (the worst tensor within 1.5 times the plain path's), two
    backward calls bit-equal, 1 + 2 launches, device times beside the
    bound and the plain path's (``--amp`` runs the build, this phase and
-   phase 4's BigVGAN training alone). Then the chi-square DTW cost
+   phase 4's BigVGAN training alone). The AMP towers' convolution backward
+   (``phase_amp_conv_backward``, ``csrc/amp_conv_backward.cu``) at the same
+   stage shapes, K 3/7/11 at dilations 1, 3, 5: dx, dW and db against the
+   plain twin within 1e-4 and, with the plain f32 path, against float64
+   (the worst tensor within 3 times the plain path's), bit-equal over two
+   calls, device times by kernel beside the step's least time and the
+   plain path's (``--amp-conv-bwd`` runs the build, this phase and phase
+   4's BigVGAN training alone). Then the chi-square DTW cost
    kernel against its plain version at (S, T) = (2400, 2400), (1037,
    1301), (130, 70), (1, 1), M = 48, on
    EHSADTW histograms of vibrato f0 and on random rows with all-zero rows,
@@ -621,10 +628,11 @@ AMP_FWD_FLOP, AMP_BWD_FLOP = 60, 110
 AMP_FWD_BYTES, AMP_BWD_BYTES = 8, 12  # x read, y written; x, dy read, dx written
 
 
-def kernel_device_ms(fn, key="", n=10):
-    """Device time per call of ``fn``: the summed durations of the kernels
-    whose name holds ``key`` (every kernel for ``""``) in a
-    ``torch.profiler`` trace of ``n`` calls, over n (host issue left out)."""
+def device_ms_by(fn, keys, n=10):
+    """Device time per call of ``fn`` for each of ``keys``: the summed
+    durations of the kernels whose name holds the key (every kernel for
+    ``""``) in a ``torch.profiler`` trace of ``n`` calls, over n (host
+    issue left out)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from neuralsvb_torch.utils.profiling import top_ops
@@ -634,7 +642,13 @@ def kernel_device_ms(fn, key="", n=10):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return sum(t for name, t, _ in top_ops(prof, k=1000) if key in name) * 1e3 / n
+    ops = top_ops(prof, k=1000)
+    return {key: sum(t for name, t, _ in ops if key in name) * 1e3 / n for key in keys}
+
+
+def kernel_device_ms(fn, key="", n=10):
+    """``device_ms_by`` for one key."""
+    return device_ms_by(fn, (key,), n)[key]
 
 
 def phase_amp(amp):
@@ -729,6 +743,111 @@ def phase_amp(amp):
     return rows
 
 
+# BigVGAN-v2's tower convolutions at the training cell's stage shapes: per
+# stage and kernel size 6 convolutions a step, 4 at dilation 1 (three
+# second convolutions and the first of the dilations 1, 3, 5), 1 at 3, 1 at 5
+AMP_CONV_KS = (3, 7, 11)
+AMP_CONV_DILATIONS = {1: 4, 3: 1, 5: 1}
+# the kernels' error vs float64 over the plain f32 path's: the dgrad sums an
+# output's C K products (up to 8,448) in one chain, and its error (about
+# 1e-6 relative L2) reaches about 3x cuDNN's (measured on an H100: up to
+# 1.91x the plain path's worst tensor)
+AMP_CONV_ERR_RATIO = 3.0
+AMP_CONV_TWIN_TOL = 1e-4  # kernels vs plain twin, max|d| / max(1, max|ref|)
+
+
+def phase_amp_conv_backward(ac):
+    """The AMP towers' convolution backward (``ops/amp_conv.py``) at the
+    six stage shapes of ``bigvgan_train`` (4 crops of 256 frames, 768 ...
+    24 channels), K 3/7/11 at dilations 1, 3, 5, TF32 off: the kernels'
+    dx, dW and db against the plain twin (``amp_conv_backward_plain``,
+    f32) within AMP_CONV_TWIN_TOL and, with the plain f32 path (autograd
+    through ``F.conv1d``), against float64 autograd: the worst tensor's
+    relative L2 error within AMP_CONV_ERR_RATIO times the plain path's; two
+    calls bit-equal; one count a call. Device times from a profile of 5
+    calls: dgrad, wgrad, reduction and all kernels of a call (the weight's
+    copy included), and the plain path's backward; per call between
+    events (``call_ms``: dgrad and wgrad overlap on two streams). The step
+    sums each row times its convolutions a step (AMP_CONV_DILATIONS) and
+    puts it beside the least time, 2 x 2 B C^2 T K FLOPs at the f32 FFMA
+    peak. Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+    from neuralsvb_torch.utils.profiling import median_ms, roofline
+    gen = torch.Generator().manual_seed(29)
+    rows = []
+    for B, C, T in AMP_SHAPES:
+        for K in AMP_CONV_KS:
+            for d in AMP_CONV_DILATIONS:
+                x = torch.randn(B, C, T, generator=gen).cuda()
+                w = (torch.randn(C, C, K, generator=gen) / (C * K) ** 0.5).cuda()
+                bias = torch.zeros(C).cuda()
+                g = torch.randn(B, C, T, generator=gen).cuda()
+                pad = (K - 1) // 2 * d
+                before = ac.amp_conv_backward_cuda.launches
+                got = list(ac.amp_conv_backward_cuda(x, w, g, d))
+                launches = ac.amp_conv_backward_cuda.launches - before
+                again = list(ac.amp_conv_backward_cuda(x, w, g, d))
+                torch.cuda.synchronize()
+                bit_equal = all(torch.equal(p, q) for p, q in zip(got, again))
+                del again
+                twin = list(ac.amp_conv_backward_plain(x, w, g, d))
+                vs_twin = [float((p - q).abs().max()) / max(1.0, float(q.abs().max()))
+                           for p, q in zip(got, twin)]
+                del twin
+                ref = autograd_grads(
+                    lambda a, p: F.conv1d(a, p[0], p[1], padding=pad, dilation=d),
+                    x.double(), [w.double(), bias.double()], g.double())
+                plain = autograd_grads(
+                    lambda a, p: F.conv1d(a, p[0], p[1], padding=pad, dilation=d),
+                    x, [w, bias], g)
+                err_k, err_p = grad_errors(got, ref), grad_errors(plain, ref)
+                del ref, plain, got
+                ratio = max(err_k) / max(err_p)
+                ms = device_ms_by(lambda: ac.amp_conv_backward_cuda(x, w, g, d),
+                                  ("tower_conv_dgrad", "tower_conv_wgrad",
+                                   "tower_conv_reduce", ""), n=5)
+                call_ms = median_ms(lambda: ac.amp_conv_backward_cuda(x, w, g, d), n=10)
+                xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, bias))
+                y = F.conv1d(xs, ws, bs, padding=pad, dilation=d)
+                plain_ms = kernel_device_ms(
+                    lambda: torch.autograd.grad(y, [xs, ws, bs], g, retain_graph=True), n=5)
+                del xs, ws, bs, y
+                flop = 2 * 2 * B * C * C * T * K
+                bound, share, _ = roofline(flop, 0, ms[""] / 1e3, torch.float32)
+                ok = (ratio <= AMP_CONV_ERR_RATIO and bit_equal and launches == 1
+                      and max(vs_twin) <= AMP_CONV_TWIN_TOL)
+                row = dict(B=B, C=C, T=T, K=K, d=d, per_step=AMP_CONV_DILATIONS[d], ok=ok,
+                           launches=launches, bit_equal=bit_equal, vs_twin_max_rel=vs_twin,
+                           f64_rel_l2_kernel=err_k, f64_rel_l2_plain=err_p,
+                           worst_ratio=ratio, ratio_tol=AMP_CONV_ERR_RATIO,
+                           dgrad_ms=ms["tower_conv_dgrad"], wgrad_ms=ms["tower_conv_wgrad"],
+                           reduce_ms=ms["tower_conv_reduce"], kernel_ms=ms[""],
+                           call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound * 1e3,
+                           bound_share=share, kernel_tflops=flop / ms[""] / 1e9)
+                emit("amp_conv_backward", **row)
+                if not ok:
+                    raise AssertionError(f"AMP conv backward kernels: {row}")
+                rows.append(row)
+                del x, w, bias, g
+
+    def step(key):
+        return sum(r["per_step"] * r[key] for r in rows)
+
+    by_stage = {}
+    for r in rows:
+        by_stage.setdefault(r["C"], [0.0, 0.0, 0.0])
+        for i, key in enumerate(("kernel_ms", "plain_ms", "bound_ms")):
+            by_stage[r["C"]][i] += r["per_step"] * r[key]
+    emit("amp_conv_train_step", convs=step("launches"), dgrad_ms=step("dgrad_ms"),
+         wgrad_ms=step("wgrad_ms"), reduce_ms=step("reduce_ms"), kernel_ms=step("kernel_ms"),
+         call_ms=step("call_ms"), plain_ms=step("plain_ms"), bound_ms=step("bound_ms"),
+         bound_share=step("bound_ms") / step("kernel_ms"),
+         worst_f64_ratio=max(r["worst_ratio"] for r in rows),
+         by_stage_kernel_plain_bound_ms=by_stage)
+    return rows
+
+
 def write_bigvgan_split(data_dir, hp, seconds, prefix, seed):
     """A packed split of sung vibrato crops at the recipe's rate with their
     log-mels (``synthetic_crops``), one item of about ``seconds`` each."""
@@ -748,6 +867,7 @@ def write_bigvgan_split(data_dir, hp, seconds, prefix, seed):
 BIGVGAN_RECIPE = "egs/datasets/audio/PopBuTFy/bigvgan_v2_24k_torch.yaml"
 BIGVGAN_STEPS, BIGVGAN_VALID_ITEMS = 3, 2
 BIGVGAN_AMP_CALLS = 6 * 18 + 1  # Activation1d calls a generator pass: 18 a stage, the final
+BIGVGAN_TOWER_CONVS = 6 * 18  # AMPBlock1 convolutions: 3 towers x 6 a stage
 BIGVGAN_KEYS = {"mel", "a_p", "a_r", "fm", "r_p", "f_p", "r_r", "f_r"}
 
 
@@ -761,7 +881,8 @@ def phase_bigvgan_train(device="cuda"):
     with BIGVGAN_KEYS among its keys; the training process zeroes its counts
     when fit starts and reports them in its summary: the AMP kernels launch
     BIGVGAN_AMP_CALLS forward a generator call (each training step and each
-    validation batch) and twice that backward a step, the HiFiGAN cluster's
+    validation batch) and twice that backward a step, the towers'
+    convolution backward BIGVGAN_TOWER_CONVS a step, the HiFiGAN cluster's
     kernels never. Returns the summary's launch counts."""
     import math
     import yaml
@@ -793,6 +914,7 @@ def phase_bigvgan_train(device="cuda"):
     on_card = device == "cuda"
     want = {"amp_forward_cuda_launches": BIGVGAN_AMP_CALLS * calls * on_card,
             "amp_backward_cuda_launches": 2 * BIGVGAN_AMP_CALLS * trained * on_card,
+            "amp_conv_backward_cuda_launches": BIGVGAN_TOWER_CONVS * trained * on_card,
             "resblock_conv1d_bf16_launches": 0, "resblock_conv1d_launches": 0,
             "resblock_cluster_backward_cuda_launches": 0}
     launches = {k: s[k] for k in want}
@@ -829,6 +951,30 @@ def amp_main():
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     phase_amp(amp)
+    phase_bigvgan_train()
+    print(json.dumps({"ok": True}), flush=True)
+
+
+def amp_conv_backward_main():
+    """``python3 chip_smoke.py --amp-conv-bwd``: the environment line, the
+    build of the library, ``phase_amp_conv_backward`` and
+    ``phase_bigvgan_train`` alone (a few minutes on one card)."""
+    os.chdir(REPO)
+    sys.path.insert(0, REPO)
+    import torch
+    from neuralsvb_torch.ops import amp_conv
+    if not torch.cuda.is_available():
+        raise RuntimeError("the AMP conv backward's phase needs an NVIDIA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi.splitlines()[0])
+    tf32(False)
+    build_all({"amp_conv_backward": amp_conv.LIBRARY})
+    shutil.rmtree(WORK, ignore_errors=True)
+    os.makedirs(WORK)
+    phase_amp_conv_backward(amp_conv)
     phase_bigvgan_train()
     print(json.dumps({"ok": True}), flush=True)
 
@@ -4466,10 +4612,11 @@ def build_all(libs=None):
     """nvcc for each CUDA source and g++ for the host library (or the
     libraries ``libs`` names), all started together."""
     from neuralsvb_torch import native
-    from neuralsvb_torch.ops import amp_activation, chi2, fused_resblock as fr
+    from neuralsvb_torch.ops import amp_activation, amp_conv, chi2, fused_resblock as fr
     libs = libs or {"resblock_bf16": fr.LIBRARY_BF16, "fused_resblock": fr.LIBRARY,
                     "cluster_backward": fr.LIBRARY_BWD, "chi2_dist": chi2.LIBRARY,
-                    "amp_activation": amp_activation.LIBRARY, "native_dtw": native.LIBRARY}
+                    "amp_activation": amp_activation.LIBRARY,
+                    "amp_conv_backward": amp_conv.LIBRARY, "native_dtw": native.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.get) for lib in libs.values()]:
@@ -4504,7 +4651,7 @@ def main():
          nvidia_smi=smi)
     tf32(False)
 
-    from neuralsvb_torch.ops import amp_activation, chi2, fused_resblock as fr
+    from neuralsvb_torch.ops import amp_activation, amp_conv, chi2, fused_resblock as fr
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     build_all()
@@ -4513,6 +4660,7 @@ def main():
     rows16, rows32, worst16, worst32 = phase_kernel(fr, spec)
     bwd_rows = phase_cluster_backward(fr, spec)
     amp_rows = phase_amp(amp_activation)
+    conv_rows = phase_amp_conv_backward(amp_conv)
     chi2_rows, chi2_worst = phase_chi2(chi2)
     voc = vocoder_keys()
     # the --infer process zeroes its counts at test_start and reports them at
@@ -4657,6 +4805,13 @@ def main():
         "plain_fwd_bwd_ms": total(amp_rows, "plain_fwd_bwd_ms"),
         "bound_ms": total(amp_rows, "fwd_bound_ms") + total(amp_rows, "bwd_bound_ms"),
         "bound_by": amp_rows[0]["bound_by"], "library_ms": None}, {
+        "name": "amp_conv_backward", "route": "cuda",
+        "source": "neuralsvb_torch/csrc/amp_conv_backward.cu", "replaces": None,
+        "bigvgan_train_launches": bigvgan_launches["amp_conv_backward_cuda_launches"],
+        "ms": sum(r["per_step"] * r["kernel_ms"] for r in conv_rows),
+        "plain_ms": sum(r["per_step"] * r["plain_ms"] for r in conv_rows),
+        "bound_ms": sum(r["per_step"] * r["bound_ms"] for r in conv_rows),
+        "bound_by": "operations", "library_ms": None}, {
         "name": "chi2_dist", "route": "cuda",
         "source": "neuralsvb_torch/csrc/chi2_dist.cu",
         "replaces": CHI2_TPU_KERNEL, "launches": chi2_launches,
@@ -4681,5 +4836,7 @@ if __name__ == "__main__":
         cluster_backward_main()
     elif sys.argv[1:2] == ["--amp"]:
         amp_main()
+    elif sys.argv[1:2] == ["--amp-conv-bwd"]:
+        amp_conv_backward_main()
     else:
         main()

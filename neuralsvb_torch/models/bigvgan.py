@@ -9,8 +9,11 @@ Activation1d -> conv_post (no bias) -> clamp to [-1, 1]. There is no
 activation before an upsampling (unlike HiFiGAN) and no tanh at the end.
 Each tower step is ``x = x + c2(A2(c1_d(A1(x))))``; every ``Activation1d``
 runs ``ops.amp_activation.amp_activation``: the fused kernels on the card,
-their plain twins on the CPU. Convolutions stay plain (cuDNN float32 on
-the card), without weight norm, as the port's HiFiGAN. The mel enters as
+their plain twins on the CPU. The towers' convolutions run
+``ops.amp_conv.amp_conv1d``: cuDNN's float32 forward, and a backward in the
+hand-written kernels of ``csrc/amp_conv_backward.cu`` on the card (its
+plain twin on the CPU). The other convolutions stay plain (cuDNN float32
+on the card). There is no weight norm, as in the port's HiFiGAN. The mel enters as
 ``[B, T, num_mels]``, the layout of the vocoder dataset.
 
 MRD: per resolution (n_fft, hop, win) the STFT magnitude of the
@@ -32,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.amp_activation import amp_activation
+from ..ops.amp_conv import amp_conv1d
 from ..utils.profiling import span
 from .common import leaky_relu
 from .hifigan import LRELU_SLOPE, get_padding
@@ -75,7 +79,8 @@ class AMPBlock1(nn.Module):
     def forward(self, x):
         acts1, acts2 = self.activations[::2], self.activations[1::2]
         for c1, c2, a1, a2 in zip(self.convs1, self.convs2, acts1, acts2):
-            x = c2(a2(c1(a1(x)))) + x
+            h = amp_conv1d(a1(x), c1.weight, c1.bias, c1.dilation[0])
+            x = amp_conv1d(a2(h), c2.weight, c2.bias) + x
         return x
 
 

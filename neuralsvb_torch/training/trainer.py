@@ -38,6 +38,7 @@ import yaml
 
 from ..hparams import hparams
 from ..ops.amp_activation import AMP_COUNTERS
+from ..ops.amp_conv import AMP_CONV_COUNTERS
 from ..ops.fused_resblock import KERNEL_COUNTERS
 from ..parallel import ddp
 from ..utils.profiling import span
@@ -45,7 +46,7 @@ from .checkpoint import get_last_checkpoint, load_checkpoint, save_checkpoint
 from .logger import JsonLogger
 
 # the kernels' launch counters the summary reports (``<name>_launches``)
-COUNTERS = KERNEL_COUNTERS + AMP_COUNTERS
+COUNTERS = KERNEL_COUNTERS + AMP_COUNTERS + AMP_CONV_COUNTERS
 # per-process keys of the CLI, not part of a run's configuration
 RUN_KEYS = ("infer", "debug", "validate", "exp_name")
 

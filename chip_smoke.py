@@ -7,7 +7,7 @@ Every phase prints one JSON line; any failure raises.
 
 1. environment: torch / CUDA versions, the card, its power limit;
 2. build, all at once: nvcc builds ``neuralsvb_torch/csrc/resblock_bf16.cu``,
-   ``csrc/fused_resblock.cu``, ``csrc/cluster_backward.cu``,
+   ``csrc/fused_resblock.cu``, ``csrc/dilated_conv_backward.cu``,
    ``csrc/amp_activation.cu`` and ``csrc/chi2_dist.cu`` for sm_90a, g++ the
    port's host DTW/Viterbi library (``neuralsvb_torch/csrc/dtw.cpp``);
    ptxas's lines are printed;
@@ -40,7 +40,8 @@ Every phase prints one JSON line; any failure raises.
    backward calls bit-equal, 1 + 2 launches, device times beside the
    bound and the plain path's (``--amp`` runs the build, this phase and
    phase 4's BigVGAN training alone). The AMP towers' convolution backward
-   (``phase_amp_conv_backward``, ``csrc/amp_conv_backward.cu``) at the same
+   (``phase_amp_conv_backward``, the plain instances of
+   ``csrc/dilated_conv_backward.cu``) at the same
    stage shapes, K 3/7/11 at dilations 1, 3, 5: dx, dW and db against the
    plain twin within 1e-4 and, with the plain f32 path, against float64
    (the worst tensor within 3 times the plain path's), bit-equal over two
@@ -597,7 +598,7 @@ def cluster_backward_main():
     os.chdir(REPO)
     sys.path.insert(0, REPO)
     import torch
-    from neuralsvb_torch.ops import fused_resblock as fr
+    from neuralsvb_torch.ops import dilated_conv, fused_resblock as fr
     if not torch.cuda.is_available():
         raise RuntimeError("the cluster backward's phase needs an NVIDIA card")
     smi = subprocess.run(
@@ -606,7 +607,7 @@ def cluster_backward_main():
     emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi.splitlines()[0])
     tf32(False)
-    build_all({"resblock_bf16": fr.LIBRARY_BF16, "cluster_backward": fr.LIBRARY_BWD})
+    build_all({"resblock_bf16": fr.LIBRARY_BF16, "dilated_conv_backward": dilated_conv.LIBRARY})
     spec = fr.make_spec((3, 7, 11), ((1, 3, 5),) * 3)
     phase_autograd(fr, spec, torch.Generator().manual_seed(0))
     phase_cluster_backward(fr, spec)
@@ -805,8 +806,8 @@ def phase_amp_conv_backward(ac):
                 del ref, plain, got
                 ratio = max(err_k) / max(err_p)
                 ms = device_ms_by(lambda: ac.amp_conv_backward_cuda(x, w, g, d),
-                                  ("tower_conv_dgrad", "tower_conv_wgrad",
-                                   "tower_conv_reduce", ""), n=5)
+                                  ("dilated_conv_dgrad", "dilated_conv_wgrad",
+                                   "dilated_conv_reduce", ""), n=5)
                 call_ms = median_ms(lambda: ac.amp_conv_backward_cuda(x, w, g, d), n=10)
                 xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, bias))
                 y = F.conv1d(xs, ws, bs, padding=pad, dilation=d)
@@ -821,8 +822,8 @@ def phase_amp_conv_backward(ac):
                            launches=launches, bit_equal=bit_equal, vs_twin_max_rel=vs_twin,
                            f64_rel_l2_kernel=err_k, f64_rel_l2_plain=err_p,
                            worst_ratio=ratio, ratio_tol=AMP_CONV_ERR_RATIO,
-                           dgrad_ms=ms["tower_conv_dgrad"], wgrad_ms=ms["tower_conv_wgrad"],
-                           reduce_ms=ms["tower_conv_reduce"], kernel_ms=ms[""],
+                           dgrad_ms=ms["dilated_conv_dgrad"], wgrad_ms=ms["dilated_conv_wgrad"],
+                           reduce_ms=ms["dilated_conv_reduce"], kernel_ms=ms[""],
                            call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound * 1e3,
                            bound_share=share, kernel_tflops=flop / ms[""] / 1e9)
                 emit("amp_conv_backward", **row)
@@ -962,7 +963,7 @@ def amp_conv_backward_main():
     os.chdir(REPO)
     sys.path.insert(0, REPO)
     import torch
-    from neuralsvb_torch.ops import amp_conv
+    from neuralsvb_torch.ops import amp_conv, dilated_conv
     if not torch.cuda.is_available():
         raise RuntimeError("the AMP conv backward's phase needs an NVIDIA card")
     smi = subprocess.run(
@@ -971,7 +972,7 @@ def amp_conv_backward_main():
     emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi.splitlines()[0])
     tf32(False)
-    build_all({"amp_conv_backward": amp_conv.LIBRARY})
+    build_all({"dilated_conv_backward": dilated_conv.LIBRARY})
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     phase_amp_conv_backward(amp_conv)
@@ -4612,11 +4613,10 @@ def build_all(libs=None):
     """nvcc for each CUDA source and g++ for the host library (or the
     libraries ``libs`` names), all started together."""
     from neuralsvb_torch import native
-    from neuralsvb_torch.ops import amp_activation, amp_conv, chi2, fused_resblock as fr
+    from neuralsvb_torch.ops import amp_activation, chi2, dilated_conv, fused_resblock as fr
     libs = libs or {"resblock_bf16": fr.LIBRARY_BF16, "fused_resblock": fr.LIBRARY,
-                    "cluster_backward": fr.LIBRARY_BWD, "chi2_dist": chi2.LIBRARY,
-                    "amp_activation": amp_activation.LIBRARY,
-                    "amp_conv_backward": amp_conv.LIBRARY, "native_dtw": native.LIBRARY}
+                    "dilated_conv_backward": dilated_conv.LIBRARY, "chi2_dist": chi2.LIBRARY,
+                    "amp_activation": amp_activation.LIBRARY, "native_dtw": native.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.get) for lib in libs.values()]:
@@ -4792,7 +4792,7 @@ def main():
         "bound_ms": total(stage32, "bound_ms"), "bound_by": stage32[0]["bound_by"],
         "library_ms": None}, {
         "name": "cluster_bwd", "route": "cuda",
-        "source": "neuralsvb_torch/csrc/cluster_backward.cu", "replaces": None,
+        "source": "neuralsvb_torch/csrc/dilated_conv_backward.cu", "replaces": None,
         "launches_per_stage": bwd_rows[0]["launches"],
         "vocoder_train_step_launches": total(bwd_train, "launches"),
         "ms": total(bwd_train, "kernel_ms"), "plain_ms": total(bwd_train, "plain_ms"),
@@ -4806,7 +4806,7 @@ def main():
         "bound_ms": total(amp_rows, "fwd_bound_ms") + total(amp_rows, "bwd_bound_ms"),
         "bound_by": amp_rows[0]["bound_by"], "library_ms": None}, {
         "name": "amp_conv_backward", "route": "cuda",
-        "source": "neuralsvb_torch/csrc/amp_conv_backward.cu", "replaces": None,
+        "source": "neuralsvb_torch/csrc/dilated_conv_backward.cu", "replaces": None,
         "bigvgan_train_launches": bigvgan_launches["amp_conv_backward_cuda_launches"],
         "ms": sum(r["per_step"] * r["kernel_ms"] for r in conv_rows),
         "plain_ms": sum(r["per_step"] * r["plain_ms"] for r in conv_rows),

@@ -11,7 +11,7 @@ Each tower step is ``x = x + c2(A2(c1_d(A1(x))))``; every ``Activation1d``
 runs ``ops.amp_activation.amp_activation``: the fused kernels on the card,
 their plain twins on the CPU. The towers' convolutions run
 ``ops.amp_conv.amp_conv1d``: cuDNN's float32 forward, and a backward in the
-hand-written kernels of ``csrc/amp_conv_backward.cu`` on the card (its
+hand-written kernels of ``ops/dilated_conv.py`` on the card (its
 plain twin on the CPU). The other convolutions stay plain (cuDNN float32
 on the card). There is no weight norm, as in the port's HiFiGAN. The mel enters as
 ``[B, T, num_mels]``, the layout of the vocoder dataset.

@@ -27,7 +27,8 @@ filter of both resamplings.
   only and recomputes the upsampled signal. There is no fallback from a
   kernel to the plain twin.
 - ``amp_forward_cuda.launches`` and ``amp_backward_cuda.launches`` count the
-  kernel launches (``AMP_COUNTERS``, reported by the trainer's summary).
+  kernel launches (listed in ``ops/counters.py``, reported by the
+  trainer's summary).
 """
 
 from __future__ import annotations
@@ -214,8 +215,6 @@ def amp_backward_cuda(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
 
 amp_forward_cuda.launches = 0
 amp_backward_cuda.launches = 0
-# the launch counters the trainer's summary reports
-AMP_COUNTERS = (amp_forward_cuda, amp_backward_cuda)
 
 
 class _AMP(torch.autograd.Function):

@@ -1,6 +1,5 @@
 """The convolutions of BigVGAN's AMP towers (``AMPBlock1``): a forward in
-cuDNN and a backward in the hand-written kernels of
-``csrc/amp_conv_backward.cu``.
+cuDNN and a backward in the hand-written kernels of ``ops/dilated_conv.py``.
 
 For a stride-1 convolution with K taps at dilation d, zero-padded to keep
 its length (``padding (K - 1) / 2 * d``), weight W [Co, Ci, K] and output
@@ -21,7 +20,7 @@ gradient g [B, Co, T]::
 - ``amp_conv_backward_cuda`` launches the dgrad on the current stream and
   the wgrad with its fixed-order reduction on a second stream, and makes
   the current stream wait for the second before it returns. It takes f32
-  tensors and K in ``KERNEL_SIZES``.
+  tensors and K in ``dilated_conv.PLAIN_KS``.
 - ``amp_conv_backward_cuda.launches`` counts the convolution backwards run
   through the kernels (each one dgrad, one wgrad and one reduction
   launch); the trainer's summary reports it.
@@ -29,20 +28,12 @@ gradient g [B, Co, T]::
 
 from __future__ import annotations
 
-import ctypes
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .fused_resblock import _side_stream  # the device's second stream, made at first use
-from .shared_lib import NVCC, NVCC_FLAGS, SharedLibrary
-
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "amp_conv_backward.cu"
-KERNEL_SIZES = (3, 7, 11)  # the AMP towers' kernel sizes, the ones the kernels are built for
-WGRAD_BLOCKS = 1056        # about eight wgrad blocks per SM over a launch
-WGRAD_ITEM = 64            # lattice positions per work item of the wgrad kernel
+from . import dilated_conv as dc
 
 
 def _pad(k: int, d: int) -> int:
@@ -63,109 +54,43 @@ def amp_conv_backward_plain(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     return dx, dw.transpose(0, 1), g.sum((0, 2))
 
 
-# -- the kernels -------------------------------------------------------------
-
-def _bind(lib) -> None:
-    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.nsvb_tower_dgrad.argtypes = [vp, vp, vp] + [ci] * 7 + [vp]
-    lib.nsvb_tower_wgrad.argtypes = [vp, vp, vp] + [ci] * 8 + [vp]
-    lib.nsvb_tower_reduce.argtypes = [vp, vp, vp, cll, cll, ci, ci, vp]
-    for fn in (lib.nsvb_tower_dgrad, lib.nsvb_tower_wgrad, lib.nsvb_tower_reduce):
-        fn.restype = ci
-
-
-LIBRARY = SharedLibrary("nsvb_amp_conv_backward", SOURCE, NVCC, NVCC_FLAGS, _bind)
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(s: "torch.cuda.Stream") -> ctypes.c_void_p:
-    return ctypes.c_void_p(s.cuda_stream)
-
-
-def _tile(c: int) -> int:
-    """The widest channel tile of 64, 32, 16, 8 that divides ``c`` (8 when
-    none does: the kernels mask the rest)."""
-    t = 64
-    while t > 8 and c % t:
-        t //= 2
-    return t
-
-
-def wgrad_slices(co: int, ci: int, k: int, B: int, T: int) -> int:
-    """Slices of the wgrad kernel's sum over positions: about
-    ``WGRAD_BLOCKS`` blocks, and no more slices than the undilated conv has
-    work items (B x ceil(T / 64))."""
-    col = _tile(co) // 8
-    tiles = -(-co // (8 * col)) * -(-ci // (32 if k <= 5 else 16))
-    return max(1, min(-(-WGRAD_BLOCKS // tiles), B * -(-T // WGRAD_ITEM)))
-
-
-def _checked(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor, d: int):
+def amp_conv_backward_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                           d: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``amp_conv_backward_plain`` in the plain instances of
+    ``ops/dilated_conv.py``: (dx, dW, db). The wgrad and its reduction run
+    on the device's second stream, concurrently with the dgrad on the
+    current stream. The current stream waits for the second before this
+    returns, so the tensors the second reads or writes (x, g, dW, db, the
+    workspace made on it) need no ``record_stream``. Takes f32 tensors and
+    K in ``dilated_conv.PLAIN_KS``."""
+    name = "amp_conv_backward_cuda"
     if x.dim() != 3 or w.dim() != 3 or g.dim() != 3:
-        raise ValueError(f"amp_conv_backward_cuda takes x [B, Ci, T], w [Co, Ci, K], g [B, Co, T];"
+        raise ValueError(f"{name} takes x [B, Ci, T], w [Co, Ci, K], g [B, Co, T];"
                          f" got {tuple(x.shape)}, {tuple(w.shape)}, {tuple(g.shape)}")
     B, ci, T = x.shape
     co, _, k = w.shape
-    for name, t, shape in (("x", x, (B, ci, T)), ("w", w, (co, ci, k)), ("g", g, (B, co, T))):
-        if t.dtype != torch.float32 or t.device != x.device or tuple(t.shape) != shape:
-            raise ValueError(f"amp_conv_backward_cuda: {name} must be f32 {shape} on {x.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if k not in KERNEL_SIZES or int(d) < 1 or B > 65535:
-        raise ValueError(f"amp_conv_backward_cuda takes K in {KERNEL_SIZES}, d >= 1 and "
-                         f"B <= 65535; got K={k} d={d} B={B}")
-    if x.device.type != "cuda":
-        raise ValueError(f"amp_conv_backward_cuda launches CUDA kernels; got x on {x.device}")
-    return x.contiguous(), w.contiguous(), g.contiguous()
-
-
-def _launched(name: str, err: int, **shape) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({shape})")
-
-
-def amp_conv_backward_cuda(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                           d: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``amp_conv_backward_plain`` in the kernels: (dx, dW, db). The dgrad
-    runs on the current stream; the wgrad and its reduction on the
-    device's second stream, concurrently with it. The current stream waits
-    for the second before this returns, so the tensors the second reads or
-    writes (x, g, dW, db, the workspace made on it) need no
-    ``record_stream``."""
-    x, w, g = _checked(x, w, g, d)
-    B, ci, T = x.shape
-    co, _, k = w.shape
-    lib = LIBRARY.get()
-    dev = x.device
-    main, side = torch.cuda.current_stream(dev), _side_stream(dev)
-    with torch.cuda.device(dev):
-        side.wait_stream(main)  # x and g are written
-        n = co * ci * k + co
-        ns = wgrad_slices(co, ci, k, B, T)
-        dw = torch.empty(co, ci, k, device=dev)
-        db = torch.empty(co, device=dev)
-        with torch.cuda.stream(side):
-            parts = torch.empty(ns, n, device=dev)
-            err = lib.nsvb_tower_wgrad(_ptr(g), _ptr(x), _ptr(parts), B, co, ci, T, k, int(d),
-                                       ns, _tile(co) // 8, _stream(side))
-            _launched("tower_conv_wgrad", err, B=B, Co=co, Ci=ci, T=T, k=k, d=d)
-            err = lib.nsvb_tower_reduce(_ptr(parts), _ptr(dw), _ptr(db), co * ci * k, n, ns,
-                                        8 if ns >= 32 else 1, _stream(side))
-            _launched("tower_conv_reduce", err, slices=ns, n=n)
-        dx = torch.empty_like(x)
-        err = lib.nsvb_tower_dgrad(_ptr(g), _ptr(w), _ptr(dx), B, co, ci, T, k, int(d),
-                                   _tile(ci), _stream(main))
-        _launched("tower_conv_dgrad", err, B=B, Co=co, Ci=ci, T=T, k=k, d=d)
-        main.wait_stream(side)
+    x, g = x.contiguous(), g.contiguous()
+    dev = dc.check(name, k, d, False, ("x", x, (B, ci, T)), ("w", w, (co, ci, k)),
+                   ("g", g, (B, co, T)), strided=("w",))
+    main, side = torch.cuda.current_stream(dev), dc.side_stream(dev)
+    nw = co * ci * k
+    ns = dc.wgrad_slices(co, ci, k, B, T, lrelu=False)
+    flat = torch.empty(nw + co, device=dev)
+    side.wait_stream(main)  # x and g are written
+    with torch.cuda.stream(side):
+        parts = torch.empty(ns, nw + co, device=dev)
+        dc.wgrad(g, x, d, parts.narrow(1, 0, nw).view(ns, co, ci, k), parts.narrow(1, nw, co),
+                 lrelu=False)
+        dc.reduce(parts, flat)
+    dx = torch.empty_like(x)
+    # the dgrad reads W [Co, Ci, K] as [Co, K, Ci]: its channels swapped
+    dc.conv(g, w.permute(0, 2, 1), d, dx, lrelu=False, dgrad=True)
+    main.wait_stream(side)
     amp_conv_backward_cuda.launches += 1
-    return dx, dw, db
+    return dx, flat.narrow(0, 0, nw).view(co, ci, k), flat.narrow(0, nw, co)
 
 
 amp_conv_backward_cuda.launches = 0
-# the launch counters the trainer's summary reports
-AMP_CONV_COUNTERS = (amp_conv_backward_cuda,)
 
 
 class _AMPConv(torch.autograd.Function):

@@ -28,9 +28,10 @@ modules/hifigan/hifigan.py:144-169).
 - The backward (``_Cluster``) recomputes the cluster in f32 and takes its
   gradients, as the JAX ``custom_vjp`` does, in the decomposition of
   ``resblock_cluster_backward_plain``: on the CPU that function itself
-  (F.conv1d), on CUDA ``resblock_cluster_backward_cuda``, f32 FFMA kernels
-  of ``csrc/cluster_backward.cu`` (recompute, dgrad and wgrad, 18 launches
-  per tower of three steps). Neither calls the plain forward or cuDNN.
+  (F.conv1d), on CUDA ``resblock_cluster_backward_cuda``, a schedule of
+  the f32 FFMA kernels of ``ops/dilated_conv.py`` (recompute, dgrad and
+  wgrad, 18 launches per tower of three steps). Neither calls the plain
+  forward or cuDNN.
 - The kernel libraries are built with ``nvcc`` from the package's sources
   at first use, into ``build/kernels/`` of the checkout, and loaded with
   ``ctypes`` (``shared_lib.SharedLibrary``).
@@ -43,11 +44,12 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from . import dilated_conv as dc
 from .shared_lib import NVCC, NVCC_FLAGS, SharedLibrary
 
 LRELU_SLOPE = 0.1
@@ -58,7 +60,6 @@ ClusterSpec = Tuple[Tuple[int, Tuple[int, ...]], ...]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCE = CSRC / "fused_resblock.cu"
 SOURCE_BF16 = CSRC / "resblock_bf16.cu"
-SOURCE_BWD = CSRC / "cluster_backward.cu"
 MM_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -213,21 +214,9 @@ def _bind_bf16(lib) -> None:
     lib.nsvb_lrelu_bf16.restype = ci
 
 
-def _bind_bwd(lib) -> None:
-    vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.nsvb_cluster_bwd_conv.argtypes = [vp, vp, vp, vp, vp, vp] + [ci] * 9 + [cf, cf, vp]
-    lib.nsvb_cluster_bwd_wgrad.argtypes = [vp, vp, vp, vp] + [ci] * 7 + [cll, cf, vp]
-    lib.nsvb_cluster_bwd_reduce.argtypes = [vp, vp, cll, ci, vp]
-    for fn in (lib.nsvb_cluster_bwd_conv, lib.nsvb_cluster_bwd_wgrad,
-               lib.nsvb_cluster_bwd_reduce):
-        fn.restype = ci
-
-
 LIBRARY = SharedLibrary("nsvb_fused_resblock", SOURCE, NVCC, NVCC_FLAGS, _bind)
 LIBRARY_BF16 = SharedLibrary("nsvb_resblock_bf16", SOURCE_BF16, NVCC, NVCC_FLAGS,
                              _bind_bf16)
-LIBRARY_BWD = SharedLibrary("nsvb_cluster_backward", SOURCE_BWD, NVCC, NVCC_FLAGS,
-                            _bind_bwd)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -359,129 +348,30 @@ def resblock_conv1d_bf16(op: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
 
 resblock_conv1d_bf16.launches = 0
 
-BWD_KS = (3, 5, 7, 9, 11)  # the kernel sizes the backward kernels are built for
-WGRAD_BLOCKS = 1056   # about eight wgrad blocks per SM over a launch
-WGRAD_ITEM = 64       # lattice positions per work item of the wgrad kernel
-
-
-def _bwd_launched(name: str, err: int, **shape) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({shape})")
-    resblock_cluster_backward_cuda.launches += 1
-
-
-def cluster_bwd_conv(inp: torch.Tensor, w: torch.Tensor, k: int, d: int,
-                     out: torch.Tensor, *, dgrad: bool,
-                     bias: Optional[torch.Tensor] = None,
-                     mask: Optional[torch.Tensor] = None,
-                     res: Optional[torch.Tensor] = None, accumulate: bool = False,
-                     in_scale: float = 1.0, res_scale: float = 1.0) -> None:
-    """One launch of the backward's conv kernel on the current stream.
-
-    Recompute (``dgrad`` False): ``out = bias + conv_{k,d}(lrelu(inp)) (+
-    res)`` with ``w`` [C_in, k, ldw] (element [i, j, o] the weight from
-    input i to output o at tap j). dgrad: ``v = conv with flipped taps of
-    inp * in_scale``, ``v *= lrelu'(mask)``, ``v += res * res_scale``, then
-    ``out = v`` or (``accumulate``) ``out += v``, with ``w`` the packed
-    weight [C_out, k, ldw] of the forward conv. ``ldw`` >= C (a multiple of
-    4, zero columns beyond C). All f32, contiguous, on one CUDA device."""
-    _need_cuda("cluster_bwd_conv", inp)
-    B, Cr, T = inp.shape
-    dev = inp.device
-    Co, ldw = out.shape[1], w.shape[-1]
-    _check(inp, "inp", (B, Cr, T), dev)
-    _check(w, "w", (Cr, k, ldw), dev)
-    _check(out, "out", (B, Co, T), dev)
-    for name, t, shape in (("bias", bias, (Co,)), ("mask", mask, (B, Co, T)),
-                           ("res", res, (B, Co, T))):
-        if t is not None:
-            _check(t, name, shape, dev)
-    if ldw < Co or ldw % 4 or k not in BWD_KS or d < 1:
-        raise ValueError(f"cluster_bwd_conv takes k in {BWD_KS}, d >= 1 and ldw >= C_out, "
-                         f"a multiple of 4; got k={k} d={d} ldw={ldw} Co={Co}")
-    lib = LIBRARY_BWD.get()
-    with torch.cuda.device(dev):
-        err = lib.nsvb_cluster_bwd_conv(
-            _ptr(inp), _ptr(w), _ptr(bias), _ptr(mask), _ptr(res), _ptr(out), B, Cr, Co, T,
-            int(k), int(d), ldw, int(dgrad), int(accumulate), float(in_scale),
-            float(res_scale), _stream(dev))
-    _bwd_launched("cluster_bwd_conv", err, B=B, Cr=Cr, Co=Co, T=T, k=k, d=d, dgrad=dgrad)
-
-
-def wgrad_slices(C: int, k: int, B: int, T: int) -> int:
-    """Slices of the wgrad kernel's sum over positions, the same for every
-    dilation: about ``WGRAD_BLOCKS`` blocks, and no more slices than the
-    undilated conv has work items (B x ceil(T / 64))."""
-    tiles = -(-C // 64) * -(-C // (32 if k <= 5 else 16))
-    return max(1, min(-(-WGRAD_BLOCKS // tiles), B * -(-T // WGRAD_ITEM)))
-
-
-def cluster_bwd_wgrad(g: torch.Tensor, a: torch.Tensor, k: int, d: int,
-                      parts: torch.Tensor, w_off: int, b_off: Optional[int],
-                      g_scale: float = 1.0) -> None:
-    """One launch of the wgrad kernel: each slice s (row of ``parts``) gets
-    at ``parts[s, w_off:]`` its share of the packed [C_out, k, C_in]
-    gradient ``g_scale * corr(g, lrelu(a))`` of a conv_{k,d} and, unless
-    ``b_off`` is None, at ``parts[s, b_off:]`` its share of the [C_out] sum
-    of ``g_scale * g``; ``cluster_bwd_reduce`` adds the slices."""
-    _need_cuda("cluster_bwd_wgrad", g)
-    B, Co, T = g.shape
-    Ci = a.shape[1]
-    dev = g.device
-    _check(g, "g", (B, Co, T), dev)
-    _check(a, "a", (B, Ci, T), dev)
-    ns, stride = parts.shape
-    _check(parts, "parts", (ns, stride), dev)
-    if w_off + Co * k * Ci > stride or (b_off is not None and b_off + Co > stride):
-        raise ValueError(f"cluster_bwd_wgrad: workspace rows of {stride} do not hold "
-                         f"[{Co}, {k}, {Ci}] at {w_off} and a bias at {b_off}")
-    if k not in BWD_KS or d < 1:
-        raise ValueError(f"cluster_bwd_wgrad takes k in {BWD_KS} and d >= 1, got k={k} d={d}")
-    base = parts.data_ptr()
-    lib = LIBRARY_BWD.get()
-    with torch.cuda.device(dev):
-        err = lib.nsvb_cluster_bwd_wgrad(
-            _ptr(g), _ptr(a), ctypes.c_void_p(base + 4 * w_off),
-            None if b_off is None else ctypes.c_void_p(base + 4 * b_off),
-            B, Co, Ci, T, int(k), int(d), ns, stride, float(g_scale), _stream(dev))
-    _bwd_launched("cluster_bwd_wgrad", err, B=B, Co=Co, Ci=Ci, T=T, k=k, d=d)
-
-
-def cluster_bwd_reduce(parts: torch.Tensor, out: torch.Tensor) -> None:
-    """One launch: ``out = parts.sum(0)``, the slices added in order."""
-    _need_cuda("cluster_bwd_reduce", parts)
-    ns, n = parts.shape
-    _check(parts, "parts", (ns, n), parts.device)
-    _check(out, "out", (n,), parts.device)
-    lib = LIBRARY_BWD.get()
-    with torch.cuda.device(parts.device):
-        err = lib.nsvb_cluster_bwd_reduce(_ptr(parts), _ptr(out), n, ns,
-                                          _stream(parts.device))
-    _bwd_launched("cluster_bwd_reduce", err, slices=ns, n=n)
-
 
 def _rows4(w: torch.Tensor) -> torch.Tensor:
-    # contiguous, the last dim zero-padded to a multiple of 4 (16-byte rows)
+    # w in contiguous rows of a multiple of 4 floats (16 bytes), zero-padded
+    # past the last dim where it is not one
     pad = -w.shape[-1] % 4
-    return F.pad(w, (0, pad)) if pad else w.contiguous()
+    return F.pad(w, (0, pad))[..., :w.shape[-1]] if pad else w.contiguous()
 
 
 def resblock_cluster_backward_cuda(x: torch.Tensor, weights: Sequence[torch.Tensor],
                                    spec: ClusterSpec, g: torch.Tensor,
                                    need_dx: bool = True):
-    """``resblock_cluster_backward_plain`` in the kernels of
-    ``csrc/cluster_backward.cu``, tower by tower: the recompute (2n - 1
-    launches for n steps), per step from the top a dgrad of the second conv
+    """``resblock_cluster_backward_plain`` in the lrelu instances of
+    ``ops/dilated_conv.py``, tower by tower: the recompute (2n - 1 launches
+    for n steps), per step from the top a dgrad of the second conv
     (``g_y``), a wgrad of it, a dgrad of the first (the next ``g``, or the
     stage input's gradient, which the towers add into in tower order), a
     wgrad of it, then one reduction of the tower's slices: 6n launches per
     tower (one less without ``need_dx``). Returns f32 gradients.
 
     The recompute and the dgrad chain run on the current stream; the wgrads
-    and the reductions, which nothing in the chain waits for, on a second
-    stream of the device, so that they fill the chain's partial last waves.
-    The current stream waits for the second before the function returns.
-    Kernel sizes: ``BWD_KS``."""
+    and the reductions, which nothing in the chain waits for, on the
+    device's second stream, so that they fill the chain's partial last
+    waves. The current stream waits for the second before the function
+    returns. Kernel sizes: ``dilated_conv.LRELU_KS``."""
     _need_cuda("resblock_cluster_backward_cuda", x)
     x = x.to(torch.float32).contiguous()
     g = g.to(torch.float32).contiguous()
@@ -490,62 +380,65 @@ def resblock_cluster_backward_cuda(x: torch.Tensor, weights: Sequence[torch.Tens
     gx = torch.empty_like(x) if need_dx else None
     grads: List[torch.Tensor] = []
     main = torch.cuda.current_stream(x.device)
-    side = _side_stream(x.device)
+    side = dc.side_stream(x.device)
     side.wait_stream(main)
+    first = dc.launches
     for r, (k, dils) in enumerate(spec):
         wa, ba, wb, bb = (t.detach().to(torch.float32).contiguous()
                           for t in weights[4 * r: 4 * r + 4])
         steps = len(dils)
-        wa_f, wb_f = (_rows4(w.permute(0, 3, 2, 1)) for w in (wa, wb))  # [n, C_in, k, C_out]
-        wa_d, wb_d = _rows4(wa), _rows4(wb)  # [n, C_out, k, C_in]: dgrad flips the taps
+        # the kernels read [C_r, k, C_out] weights in 16-byte rows: the
+        # dgrad the packed [n, C_out, k, C_in] as it is, the recompute a
+        # transposed copy [n, C_in, k, C_out]
+        wa_f, wb_f = (_rows4(w.permute(0, 3, 2, 1)) for w in (wa, wb))
+        wa_d, wb_d = _rows4(wa), _rows4(wb)
         curs = [x] + [torch.empty_like(x) for _ in range(steps - 1)]
         ys = [torch.empty_like(x) for _ in range(steps)]
         for j, d in enumerate(dils):
-            cluster_bwd_conv(curs[j], wa_f[j], k, d, ys[j], dgrad=False, bias=ba[j])
+            dc.conv(curs[j], wa_f[j], d, ys[j], lrelu=True, dgrad=False, bias=ba[j])
             if j + 1 < steps:
-                cluster_bwd_conv(ys[j], wb_f[j], k, 1, curs[j + 1], dgrad=False, bias=bb[j],
-                                 res=curs[j])
+                dc.conv(ys[j], wb_f[j], 1, curs[j + 1], lrelu=True, dgrad=False, bias=bb[j],
+                        res=curs[j])
         sizes = [t.numel() for t in (wa, ba, wb, bb)]
         offs = [sum(sizes[:i]) for i in range(4)]
         per = C * k * C
-        parts = torch.empty(wgrad_slices(C, k, B, T), sum(sizes), device=x.device)
+        ns = dc.wgrad_slices(C, C, k, B, T, lrelu=True)
+        parts = torch.empty(ns, sum(sizes), device=x.device)
         flat = torch.empty(sum(sizes), device=x.device)
+
+        # the slices of step j's gradients in tensor i (one view each, as the
+        # launches take them): dW packed [C_out, k, C_in] as [C_out, C_in, k]
+        def dw(i, j):
+            return parts.as_strided((ns, C, C, k), (parts.stride(0), k * C, 1, C),
+                                    offs[i] + j * per)
+
+        def db(i, j):
+            return parts.as_strided((ns, C), (parts.stride(0), 1), offs[i] + j * C)
+
         gys = [torch.empty_like(x) for _ in range(steps)]
         gcs = [torch.empty_like(x) for _ in range(steps - 1)]
         gc, scale = g, 1.0 / n
         for j in reversed(range(steps)):
             d = dils[j]
-            cluster_bwd_conv(gc, wb_d[j], k, 1, gys[j], dgrad=True, mask=ys[j], in_scale=scale)
+            dc.conv(gc, wb_d[j], 1, gys[j], lrelu=True, dgrad=True, mask=ys[j], in_scale=scale)
             side.wait_stream(main)  # g, the step's y, cur and g_y are written
             with torch.cuda.stream(side):
-                cluster_bwd_wgrad(gc, ys[j], k, 1, parts, offs[2] + j * per, offs[3] + j * C,
-                                  scale)
-                cluster_bwd_wgrad(gys[j], curs[j], k, d, parts, offs[0] + j * per,
-                                  offs[1] + j * C)
+                dc.wgrad(gc, ys[j], 1, dw(2, j), db(3, j), lrelu=True, g_scale=scale)
+                dc.wgrad(gys[j], curs[j], d, dw(0, j), db(1, j), lrelu=True)
             nxt = None
             if j > 0 or need_dx:
                 nxt = gx if j == 0 else gcs[j - 1]
-                cluster_bwd_conv(gys[j], wa_d[j], k, d, nxt, dgrad=True, mask=curs[j], res=gc,
-                                 res_scale=scale, accumulate=j == 0 and r > 0)
+                dc.conv(gys[j], wa_d[j], d, nxt, lrelu=True, dgrad=True, mask=curs[j], res=gc,
+                        res_scale=scale, accumulate=j == 0 and r > 0)
             gc, scale = nxt, 1.0
         with torch.cuda.stream(side):
-            cluster_bwd_reduce(parts, flat)
+            dc.reduce(parts, flat)
         for t in (g, *curs, *ys, *gys, *gcs, parts, flat):
             t.record_stream(side)  # not reused before the side stream is done with it
         grads += [flat[o: o + s].view_as(t) for o, s, t in zip(offs, sizes, (wa, ba, wb, bb))]
     main.wait_stream(side)
+    resblock_cluster_backward_cuda.launches += dc.launches - first
     return gx, grads
-
-
-_SIDE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
-
-
-def _side_stream(device: torch.device) -> "torch.cuda.Stream":
-    """The backward's second stream on ``device``, made at first use."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _SIDE_STREAMS:
-        _SIDE_STREAMS[index] = torch.cuda.Stream(device=device)
-    return _SIDE_STREAMS[index]
 
 
 resblock_cluster_backward_cuda.launches = 0

@@ -37,16 +37,12 @@ import torch
 import yaml
 
 from ..hparams import hparams
-from ..ops.amp_activation import AMP_COUNTERS
-from ..ops.amp_conv import AMP_CONV_COUNTERS
-from ..ops.fused_resblock import KERNEL_COUNTERS
+from ..ops.counters import COUNTERS
 from ..parallel import ddp
 from ..utils.profiling import span
 from .checkpoint import get_last_checkpoint, load_checkpoint, save_checkpoint
 from .logger import JsonLogger
 
-# the kernels' launch counters the summary reports (``<name>_launches``)
-COUNTERS = KERNEL_COUNTERS + AMP_COUNTERS + AMP_CONV_COUNTERS
 # per-process keys of the CLI, not part of a run's configuration
 RUN_KEYS = ("infer", "debug", "validate", "exp_name")
 

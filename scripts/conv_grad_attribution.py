@@ -18,7 +18,7 @@ sums their device time per traced step by group:
 Each group's time is split into ``dgrad`` (kernels named ``dgrad``),
 ``wgrad`` (named ``wgrad``) and ``other`` (the bias's reduction and the
 rest), with the kernels' names. Where the towers' backward runs the
-program's own kernels (``tower_conv_*``, launched from ``amp_conv1d``'s
+program's own kernels (``dilated_conv_*``, launched from ``amp_conv1d``'s
 backward, not from a ``convolution_backward``), ``tower_kernels`` gives
 their device ms and launches per step by kernel. Also prints
 ``unmatched_ms``: the traced steps' other kernels named like a
@@ -39,7 +39,8 @@ from collections import defaultdict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGE_CHANNELS = (768, 384, 192, 96, 48, 24)
-TOWER_KERNELS = "tower_conv_"  # the towers' own backward kernels (ops/amp_conv.py)
+# the towers' own backward kernels (ops/dilated_conv.py; the cell runs no other caller)
+TOWER_KERNELS = "dilated_conv_"
 
 
 def group_of(shapes):

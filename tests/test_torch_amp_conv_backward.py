@@ -14,6 +14,7 @@ F = torch.nn.functional
 
 from neuralsvb_torch.models import bigvgan  # noqa: E402
 from neuralsvb_torch.ops import amp_conv  # noqa: E402
+from neuralsvb_torch.ops import dilated_conv as dc  # noqa: E402
 from neuralsvb_torch.training import trainer  # noqa: E402
 
 
@@ -143,17 +144,31 @@ def test_backward_on_another_device_raises():
         y.backward(torch.ones_like(y))
 
 
+# the ResBlock cluster's backward shapes (B, C, T, k) and its wgrad slices
+# as the cluster's own formula gave them before the two backwards shared
+# their kernels: ceil(1056 / (ceil(C / 64) ceil(C / (32 if k <= 5 else 16))))
+# blocks, at most B ceil(T / 64)
+CLUSTER_SLICES = (((16, 256, 512, 3), 33), ((16, 256, 512, 7), 17), ((16, 256, 512, 11), 17),
+                  ((16, 128, 4096, 3), 132), ((16, 128, 4096, 11), 66),
+                  ((16, 64, 8192, 3), 528), ((16, 64, 8192, 7), 264), ((1, 64, 704, 5), 11))
+
+
 def test_tiles_and_slices():
-    """The widest channel tile that divides C (so no tile masks most of
-    its lanes at the towers' 768 ... 24 channels), and wgrad slices
-    bounded by the work items."""
-    assert [amp_conv._tile(c) for c in (768, 384, 192, 96, 48, 24, 40)] == \
+    """The widest channel tile that divides C for the plain instances (so no
+    tile masks most of its lanes at the towers' 768 ... 24 channels), 64
+    for the cluster's lrelu ones, and wgrad slices bounded by the work
+    items: the cluster's as before."""
+    assert [dc._tile(c, False) for c in (768, 384, 192, 96, 48, 24, 40)] == \
         [64, 64, 64, 32, 16, 8, 8]
-    assert amp_conv.wgrad_slices(768, 768, 11, 4, 1024) == 2
-    assert amp_conv.wgrad_slices(24, 24, 3, 4, 65536) == 352  # 3 x 1 tiles
-    assert amp_conv.wgrad_slices(64, 64, 3, 1, 64) == 1
+    assert {dc._tile(c, True) for c in (512, 256, 128, 64, 40)} == {64}
+    assert dc.wgrad_slices(768, 768, 11, 4, 1024, lrelu=False) == 2
+    assert dc.wgrad_slices(24, 24, 3, 4, 65536, lrelu=False) == 352  # 3 x 1 tiles
+    assert dc.wgrad_slices(64, 64, 3, 1, 64, lrelu=False) == 1
+    for (B, C, T, k), want in CLUSTER_SLICES:
+        assert dc.wgrad_slices(C, C, k, B, T, lrelu=True) == want, (B, C, T, k)
+        assert dc.wgrad_slices(C, C, k, B, T, lrelu=False) == want, (B, C, T, k)
     assert amp_conv.amp_conv_backward_cuda in trainer.COUNTERS
-    assert amp_conv.KERNEL_SIZES == (3, 7, 11)
+    assert dc.PLAIN_KS == (3, 7, 11) and dc.LRELU_KS == (3, 5, 7, 9, 11)
 
 
 def _card():

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from neuralsvb_torch.ops import chi2  # noqa: E402
+from neuralsvb_torch.ops import dilated_conv as dc  # noqa: E402
 from neuralsvb_torch.ops import fused_resblock as fr  # noqa: E402
 from neuralsvb_torch.ops import shared_lib  # noqa: E402
 
@@ -37,7 +38,7 @@ def test_import_needs_no_toolkit():
 def test_build_without_nvcc_raises():
     if shutil.which("nvcc"):
         pytest.skip("a CUDA toolkit is present here")
-    for lib in (fr.LIBRARY, fr.LIBRARY_BF16, fr.LIBRARY_BWD, chi2.LIBRARY):
+    for lib in (fr.LIBRARY, fr.LIBRARY_BF16, dc.LIBRARY, chi2.LIBRARY):
         for _ in range(2):  # raises every time: no cached fallback
             with pytest.raises(RuntimeError, match="nvcc"):
                 lib.get()
@@ -55,26 +56,26 @@ def test_launch_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fr.lrelu_bf16(x, xb.transpose(1, 2).contiguous())
     with pytest.raises(ValueError, match="CUDA"):
-        fr.cluster_bwd_conv(x, torch.zeros(64, 3, 64), 3, 1, x, dgrad=True)
+        dc.conv(x, torch.zeros(64, 3, 64), 1, x, lrelu=True, dgrad=True)
     with pytest.raises(ValueError, match="CUDA"):
-        fr.cluster_bwd_wgrad(x, x, 3, 1, torch.zeros(2, 64 * 3 * 64), 0, None)
+        dc.wgrad(x, x, 1, torch.zeros(2, 64, 64, 3), None, lrelu=True)
     with pytest.raises(ValueError, match="CUDA"):
-        fr.cluster_bwd_reduce(torch.zeros(2, 8), torch.zeros(8))
+        dc.reduce(torch.zeros(2, 8), torch.zeros(8))
     with pytest.raises(ValueError, match="CUDA"):
         fr.resblock_cluster_backward_cuda(x, [], (), x)
 
 
 def test_backward_bindings_match_the_c_interface():
-    """Every entry point of ``csrc/cluster_backward.cu`` is bound with one
-    ctypes type per C parameter, pointers as ``c_void_p``."""
-    src = fr.SOURCE_BWD.read_text()
+    """Every entry point of ``csrc/dilated_conv_backward.cu``, which both the
+    cluster's and the AMP towers' backward launch, is bound with one ctypes
+    type per C parameter, pointers as ``c_void_p``."""
+    src = dc.SOURCE.read_text()
     lib = types.SimpleNamespace()
     entries = re.findall(r'extern "C" int (nsvb_\w+)\(([^)]*)\)', src)
     for name, _ in entries:
         setattr(lib, name, types.SimpleNamespace())
-    fr._bind_bwd(lib)
-    assert {n for n, _ in entries} == {"nsvb_cluster_bwd_conv", "nsvb_cluster_bwd_wgrad",
-                                       "nsvb_cluster_bwd_reduce"}
+    dc._bind(lib)
+    assert {n for n, _ in entries} == {"nsvb_dconv", "nsvb_dconv_wgrad", "nsvb_dconv_reduce"}
     for name, params in entries:
         params = [p.strip() for p in params.split(",")]
         argtypes = getattr(lib, name).argtypes

@@ -137,5 +137,7 @@ def test_device_busy_merges_overlapping_streams():
                                     ("ampere_sgemm_128x64", pytest.approx(1e-4), 1)]
     assert P.kernel_kind("void cutlass::Kernel2<cutlass_80_simt_sgemm>") == "matmul (cuBLAS)"
     assert P.kernel_kind("something_new") == "other"
-    assert P.kernel_kind("void (anonymous namespace)::cluster_bwd_wgrad_kernel") == \
-        "ResBlock cluster backward kernels"
+    for name in ("dilated_conv_dgrad_kernel<3, 64, true>",
+                 "dilated_conv_wgrad_kernel<11, 1, false>", "dilated_conv_reduce_kernel"):
+        assert P.kernel_kind(f"void (anonymous namespace)::{name}") == \
+            "conv backward kernels (hand-written)"

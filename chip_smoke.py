@@ -8,7 +8,8 @@ Every phase prints one JSON line; any failure raises.
 1. environment: torch / CUDA versions, the card, its power limit;
 2. build, all at once: nvcc builds ``neuralsvb_torch/csrc/resblock_bf16.cu``,
    ``csrc/fused_resblock.cu``, ``csrc/dilated_conv_backward.cu``,
-   ``csrc/amp_activation.cu`` and ``csrc/chi2_dist.cu`` for sm_90a, g++ the
+   ``csrc/amp_activation.cu``, ``csrc/mrd_conv_backward.cu`` and
+   ``csrc/chi2_dist.cu`` for sm_90a, g++ the
    port's host DTW/Viterbi library (``neuralsvb_torch/csrc/dtw.cpp``);
    ptxas's lines are printed;
 3. kernel vs plain, TF32 off for every plain reference. The bf16
@@ -47,7 +48,15 @@ Every phase prints one JSON line; any failure raises.
    (the worst tensor within 3 times the plain path's), bit-equal over two
    calls, device times by kernel beside the step's least time and the
    plain path's (``--amp-conv-bwd`` runs the build, this phase and phase
-   4's BigVGAN training alone). Then the chi-square DTW cost
+   4's BigVGAN training alone). BigVGAN's MRD convolution backward
+   (``phase_mrd_conv_backward``, ``csrc/mrd_conv_backward.cu``) at the
+   cell's 18 layer shapes: dx, dW and db from cuDNN's forward against the
+   plain twin within 1e-4 and against float64 (each tensor within 3 times
+   the plain f32 path's error of that tensor), bit-equal over two calls,
+   device times of a step's three calls a layer (the discriminators' two,
+   the generator's one) by kernel beside the least time and cuDNN's
+   autograd (``--mrd-conv-bwd`` runs the builds, this phase
+   and phase 4's BigVGAN training alone). Then the chi-square DTW cost
    kernel against its plain version at (S, T) = (2400, 2400), (1037,
    1301), (130, 70), (1, 1), M = 48, on
    EHSADTW histograms of vibrato f0 and on random rows with all-zero rows,
@@ -75,8 +84,9 @@ Every phase prints one JSON line; any failure raises.
    samples) on a synthetic 24 kHz split, seeded weights, 3 steps of the
    generator, MPD and MRD and 2 validations of 2 items: losses finite with
    their keys; from the summary, 109 forward AMP launches per generator
-   call (training and validation) and 218 backward per step, none of the
-   HiFiGAN cluster's (``phase_bigvgan_train``);
+   call (training and validation) and 218 backward per step, 108 tower and
+   54 MRD convolution backwards per step, none of the HiFiGAN cluster's
+   (``phase_bigvgan_train``);
 5. card vs CPU: one utterance at zero noise through the port's slice on the
    card (kernels) and on the CPU (plain versions, which the CPU tests hold
    to the JAX package), in both mm dtypes, TF32 off. f32 (the f32 kernel's
@@ -849,6 +859,143 @@ def phase_amp_conv_backward(ac):
     return rows
 
 
+# BigVGAN's MRD at the bigvgan_train cell's shapes (4 crops of 65536
+# samples); a step runs the discriminators' two passes (dW, db and dx below
+# the first layer) and the generator's pass (dx alone) through the kernels
+MRD_SAMPLES, MRD_BATCH = 65536, 4
+MRD_ERR_RATIO = 3.0   # a tensor's error vs float64 over the plain f32 path's, as the towers'
+MRD_TWIN_TOL = 1e-4   # kernels vs plain twin, max|d| / max(1, max|ref|)
+
+
+def mrd_layer_shapes():
+    """(resolution, layer, (kw, sw, ci, co), H, Wi) of the cell's 18 MRD
+    convolutions, read from ``DiscriminatorR``'s layers: H = n_fft / 2 + 1
+    bins, Wi the frames of the reflect-padded signal, halved (rounded up)
+    by each stride-2 layer."""
+    from neuralsvb_torch.models.bigvgan import MRD_RESOLUTIONS, DiscriminatorR
+    out = []
+    for res in MRD_RESOLUTIONS:
+        n_fft, hop, _ = res
+        d = DiscriminatorR(res)
+        wi = (MRD_SAMPLES + 2 * ((n_fft - hop) // 2) - n_fft) // hop + 1
+        for j, conv in enumerate(list(d.convs) + [d.conv_post]):
+            co, ci, _, kw = conv.weight.shape
+            sw = conv.stride[1]
+            out.append((n_fft, j, (kw, sw, ci, co), n_fft // 2 + 1, wi))
+            wi = (wi - 1) // sw + 1
+    return out
+
+
+def phase_mrd_conv_backward(mc):
+    """The MRD's convolution backward (``ops/mrd_conv.py``) at the 18 layer
+    shapes of ``bigvgan_train``, TF32 off, in both of a step's calls: the
+    discriminators' (dW, db and dx but below the first layer, whose input
+    is data) and the generator's (dx alone). From cuDNN's forward and the
+    activation, each tensor the kernels compute against the plain twin
+    (``mrd_conv_backward_plain``, f32) within MRD_TWIN_TOL and, with the
+    plain f32 path (autograd through ``F.conv2d`` and the leaky-ReLU),
+    against float64 autograd: each tensor's relative L2 error within
+    MRD_ERR_RATIO times the plain path's error of the same tensor; two
+    calls bit-equal; one count a call. Device times of each call from a
+    profile of 5 calls, by kernel (dgrad, wgrad, reduction, all with the
+    weight's permute), and between events (``call_ms``: dgrad and wgrad
+    overlap on two streams); cuDNN's autograd for the same calls. The step
+    sums the discriminators' two calls and the generator's one over the 18
+    layers and puts them beside their least time, the FLOPs at the f32
+    FFMA peak. Returns the rows."""
+    import torch
+    import torch.nn.functional as F
+    from neuralsvb_torch.utils.profiling import median_ms, roofline
+    gen = torch.Generator().manual_seed(31)
+    keys = ("mrd_conv_dgrad", "mrd_conv_wgrad", "dilated_conv_reduce", "")
+    rows = []
+    for n_fft, j, (kw, sw, ci, co), H, wi in mrd_layer_shapes():
+        lrelu = co != 1
+        x = torch.randn(MRD_BATCH, ci, H, wi, generator=gen).cuda()
+        w = (torch.randn(co, ci, 3, kw, generator=gen) / (ci * 3 * kw) ** 0.5).cuda()
+        b = (0.1 * torch.randn(co, generator=gen)).cuda()
+
+        def act(t):
+            return torch.where(t >= 0, t, t * mc.LRELU_SLOPE) if lrelu else t
+
+        def fwd(a, p):
+            return act(F.conv2d(a, p[0], p[1], (1, sw), (1, kw // 2)))
+        y = fwd(x, [w, b])
+        dy = torch.randn(y.shape, generator=gen).cuda()
+        disc_dx = j > 0  # the discriminators' call: the first layer's input is data
+
+        def disc():
+            return mc.mrd_conv_backward_cuda(x, w, y, dy, sw, lrelu, need_dx=disc_dx)
+
+        def gen_pass():
+            return mc.mrd_conv_backward_cuda(x, w, y, dy, sw, lrelu, need_dw=False)
+        before = mc.mrd_conv_backward_cuda.launches
+        got_d, got_g = disc(), gen_pass()
+        launches = mc.mrd_conv_backward_cuda.launches - before
+        again_d, again_g = disc(), gen_pass()
+        torch.cuda.synchronize()
+        # dx, dW, db: the generator's dx, the discriminators' dW and db
+        got = [got_g[0], got_d[1], got_d[2]]
+        bit_equal = (all(torch.equal(p, q) for p, q in zip(got_d, again_d) if p is not None)
+                     and torch.equal(got_g[0], again_g[0])
+                     and (not disc_dx or torch.equal(got_d[0], got_g[0])))
+        del again_d, again_g, got_d, got_g
+        twin = list(mc.mrd_conv_backward_plain(x, w, y, dy, sw, lrelu))
+        vs_twin = [float((p - q).abs().max()) / max(1.0, float(q.abs().max()))
+                   for p, q in zip(got, twin)]
+        del twin
+        ref = autograd_grads(fwd, x.double(), [w.double(), b.double()], dy.double())
+        plain = autograd_grads(fwd, x, [w, b], dy)
+        err_k, err_p = grad_errors(got, ref), grad_errors(plain, ref)
+        del ref, plain, got
+        ratios = [k / p for k, p in zip(err_k, err_p)]
+        ms_d = device_ms_by(disc, keys, n=5)
+        ms_g = device_ms_by(gen_pass, keys, n=5)
+        call_ms = 2 * median_ms(disc, n=10) + median_ms(gen_pass, n=10)
+
+        def cudnn_ms(on_x, on_w):
+            xs = x.clone().requires_grad_(on_x)
+            ws, bs = (t.clone().requires_grad_(on_w) for t in (w, b))
+            out = fwd(xs, [ws, bs])
+            wrt = [t for t, on in ((xs, on_x), (ws, on_w), (bs, on_w)) if on]
+            return kernel_device_ms(
+                lambda: torch.autograd.grad(out, wrt, dy, retain_graph=True), n=5)
+        cudnn_disc_ms, cudnn_gen_ms = cudnn_ms(disc_dx, True), cudnn_ms(True, False)
+        flop = 2 * MRD_BATCH * H * y.shape[-1] * co * ci * 3 * kw  # one dgrad or wgrad
+        step_flop = 2 * (flop * disc_dx + flop) + flop
+
+        def step_ms(key):
+            return 2 * ms_d[key] + ms_g[key]
+        bound, share, _ = roofline(step_flop, 0, step_ms("") / 1e3, torch.float32)
+        ok = (max(ratios) <= MRD_ERR_RATIO and bit_equal and launches == 2
+              and max(vs_twin) <= MRD_TWIN_TOL)
+        row = dict(n_fft=n_fft, layer=j, geometry=[kw, sw, ci, co], H=H, Wi=wi, Wo=y.shape[-1],
+                   ok=ok, launches=launches, bit_equal=bit_equal, vs_twin_max_rel=vs_twin,
+                   f64_rel_l2_kernel=err_k, f64_rel_l2_plain=err_p, ratios=ratios,
+                   ratio_tol=MRD_ERR_RATIO, dgrad_ms=step_ms("mrd_conv_dgrad"),
+                   gen_dgrad_ms=ms_g["mrd_conv_dgrad"], wgrad_ms=step_ms("mrd_conv_wgrad"),
+                   reduce_ms=step_ms("dilated_conv_reduce"), kernel_ms=step_ms(""),
+                   call_ms=call_ms, cudnn_ms=2 * cudnn_disc_ms + cudnn_gen_ms,
+                   bound_ms=bound * 1e3, bound_share=share,
+                   kernel_tflops=step_flop / step_ms("") / 1e9)
+        emit("mrd_conv_backward", **row)
+        if not ok:
+            raise AssertionError(f"MRD conv backward kernels: {row}")
+        rows.append(row)
+        del x, w, b, y, dy
+
+    def step(key):
+        return sum(r[key] for r in rows)
+
+    emit("mrd_conv_train_step", convs=3 * len(rows), dgrad_ms=step("dgrad_ms"),
+         gen_dgrad_ms=step("gen_dgrad_ms"), wgrad_ms=step("wgrad_ms"),
+         reduce_ms=step("reduce_ms"), kernel_ms=step("kernel_ms"), cudnn_ms=step("cudnn_ms"),
+         bound_ms=step("bound_ms"), bound_share=step("bound_ms") / step("kernel_ms"),
+         call_ms=step("call_ms"),
+         worst_f64_ratio=[max(r["ratios"][i] for r in rows) for i in range(3)])
+    return rows
+
+
 def write_bigvgan_split(data_dir, hp, seconds, prefix, seed):
     """A packed split of sung vibrato crops at the recipe's rate with their
     log-mels (``synthetic_crops``), one item of about ``seconds`` each."""
@@ -869,6 +1016,7 @@ BIGVGAN_RECIPE = "egs/datasets/audio/PopBuTFy/bigvgan_v2_24k_torch.yaml"
 BIGVGAN_STEPS, BIGVGAN_VALID_ITEMS = 3, 2
 BIGVGAN_AMP_CALLS = 6 * 18 + 1  # Activation1d calls a generator pass: 18 a stage, the final
 BIGVGAN_TOWER_CONVS = 6 * 18  # AMPBlock1 convolutions: 3 towers x 6 a stage
+BIGVGAN_MRD_CONVS = 3 * 6 * 3  # MRD convolution backwards in the kernels: 3 x 6, 3 passes a step
 BIGVGAN_KEYS = {"mel", "a_p", "a_r", "fm", "r_p", "f_p", "r_r", "f_r"}
 
 
@@ -883,8 +1031,9 @@ def phase_bigvgan_train(device="cuda"):
     when fit starts and reports them in its summary: the AMP kernels launch
     BIGVGAN_AMP_CALLS forward a generator call (each training step and each
     validation batch) and twice that backward a step, the towers'
-    convolution backward BIGVGAN_TOWER_CONVS a step, the HiFiGAN cluster's
-    kernels never. Returns the summary's launch counts."""
+    convolution backward BIGVGAN_TOWER_CONVS a step, the MRD's
+    BIGVGAN_MRD_CONVS a step, the HiFiGAN cluster's kernels never. Returns
+    the summary's launch counts."""
     import math
     import yaml
     from neuralsvb_torch.hparams import set_hparams
@@ -916,6 +1065,7 @@ def phase_bigvgan_train(device="cuda"):
     want = {"amp_forward_cuda_launches": BIGVGAN_AMP_CALLS * calls * on_card,
             "amp_backward_cuda_launches": 2 * BIGVGAN_AMP_CALLS * trained * on_card,
             "amp_conv_backward_cuda_launches": BIGVGAN_TOWER_CONVS * trained * on_card,
+            "mrd_conv_backward_cuda_launches": BIGVGAN_MRD_CONVS * trained * on_card,
             "resblock_conv1d_bf16_launches": 0, "resblock_conv1d_launches": 0,
             "resblock_cluster_backward_cuda_launches": 0}
     launches = {k: s[k] for k in want}
@@ -956,28 +1106,51 @@ def amp_main():
     print(json.dumps({"ok": True}), flush=True)
 
 
-def amp_conv_backward_main():
-    """``python3 chip_smoke.py --amp-conv-bwd``: the environment line, the
-    build of the library, ``phase_amp_conv_backward`` and
-    ``phase_bigvgan_train`` alone (a few minutes on one card)."""
+def kernel_phases_main(what, libs, phases):
+    """The environment line, the build of the libraries ``libs`` (name ->
+    ``SharedLibrary`` of the port) and the calls ``phases`` alone, in a
+    fresh work directory; ``what`` names the run where there is no card."""
     os.chdir(REPO)
     sys.path.insert(0, REPO)
     import torch
-    from neuralsvb_torch.ops import amp_conv, dilated_conv
     if not torch.cuda.is_available():
-        raise RuntimeError("the AMP conv backward's phase needs an NVIDIA card")
+        raise RuntimeError(f"{what} needs an NVIDIA card")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi.splitlines()[0])
     tf32(False)
-    build_all({"dilated_conv_backward": dilated_conv.LIBRARY})
+    build_all(libs)
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
-    phase_amp_conv_backward(amp_conv)
-    phase_bigvgan_train()
+    for phase in phases:
+        phase()
     print(json.dumps({"ok": True}), flush=True)
+
+
+def amp_conv_backward_main():
+    """``python3 chip_smoke.py --amp-conv-bwd``: the environment line, the
+    build of the library, ``phase_amp_conv_backward`` and
+    ``phase_bigvgan_train`` alone (a few minutes on one card)."""
+    sys.path.insert(0, REPO)
+    from neuralsvb_torch.ops import amp_conv, dilated_conv
+    kernel_phases_main("the AMP conv backward's phase",
+                       {"dilated_conv_backward": dilated_conv.LIBRARY},
+                       [lambda: phase_amp_conv_backward(amp_conv), phase_bigvgan_train])
+
+
+def mrd_conv_backward_main():
+    """``python3 chip_smoke.py --mrd-conv-bwd``: the environment line, the
+    build of the libraries BigVGAN's training runs, ``phase_mrd_conv_backward``
+    and ``phase_bigvgan_train`` alone (a few minutes on one card)."""
+    sys.path.insert(0, REPO)
+    from neuralsvb_torch.ops import amp_activation, dilated_conv, mrd_conv
+    kernel_phases_main("the MRD conv backward's phase",
+                       {"mrd_conv_backward": mrd_conv.LIBRARY,
+                        "dilated_conv_backward": dilated_conv.LIBRARY,
+                        "amp_activation": amp_activation.LIBRARY},
+                       [lambda: phase_mrd_conv_backward(mrd_conv), phase_bigvgan_train])
 
 
 def vocoder_keys():
@@ -4613,10 +4786,12 @@ def build_all(libs=None):
     """nvcc for each CUDA source and g++ for the host library (or the
     libraries ``libs`` names), all started together."""
     from neuralsvb_torch import native
-    from neuralsvb_torch.ops import amp_activation, chi2, dilated_conv, fused_resblock as fr
+    from neuralsvb_torch.ops import (amp_activation, chi2, dilated_conv, fused_resblock as fr,
+                                     mrd_conv)
     libs = libs or {"resblock_bf16": fr.LIBRARY_BF16, "fused_resblock": fr.LIBRARY,
                     "dilated_conv_backward": dilated_conv.LIBRARY, "chi2_dist": chi2.LIBRARY,
-                    "amp_activation": amp_activation.LIBRARY, "native_dtw": native.LIBRARY}
+                    "amp_activation": amp_activation.LIBRARY,
+                    "mrd_conv_backward": mrd_conv.LIBRARY, "native_dtw": native.LIBRARY}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.get) for lib in libs.values()]:
@@ -4651,7 +4826,7 @@ def main():
          nvidia_smi=smi)
     tf32(False)
 
-    from neuralsvb_torch.ops import amp_activation, amp_conv, chi2, fused_resblock as fr
+    from neuralsvb_torch.ops import amp_activation, amp_conv, chi2, fused_resblock as fr, mrd_conv
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     build_all()
@@ -4661,6 +4836,7 @@ def main():
     bwd_rows = phase_cluster_backward(fr, spec)
     amp_rows = phase_amp(amp_activation)
     conv_rows = phase_amp_conv_backward(amp_conv)
+    mrd_rows = phase_mrd_conv_backward(mrd_conv)
     chi2_rows, chi2_worst = phase_chi2(chi2)
     voc = vocoder_keys()
     # the --infer process zeroes its counts at test_start and reports them at
@@ -4812,6 +4988,12 @@ def main():
         "plain_ms": sum(r["per_step"] * r["plain_ms"] for r in conv_rows),
         "bound_ms": sum(r["per_step"] * r["bound_ms"] for r in conv_rows),
         "bound_by": "operations", "library_ms": None}, {
+        "name": "mrd_conv_backward", "route": "cuda",
+        "source": "neuralsvb_torch/csrc/mrd_conv_backward.cu", "replaces": None,
+        "bigvgan_train_launches": bigvgan_launches["mrd_conv_backward_cuda_launches"],
+        "ms": total(mrd_rows, "kernel_ms"), "plain_ms": total(mrd_rows, "cudnn_ms"),
+        "bound_ms": total(mrd_rows, "bound_ms"), "bound_by": "operations",
+        "library_ms": None}, {
         "name": "chi2_dist", "route": "cuda",
         "source": "neuralsvb_torch/csrc/chi2_dist.cu",
         "replaces": CHI2_TPU_KERNEL, "launches": chi2_launches,
@@ -4838,5 +5020,7 @@ if __name__ == "__main__":
         amp_main()
     elif sys.argv[1:2] == ["--amp-conv-bwd"]:
         amp_conv_backward_main()
+    elif sys.argv[1:2] == ["--mrd-conv-bwd"]:
+        mrd_conv_backward_main()
     else:
         main()

@@ -18,8 +18,12 @@ on the card). There is no weight norm, as in the port's HiFiGAN. The mel enters 
 
 MRD: per resolution (n_fft, hop, win) the STFT magnitude of the
 reflect-padded signal (rectangular window, as the published call passes
-none), then 2-D convolutions over (frequency, time) with leaky-ReLU 0.1;
-parameter names are the published ``discriminators.{i}.convs.{j}`` and
+none), then 2-D convolutions over (frequency, time) with leaky-ReLU 0.1,
+each through ``ops.mrd_conv.mrd_conv2d``: cuDNN's float32 forward; on the
+card both updates (the discriminators' and the generator's) take its
+gradients from the hand-written kernels of ``csrc/mrd_conv_backward.cu``,
+on the CPU from the plain twin; parameter names are the published
+``discriminators.{i}.convs.{j}`` and
 ``conv_post``. Under a ``torch.profiler`` session the generator records a
 span ``bigvgan.stage`` around each upsampling stage with its towers, the
 MRD a span ``mrd`` (``utils/profiling.py`` ``span``).
@@ -36,9 +40,9 @@ import torch.nn.functional as F
 
 from ..ops.amp_activation import amp_activation
 from ..ops.amp_conv import amp_conv1d
+from ..ops.mrd_conv import mrd_conv2d
 from ..utils.profiling import span
-from .common import leaky_relu
-from .hifigan import LRELU_SLOPE, get_padding
+from .hifigan import get_padding
 
 MRD_RESOLUTIONS = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
 
@@ -151,9 +155,9 @@ class DiscriminatorR(nn.Module):
         h = self.spectrogram(x)[:, None]
         fmap = []
         for conv in self.convs:
-            h = leaky_relu(conv(h), LRELU_SLOPE)
+            h = mrd_conv2d(h, conv.weight, conv.bias, conv.stride[1], lrelu=True)
             fmap.append(h)
-        h = self.conv_post(h)
+        h = mrd_conv2d(h, self.conv_post.weight, self.conv_post.bias, 1, lrelu=False)
         fmap.append(h)
         return h.flatten(1), fmap
 

@@ -29,7 +29,10 @@ long as x), W [Co, Ci, K] and g = dL/dy::
 
 Each launch runs on PyTorch's current stream. The library is built with
 ``nvcc`` at first use (``shared_lib.SharedLibrary``). ``launches`` counts
-every launch, so that a schedule can count its own.
+every launch, so that a schedule can count its own. The argument checks
+(``check_f32``, ``check_cuda``), the checked launch (``checked_launch``)
+and the second stream (``side_stream``) also serve the MRD's backward
+(``ops/mrd_conv.py``), whose kernels live in a library of their own.
 """
 
 from __future__ import annotations
@@ -94,7 +97,7 @@ def side_stream(device: torch.device) -> "torch.cuda.Stream":
     return _SIDE_STREAMS[index]
 
 
-def _same(name: str, tensors, strided) -> torch.device:
+def check_f32(name: str, tensors, strided=()) -> torch.device:
     """The first tensor's device, after a ValueError unless every
     ``(label, tensor, shape)`` (tensor None: absent) is f32 of that shape
     on it, and contiguous unless its label is in ``strided``."""
@@ -110,7 +113,7 @@ def _same(name: str, tensors, strided) -> torch.device:
     return dev
 
 
-def _cuda(name: str, dev: torch.device) -> None:
+def check_cuda(name: str, dev: torch.device) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{name} launches CUDA kernels; got tensors on {dev}")
 
@@ -122,11 +125,11 @@ def check(name: str, k: int, d: int, lrelu: bool, *tensors, strided=()) -> torch
     contiguous (unless its label is in ``strided``), ``k`` is a kernel size
     built for the variant (``LRELU_KS`` or ``PLAIN_KS``) and ``d`` >= 1,
     then unless that device is CUDA. Returns the device."""
-    dev = _same(name, tensors, strided)
+    dev = check_f32(name, tensors, strided)
     ks = LRELU_KS if lrelu else PLAIN_KS
     if k not in ks or int(d) < 1:
         raise ValueError(f"{name} takes K in {ks} and d >= 1; got K={k} d={d}")
-    _cuda(name, dev)
+    check_cuda(name, dev)
     return dev
 
 
@@ -134,16 +137,23 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _launch(entry: str, dev: torch.device, args, shape) -> None:
-    """One call of the library's ``entry`` on the device's current stream;
-    ``shape()`` names the launch in the error."""
-    global launches
-    lib = LIBRARY.get()
+def checked_launch(library: SharedLibrary, entry: str, dev: torch.device, args,
+                   shape) -> None:
+    """One call of ``library``'s ``entry``, which launches on the device's
+    current stream and returns a CUDA error code; a RuntimeError, naming the
+    launch by ``shape()``, unless it is 0."""
+    lib = library.get()
     index = dev.index  # an int: the cheaper lookups
     with torch.cuda.device(index):
         err = getattr(lib, entry)(*args, torch.cuda.current_stream(index).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {err} ({shape()})")
+
+
+def _launch(entry: str, dev: torch.device, args, shape) -> None:
+    """``checked_launch`` of this module's library, counted."""
+    global launches
+    checked_launch(LIBRARY, entry, dev, args, shape)
     launches += 1
 
 
@@ -210,8 +220,8 @@ def reduce(parts: torch.Tensor, out: torch.Tensor) -> None:
     workspace, the slices added in a fixed order."""
     ns, n = parts.shape
     name = "dilated_conv.reduce"
-    dev = _same(name, (("parts", parts, (ns, n)), ("out", out, (n,))), ())
-    _cuda(name, dev)
+    dev = check_f32(name, (("parts", parts, (ns, n)), ("out", out, (n,))))
+    check_cuda(name, dev)
     lanes = 8 if ns >= 32 else 1  # threads that add one output's slices
     _launch("nsvb_dconv_reduce", dev, [_ptr(parts), _ptr(out), n, ns, lanes],
             lambda: f"slices={ns} n={n}")

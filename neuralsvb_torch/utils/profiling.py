@@ -265,7 +265,7 @@ def top_ops(prof, k: int = 15):
 
 # kernel names -> kinds, for profiler splits
 KERNEL_KINDS = (("ResBlock cluster kernels", ("resblock_conv1d", "lrelu_bf16")),
-                ("conv backward kernels (hand-written)", ("dilated_conv",)),
+                ("conv backward kernels (hand-written)", ("dilated_conv", "mrd_conv")),
                 ("optimizer (Adam, clip)", ("adam", "foreach", "multi_tensor", "norm_kernel")),
                 ("FFT (cuFFT)", ("fft",)),
                 ("convolution (cuDNN)", ("conv", "cudnn", "implicit", "winograd", "xmma",

@@ -20,7 +20,11 @@ Each group's time is split into ``dgrad`` (kernels named ``dgrad``),
 rest), with the kernels' names. Where the towers' backward runs the
 program's own kernels (``dilated_conv_*``, launched from ``amp_conv1d``'s
 backward, not from a ``convolution_backward``), ``tower_kernels`` gives
-their device ms and launches per step by kernel. Also prints
+their device ms and launches per step by kernel; where the MRD's runs its
+own (``mrd_conv_*`` and the reduction ``dilated_conv_reduce``, launched
+under ``mrd_conv2d``'s backward node), ``mrd_kernels`` does (dgrad, wgrad
+and reduce, and ``mrd_kernels_ms`` their sum), and ``tower_kernels``
+leaves them out. Also prints
 ``unmatched_ms``: the traced steps' other kernels named like a
 convolution gradient that no ``convolution_backward`` holds.
 
@@ -41,6 +45,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STAGE_CHANNELS = (768, 384, 192, 96, 48, 24)
 # the towers' own backward kernels (ops/dilated_conv.py; the cell runs no other caller)
 TOWER_KERNELS = "dilated_conv_"
+# the MRD's own backward kernels (ops/mrd_conv.py) and its autograd node, under
+# which they and the reduction they share with the towers are launched
+MRD_KERNELS = "mrd_conv_"
+MRD_BACKWARD = "_MRDConvBackward"
 
 
 def group_of(shapes):
@@ -100,14 +108,32 @@ def attribute(prof, steps):
     attributed = sum(r["dgrad"] + r["wgrad"] for r in groups.values())
     kernels = [(e.name, e.time_range.end - e.time_range.start) for e in events
                if e.device_type.name == "CUDA"]
+    own = (TOWER_KERNELS, MRD_KERNELS)
     all_grad = sum(t for n, t in kernels
-                   if ("dgrad" in n or "wgrad" in n) and TOWER_KERNELS not in n)
-    towers_own = defaultdict(lambda: {"ms": 0.0, "launches": 0.0})
+                   if ("dgrad" in n or "wgrad" in n) and not any(o in n for o in own))
+    by_owner = {o: defaultdict(lambda: {"ms": 0.0, "launches": 0.0}) for o in own}
+
+    def add(owner, name, t, sign=1):
+        for o in own:
+            if o in name:
+                kind = name.split(o, 1)[1].split("_kernel", 1)[0]
+                by_owner[owner][kind]["ms"] += sign * t / 1e3 / steps
+                by_owner[owner][kind]["launches"] += sign / steps
     for n, t in kernels:
-        if TOWER_KERNELS in n:
-            kind = n.split(TOWER_KERNELS, 1)[1].split("_kernel", 1)[0]
-            towers_own[kind]["ms"] += t / 1e3 / steps
-            towers_own[kind]["launches"] += 1 / steps
+        for o in own:
+            if o in n:
+                add(o, n, t)
+    # the MRD's share of the kernels named like the towers' (the reduction)
+    moved = set()
+    for e in events:
+        if e.device_type.name != "CPU" or not e.name.endswith(MRD_BACKWARD):
+            continue
+        for k in kernels_under(e):
+            if id(k) in moved or TOWER_KERNELS not in k.name:
+                continue
+            moved.add(id(k))
+            add(TOWER_KERNELS, k.name, k.duration, -1)
+            add(MRD_KERNELS, k.name, k.duration)
     out = {}
     for g, r in sorted(groups.items()):
         out[g] = {"dgrad_ms": r["dgrad"], "wgrad_ms": r["wgrad"], "other_ms": r["other"],
@@ -121,7 +147,9 @@ def attribute(prof, steps):
                "towers_other_ms": sum(r["other_ms"] for r in towers),
                "towers_calls": sum(r["calls"] for r in towers),
                "grad_kernels_ms": all_grad / 1e3 / steps,
-               "tower_kernels": dict(towers_own),
+               "tower_kernels": dict(by_owner[TOWER_KERNELS]),
+               "mrd_kernels": dict(by_owner[MRD_KERNELS]),
+               "mrd_kernels_ms": sum(r["ms"] for r in by_owner[MRD_KERNELS].values()),
                "unmatched_ms": all_grad / 1e3 / steps - attributed}
     return summary, out
 
@@ -154,10 +182,13 @@ def main():
                                             "--trace", "1"]))
     finally:
         torch.profiler.profile = base
+    for note in res.notes:  # the harness's own diagnostics, as its command prints them
+        print(note, file=sys.stderr)
     steps = sum(1 for name, _, _ in res.trace.spans if name == "train_one")
     summary, groups = attribute(made[0], steps)
     result = {"device": torch.cuda.get_device_name(0), "seed": args.seed,
-              "correct": line["correct"], "summary": summary, "groups": groups,
+              "correct": line["correct"], "checks": line["checks"], "summary": summary,
+              "groups": groups,
               "metrics": line["metrics"], "device_ops": line["breakdown"]["device_ops"]}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

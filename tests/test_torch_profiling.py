@@ -138,6 +138,8 @@ def test_device_busy_merges_overlapping_streams():
     assert P.kernel_kind("void cutlass::Kernel2<cutlass_80_simt_sgemm>") == "matmul (cuBLAS)"
     assert P.kernel_kind("something_new") == "other"
     for name in ("dilated_conv_dgrad_kernel<3, 64, true>",
-                 "dilated_conv_wgrad_kernel<11, 1, false>", "dilated_conv_reduce_kernel"):
+                 "dilated_conv_wgrad_kernel<11, 1, false>", "dilated_conv_reduce_kernel",
+                 "mrd_conv_dgrad_kernel<9, 2, 32, 32, true>",
+                 "mrd_conv_wgrad_kernel<3, 1, 32, 1, false>"):
         assert P.kernel_kind(f"void (anonymous namespace)::{name}") == \
             "conv backward kernels (hand-written)"
